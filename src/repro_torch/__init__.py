@@ -1,0 +1,26 @@
+"""PyTorch/CUDA port of the CLEAVE reproduction (``src/repro``), for one
+NVIDIA H100.
+
+The port imports ``torch`` and numpy, never ``jax`` and nothing of
+``repro``: the framework-neutral numpy modules (planner, churn recovery,
+Freivalds oracle, pricing engine, configs, batcher) are kept here as
+copies with only their imports rewritten.  Entry points run on the card
+(``device="cuda"``) unless the caller asks for the CPU; on a host without
+CUDA a default-device call raises instead of falling back.
+"""
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names CUDA and this
+    host has no usable CUDA device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but torch.cuda.is_available() is False; pass "
+            "device='cpu' to run the port's plain CPU path")
+    return dev

@@ -1,0 +1,481 @@
+"""`TorchCleaveRuntime`: the plan → execute → recover → serve session of
+the port (``src/repro/api/runtime.py``'s ``CleaveRuntime``, serving
+slice).
+
+It owns the DAG cache, the fleet-signature-keyed plan cache, churn
+recovery that patches cached plans, and numerical execution on two
+backends: ``"numpy"`` (the float64 host stand-in) and ``"torch"`` (the
+band GEMM kernel on ``device``, with device-side Freivalds residuals).
+``execute_level``/``execute_batch``, training, ``stream_profile`` and
+``simulate`` belong to later slices of the port.
+
+Typical session::
+
+    rt = TorchCleaveRuntime(arch="llama3-8b", fleet=Fleet.sample(16, seed=0))
+    step = rt.execute_step(A, B, fail_ids=[7], backend="torch")
+    rt.on_failure([7])            # evict + patch cached plans
+    sess = rt.serve_session(params, slots=4)
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.api.accounting import AccountingStrategy, get_accounting
+from repro_torch.api.fleet import Fleet
+from repro_torch.api.mitigation import (MitigationPolicy, MitigationReport,
+                                        get_mitigation)
+from repro_torch.configs.base import get_config
+from repro_torch.core import churn, cost_model as cm, executor
+from repro_torch.core.gemm_dag import GemmDag, build_dag
+from repro_torch.core.scheduler import (SchedulePlan, plan_shape_key,
+                                        reprice_plan, schedule,
+                                        solve_level_gemm)
+
+BACKENDS = ("numpy", "torch")
+
+
+# ------------------------------------------------------------------- types --
+
+@dataclass(frozen=True)
+class PlanRequest:
+    """What to plan: one training (or forward-only) batch of the session's
+    architecture.  Hashable -- also the runtime's DAG-cache key."""
+    batch: int
+    seq: int
+    attention_scores: str = "ps"
+    backward: bool = True
+    lm_head: bool = True
+    heterogeneity_aware: bool = True
+
+
+@dataclass
+class PlanReport:
+    """Result of :meth:`TorchCleaveRuntime.plan`: the priced schedule."""
+    request: PlanRequest
+    accounting: str
+    batch_time: float
+    gemm_time: float
+    opt_tail: float
+    per_device_comm: float
+    per_device_mem: float
+    schedule: SchedulePlan
+    fleet_signature: str
+    solve_time: float
+    cache_hits: int
+    cache_misses: int
+    mitigation: Optional[MitigationReport] = None
+
+    @property
+    def cached(self) -> bool:
+        return self.cache_misses == 0
+
+
+@dataclass
+class StepReport:
+    """Result of :meth:`TorchCleaveRuntime.execute_step`: one GEMM executed
+    numerically on the fleet.  ``output`` is a float64 numpy array for the
+    numpy backend and a float32 tensor on the runtime's device for the
+    torch backend."""
+    gemm: cm.GEMM
+    plan: cm.Plan
+    output: Union[np.ndarray, torch.Tensor]
+    verified: bool
+    n_tasks: int
+    n_recovered: int
+    recovery: Optional[churn.RecoveryResult]
+    exec_time: float
+    plan_cached: bool
+    backend: str = "numpy"      # 'numpy' | 'torch'
+    kernel: str = ""            # torch backend: resolved 'cuda' | 'torch'
+    gflops: float = 0.0         # torch backend: achieved GFLOP/s
+
+
+@dataclass
+class ChurnReport:
+    """Result of :meth:`TorchCleaveRuntime.on_failure`: the fleet shrank
+    and the plan cache was incrementally patched (§4.2)."""
+    failed_ids: List[int]
+    n_survivors: int
+    n_plans_patched: int
+    n_plans_carried: int
+    n_plans_dropped: int
+    recovery_time: float
+    recomputed_fraction: float
+    solve_time: float
+    fleet_signature: str
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown executor backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+
+
+def _host_operand(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x)
+
+
+# ----------------------------------------------------------------- runtime --
+
+class TorchCleaveRuntime:
+    """The port's CLEAVE entry surface (see module docstring).  ``device``
+    is where the torch backend runs its kernels and keeps its tensors; the
+    default ``"cuda"`` raises on a host without CUDA."""
+
+    def __init__(self, arch: Union[str, object] = "opt-13b",
+                 fleet: Optional[Fleet] = None, *,
+                 accounting: Union[str, AccountingStrategy] = "unicast",
+                 mitigation: Union[str, MitigationPolicy, None] = "none",
+                 ps: Optional[cm.PSConfig] = None,
+                 attention_scores: str = "ps",
+                 heterogeneity_aware: bool = True,
+                 seed: int = 0,
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.cfg = get_config(arch) if isinstance(arch, str) else arch
+        self.fleet = fleet if fleet is not None else Fleet.sample(256,
+                                                                  seed=seed)
+        self.accounting = get_accounting(accounting)
+        self.mitigation = get_mitigation(mitigation)
+        self.ps = ps or cm.PSConfig()
+        self.attention_scores = attention_scores
+        self.heterogeneity_aware = heterogeneity_aware
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self.history: List[dict] = []
+        self._dag_cache: Dict[PlanRequest, GemmDag] = {}
+        self._plan_caches: Dict[Tuple[str, bool], Dict[tuple, cm.Plan]] = {}
+        self._sched_cache: Dict[Tuple[PlanRequest, str], SchedulePlan] = {}
+        # device-resident padded-operand cache of the torch backend
+        self._pad_cache = None
+
+    # ---------------------------------------------------------------- plan --
+
+    def plan(self, batch: Optional[int] = None, seq: Optional[int] = None,
+             *, request: Optional[PlanRequest] = None) -> PlanReport:
+        """Solve (or warm-load) the batch schedule for the session fleet."""
+        if request is None:
+            if batch is None or seq is None:
+                raise ValueError("plan() needs batch+seq or a PlanRequest")
+            request = PlanRequest(
+                batch=batch, seq=seq,
+                attention_scores=self.attention_scores,
+                heterogeneity_aware=self.heterogeneity_aware)
+        dag = self._dag(request)
+        cache = self._cache(request.heterogeneity_aware)
+        sched_key = (request, self.fleet.signature())
+        t0 = time.perf_counter()
+        sp = self._sched_cache.get(sched_key)
+        if sp is not None:
+            hits, misses = len(sp.plans_by_shape), 0
+        else:
+            shapes = {plan_shape_key(g) + (g.count,) for g in dag.gemms}
+            hits = sum(1 for k in shapes if k in cache)
+            misses = len(shapes) - hits
+            sp = schedule(dag, self.fleet.table(), ps=self.ps,
+                          heterogeneity_aware=request.heterogeneity_aware,
+                          plan_cache=cache)
+            self._sched_cache[sched_key] = sp
+        solve_time = time.perf_counter() - t0
+        acc = self.accounting.apply(dag, sp)
+        report = PlanReport(
+            request=request, accounting=self.accounting.name,
+            batch_time=acc.batch_time, gemm_time=acc.gemm_time,
+            opt_tail=acc.opt_tail, per_device_comm=acc.per_device_comm,
+            per_device_mem=acc.per_device_mem, schedule=sp,
+            fleet_signature=self.fleet.signature(), solve_time=solve_time,
+            cache_hits=hits, cache_misses=misses,
+            mitigation=self.mitigation.mitigate(acc.batch_time))
+        self.history.append({
+            "event": "plan", "batch": request.batch, "seq": request.seq,
+            "batch_time": report.batch_time,
+            "solve_time": report.solve_time, "cached": report.cached})
+        return report
+
+    def plan_gemm(self, gemm: cm.GEMM) -> cm.Plan:
+        """Solve (or warm-load) one GEMM's sub-task plan."""
+        plan, _ = self._solve_gemm(gemm)
+        return plan
+
+    # ------------------------------------------------------------- execute --
+
+    def execute_step(self, A, B, *, gemm: Optional[cm.GEMM] = None,
+                     fail_ids: Sequence[int] = (),
+                     corrupt_ids: Sequence[int] = (),
+                     verify: bool = True,
+                     backend: str = "numpy",
+                     dtype_policy=None,
+                     kernel: str = "auto") -> StepReport:
+        """Numerically execute one GEMM's plan on the fleet.  Devices in
+        ``fail_ids`` vanish mid-level (in-flight recovery via
+        ``churn.recover``); ``corrupt_ids`` return poisoned blocks that
+        Freivalds verification must catch.  Uses the session RNG, so a
+        fixed-seed session is bit-reproducible.  ``A``/``B`` are numpy
+        arrays or tensors; the torch backend moves them to the runtime's
+        device."""
+        if gemm is None:
+            gemm = cm.GEMM(m=A.shape[0], n=A.shape[1], q=B.shape[1])
+        plan, cached = self._solve_gemm(gemm)
+        report = self._execute_one(gemm, plan, cached, A, B,
+                                   fail_ids=fail_ids,
+                                   corrupt_ids=corrupt_ids, verify=verify,
+                                   backend=backend,
+                                   dtype_policy=dtype_policy, kernel=kernel)
+        self.history.append({
+            "event": "execute_step", "shape": (gemm.m, gemm.n, gemm.q),
+            "backend": report.backend,
+            "verified": report.verified, "n_tasks": report.n_tasks,
+            "n_recovered": report.n_recovered, "plan_cached": cached})
+        return report
+
+    def _torch_pad_cache(self):
+        if self._pad_cache is None:
+            from repro_torch.kernels.ops import PadCache
+            self._pad_cache = PadCache()
+        return self._pad_cache
+
+    def _execute_one(self, gemm: cm.GEMM, plan: cm.Plan, cached: bool, A, B,
+                     *, fail_ids: Sequence[int], corrupt_ids: Sequence[int],
+                     verify: bool, backend: str, dtype_policy,
+                     kernel: str) -> StepReport:
+        _check_backend(backend)
+        t0 = time.perf_counter()
+        if backend == "numpy":
+            rep = executor.execute_plan(gemm, plan, _host_operand(A),
+                                        _host_operand(B), self.fleet.devices,
+                                        fail_ids=fail_ids,
+                                        corrupt_ids=corrupt_ids,
+                                        rng=self.rng, verify=verify)
+            kern, gflops = "", 0.0
+        else:
+            from repro_torch.core import torch_executor
+            rep = torch_executor.execute_plan_torch(
+                gemm, plan, A, B, self.fleet.table(), fail_ids=fail_ids,
+                corrupt_ids=corrupt_ids, rng=self.rng, verify=verify,
+                policy=dtype_policy, kernel=kernel,
+                pad_cache=self._torch_pad_cache(), device=self.device)
+            kern, gflops = rep.kernel, rep.gflops
+        return StepReport(
+            gemm=gemm, plan=plan, output=rep.output, verified=rep.verified,
+            n_tasks=rep.n_tasks, n_recovered=rep.n_recovered,
+            recovery=rep.recovery, exec_time=time.perf_counter() - t0,
+            plan_cached=cached, backend=backend, kernel=kern,
+            gflops=gflops)
+
+    def execute_step_deferred(self, A, B, *, gemm: Optional[cm.GEMM] = None,
+                              fail_ids: Sequence[int] = (),
+                              corrupt_ids: Sequence[int] = (),
+                              verify: bool = True,
+                              backend: str = "numpy",
+                              dtype_policy=None, kernel: str = "auto",
+                              rng: Optional[np.random.Generator] = None):
+        """Split-phase :meth:`execute_step`: returns ``(StepReport,
+        finalize)``; the report carries the compute phase only and
+        ``finalize()`` runs the deferred Freivalds checks, correcting failed
+        blocks in place and returning the corrected rects.  ``rng`` seeds
+        the checks (default: a child split off the session RNG)."""
+        if gemm is None:
+            gemm = cm.GEMM(m=A.shape[0], n=A.shape[1], q=B.shape[1])
+        plan, cached = self._solve_gemm(gemm)
+        step, fin = self._execute_one_deferred(
+            gemm, plan, cached, A, B, fail_ids=fail_ids,
+            corrupt_ids=corrupt_ids, verify=verify, backend=backend,
+            dtype_policy=dtype_policy, kernel=kernel, rng=rng)
+        self.history.append({
+            "event": "execute_step", "shape": (gemm.m, gemm.n, gemm.q),
+            "backend": step.backend, "deferred": True,
+            "verified": step.verified, "n_tasks": step.n_tasks,
+            "n_recovered": step.n_recovered, "plan_cached": cached})
+        return step, fin
+
+    def _execute_one_deferred(self, gemm: cm.GEMM, plan: cm.Plan,
+                              cached: bool, A, B, *,
+                              fail_ids: Sequence[int],
+                              corrupt_ids: Sequence[int], verify: bool,
+                              backend: str, dtype_policy, kernel: str,
+                              rng: Optional[np.random.Generator] = None):
+        _check_backend(backend)
+        if rng is None:
+            # never hand the session generator to overlapped verification
+            rng = np.random.default_rng(self.rng.integers(2 ** 63 - 1))
+        t0 = time.perf_counter()
+        if backend == "numpy":
+            rep, fin = executor.execute_plan_deferred(
+                gemm, plan, _host_operand(A), _host_operand(B),
+                self.fleet.devices, fail_ids=fail_ids,
+                corrupt_ids=corrupt_ids, rng=rng, verify=verify)
+            kern, gflops = "", 0.0
+        else:
+            from repro_torch.core import torch_executor
+            rep, fin = torch_executor.execute_plan_torch_deferred(
+                gemm, plan, A, B, self.fleet.table(), fail_ids=fail_ids,
+                corrupt_ids=corrupt_ids, rng=rng, verify=verify,
+                policy=dtype_policy, kernel=kernel,
+                pad_cache=self._torch_pad_cache(), device=self.device)
+            kern, gflops = rep.kernel, rep.gflops
+        step = StepReport(
+            gemm=gemm, plan=plan, output=rep.output, verified=rep.verified,
+            n_tasks=rep.n_tasks, n_recovered=rep.n_recovered,
+            recovery=rep.recovery, exec_time=time.perf_counter() - t0,
+            plan_cached=cached, backend=backend, kernel=kern,
+            gflops=gflops)
+
+        def finalize():
+            corrected = fin()
+            step.verified = rep.verified
+            step.n_recovered = rep.n_recovered
+            return corrected
+
+        return step, finalize
+
+    # ---------------------------------------------------------------- serve --
+
+    def serve_session(self, params=None, *, slots: int = 8,
+                      page_size: int = 16, max_len: int = 64,
+                      kv_int8: bool = False, backend: str = "torch",
+                      kernel: str = "auto", dtype_policy=None,
+                      verify: bool = True, check_paged_read: bool = False,
+                      n_pages: Optional[int] = None, seed: int = 0,
+                      dispatch: str = "level"):
+        """A fleet-backed decode serving session
+        (:class:`repro_torch.serving.ServeSession`) on the runtime's
+        device: continuous batching over ``slots`` lanes, a paged KV cache
+        on the device, and every per-token projection GEMM executed on this
+        runtime's fleet (plan cache, Freivalds, churn recovery) -- through
+        the band GEMM kernel with ``backend="torch"``."""
+        from repro_torch.serving import ServeSession
+        return ServeSession(self, params, slots=slots, page_size=page_size,
+                            max_len=max_len, kv_int8=kv_int8,
+                            backend=backend, kernel=kernel,
+                            dtype_policy=dtype_policy, verify=verify,
+                            check_paged_read=check_paged_read,
+                            n_pages=n_pages, seed=seed, dispatch=dispatch)
+
+    # -------------------------------------------------------------- recover --
+
+    def on_failure(self, ids: Sequence[int]) -> ChurnReport:
+        """Evict failed devices and incrementally patch every cached plan:
+        survivors keep their shards, only orphaned rectangles are re-solved
+        (§4.2).  Patched plans land in the new fleet signature's cache."""
+        failed = set(int(i) for i in ids)
+        new_fleet = self.fleet.without(failed)
+        if not len(new_fleet):
+            raise RuntimeError("no surviving devices")
+        survivors = new_fleet.table()
+        old_sig, new_sig = self.fleet.signature(), new_fleet.signature()
+        t0 = time.perf_counter()
+        patched = carried = dropped = 0
+        worst_time = worst_frac = 0.0
+        for het in (True, False):
+            old_cache = self._plan_caches.get((old_sig, het), {})
+            if not old_cache:
+                continue
+            new_cache = self._plan_caches.setdefault((new_sig, het), {})
+            for key, plan in old_cache.items():
+                if key in new_cache:
+                    continue
+                out = _patch_plan(plan, failed, survivors)
+                if out is None:
+                    dropped += 1
+                    continue
+                new_plan, rec = out
+                new_cache[key] = new_plan
+                if rec is None:
+                    carried += 1
+                else:
+                    patched += 1
+                    worst_time = max(worst_time, rec.recovery_time)
+                    worst_frac = max(worst_frac, rec.recomputed_fraction)
+        report = ChurnReport(
+            failed_ids=sorted(failed), n_survivors=len(new_fleet),
+            n_plans_patched=patched, n_plans_carried=carried,
+            n_plans_dropped=dropped,
+            recovery_time=worst_time, recomputed_fraction=worst_frac,
+            solve_time=time.perf_counter() - t0,
+            fleet_signature=new_sig)
+        self.fleet = new_fleet
+        self.history.append({
+            "event": "on_failure", "failed_ids": report.failed_ids,
+            "n_survivors": report.n_survivors,
+            "n_plans_patched": report.n_plans_patched,
+            "n_plans_carried": report.n_plans_carried,
+            "n_plans_dropped": report.n_plans_dropped})
+        return report
+
+    def on_join(self, device: cm.Device, keep_id: bool = False) -> Fleet:
+        """Admit a joiner into the fleet for the next round."""
+        self.fleet = self.fleet.admit(device, keep_id=keep_id)
+        return self.fleet
+
+    # ----------------------------------------------------------- internals --
+
+    def _dag(self, request: PlanRequest) -> GemmDag:
+        if request not in self._dag_cache:
+            self._dag_cache[request] = build_dag(
+                self.cfg, request.batch, request.seq,
+                backward=request.backward, lm_head=request.lm_head,
+                attention_scores=request.attention_scores)
+        return self._dag_cache[request]
+
+    def _cache(self, heterogeneity_aware: bool) -> Dict[tuple, cm.Plan]:
+        return self._plan_caches.setdefault(
+            (self.fleet.signature(), heterogeneity_aware), {})
+
+    def _solve_gemm(self, gemm: cm.GEMM,
+                    heterogeneity_aware: Optional[bool] = None
+                    ) -> Tuple[cm.Plan, bool]:
+        het = self.heterogeneity_aware if heterogeneity_aware is None \
+            else heterogeneity_aware
+        cache = self._cache(het)
+        key = plan_shape_key(gemm) + (gemm.count,)
+        if key in cache:
+            return cache[key], True
+        if het:
+            plan = solve_level_gemm(gemm, self.fleet.table())
+        else:
+            plan = solve_level_gemm(gemm, self.fleet.homogenized_table())
+            reprice_plan(plan, self.fleet.table())
+        cache[key] = plan
+        return plan, False
+
+
+# ------------------------------------------------------------ plan patching --
+
+def _patch_plan(plan: cm.Plan, failed: set,
+                survivors: cm.Fleetlike
+                ) -> Optional[Tuple[cm.Plan, Optional[churn.RecoveryResult]]]:
+    """Carry one cached plan across a churn event: survivors keep their
+    rectangles; each orphaned rectangle is re-solved over the survivors and
+    grafted back in place.  ``None`` when the plan cannot be patched
+    (instance-granular or n-split plans re-solve cold instead)."""
+    if plan.instances is not None or plan.n_split != 1:
+        return None
+    orphans = [a for a in plan.assignments if a.device_id in failed]
+    if not orphans:
+        return plan, None
+    table = cm.DeviceTable.ensure(survivors)
+    hit = sorted(failed & {a.device_id for a in plan.assignments})
+    event = churn.FailureEvent(gemm=plan.gemm, failed_ids=hit, plan=plan)
+    rec = churn.recover(event, table)
+    assignments = [a for a in plan.assignments if a.device_id not in failed]
+    for rect, patch in rec.patches:
+        for pa in patch.assignments:
+            assignments.append(cm.Assignment(
+                device_id=pa.device_id,
+                r0=rect.r0 + pa.r0, r1=rect.r0 + pa.r1,
+                c0=rect.c0 + pa.c0, c1=rect.c0 + pa.c1))
+    active = {a.device_id for a in assignments}
+    new_plan = cm.Plan(
+        gemm=plan.gemm, assignments=assignments, makespan=0.0,
+        lower_bound=cm.lower_bound(plan.gemm, table),
+        excluded=[int(i) for i in table.ids if int(i) not in active])
+    new_plan.makespan = cm.plan_makespan(plan.gemm, table, new_plan)
+    return new_plan, rec

@@ -1,0 +1,32 @@
+"""Parameter interchange with the reference package.
+
+:func:`from_jax_params` takes the reference's params as a nested dict of
+**numpy** arrays (the caller applies ``np.asarray`` to each JAX leaf) and
+returns the port's params in the same layout.  A numpy bfloat16 array
+(``dtype.name == "bfloat16"``, from ``ml_dtypes``) is reinterpreted through
+``uint16`` bits, so the port never imports ``ml_dtypes``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _leaf(arr, device, dtype):
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(arr).view(np.uint16)) \
+            .view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_jax_params(tree, device, dtype=None):
+    """Nested dict of numpy arrays -> the same nesting of tensors on
+    ``device`` (floating leaves cast to ``dtype`` when given)."""
+    if isinstance(tree, dict):
+        return {k: from_jax_params(v, device, dtype) for k, v in tree.items()}
+    return _leaf(tree, device, dtype)

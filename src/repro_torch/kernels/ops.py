@@ -1,0 +1,427 @@
+"""Plan execution and the serving decode wrapper around the port's kernels:
+operand padding and staging, band bucketing, device-side Freivalds
+residuals, GQA grouping.
+
+Port of ``src/repro/kernels/ops.py`` (``PadCache`` through ``plan_gemm``,
+and ``gqa_flash_decode_paged``).  Operands and results stay on the
+operands' device; only the per-rectangle residual scalars come back to the
+host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import zlib
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels import block_gemm as _bg
+from repro_torch.kernels import decode_attention as _dec
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported compute dtype {name!r}; "
+                         f"expected one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+# ------------------------------------------------------- plan execution ----
+
+class PadCache:
+    """Small keyed cache of device-resident zero-padded operands.
+
+    Keyed by ``(role, source shape, padded shape, dtype, device)`` plus a
+    content key that misses after an in-place update of the source:
+
+    * a numpy source keys on adler32 over its raw bytes (as the reference
+      does);
+    * a tensor source keys on ``(data_ptr, strides, _version)``: every
+      in-place write bumps the version counter, and the entry holds a
+      reference to its source, so its memory cannot be freed and reused by
+      another tensor while the entry lives.  Fingerprinting a device tensor
+      by content would copy it to the host.
+
+    Non-contiguous numpy sources skip the cache.  Access is serialized by
+    an RLock, as in the reference."""
+
+    def __init__(self, capacity: int = 8):
+        self.capacity = capacity
+        self._slots: list = []      # (key, (source, value)), MRU first
+        self._lock = threading.RLock()
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def fingerprint(src) -> "tuple | None":
+        if isinstance(src, torch.Tensor):
+            return ("t", src.data_ptr(), tuple(src.stride()), src._version)
+        if not src.flags.c_contiguous:
+            return None
+        return ("np", zlib.adler32(memoryview(src).cast("B")))
+
+    def get(self, src, key, build):
+        fp = self.fingerprint(src)
+        if fp is None:
+            return build()
+        key = key + (fp,)
+        with self._lock:
+            for i, (k, (_, val)) in enumerate(self._slots):
+                if k == key:
+                    if i:
+                        self._slots.insert(0, self._slots.pop(i))
+                    self.hits += 1
+                    return val
+            val = build()
+            self.misses += 1
+            self._slots.insert(0, (key, (src, val)))
+            del self._slots[self.capacity:]
+            return val
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / max(self.hits + self.misses, 1)
+
+
+def _staged_pad(arr, rows: int, cols: int, role: str,
+                cache: Optional[PadCache], dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """``arr`` zero-padded to (rows, cols) in ``dtype`` on ``device``.  A
+    tensor that already has that shape, type, device and a row-major layout
+    is used as it is (no copy, nothing cached); otherwise the padded copy
+    goes through the cache when one is given.  Casting before or after the
+    zero padding gives the same values."""
+    if isinstance(arr, torch.Tensor) and tuple(arr.shape) == (rows, cols) \
+            and arr.dtype == dtype and arr.device == device \
+            and arr.is_contiguous():
+        return arr
+
+    def build():
+        src = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(arr))
+        padded = torch.zeros((rows, cols), dtype=dtype, device=device)
+        padded[:src.shape[0], :src.shape[1]] = src.to(device=device,
+                                                      dtype=dtype)
+        return padded
+    if cache is None:
+        return build()
+    return cache.get(arr, (role, tuple(arr.shape), rows, cols, dtype,
+                           str(device)), build)
+
+
+def resolve_plan_kernel(kernel: str = "auto",
+                        device: Union[str, torch.device] = "cuda") -> str:
+    """``"cuda"`` (the hand-written band GEMM) for operands on a CUDA
+    device, ``"torch"`` (its plain version) for operands on the CPU.
+    ``"auto"`` picks by device; a name that does not fit the device
+    raises.  No name selects a library GEMM on the card."""
+    dev = torch.device(device)
+    if kernel == "auto":
+        return "cuda" if dev.type == "cuda" else "torch"
+    if kernel not in ("cuda", "torch"):
+        raise ValueError(f"unknown plan_gemm kernel {kernel!r}; "
+                         "expected 'auto', 'cuda', or 'torch'")
+    if kernel == "torch" and dev.type != "cpu":
+        raise ValueError("kernel='torch' is the plain version for CPU "
+                         f"operands; operands on {dev} run the CUDA kernel")
+    if kernel == "cuda" and dev.type != "cuda":
+        raise ValueError(f"kernel='cuda' needs CUDA operands, not {dev}")
+    return kernel
+
+
+def _gather_bands(a_pad, r0s, pm, compute_dtype):
+    """(Gb, pm, nk) stack of the row bands starting at ``r0s`` (a view for
+    a single band)."""
+    if len(r0s) == 1:
+        r0 = int(r0s[0])
+        return a_pad[r0:r0 + pm].unsqueeze(0).to(compute_dtype)
+    idx = torch.as_tensor(np.asarray(r0s, np.int64)[:, None]
+                          + np.arange(pm)[None, :], device=a_pad.device)
+    return a_pad[idx].to(compute_dtype)
+
+
+def _band_matmul(As, b_op, kernel):
+    if kernel == "torch":
+        return _bg.block_gemm_batched_shared_plain(As, b_op)
+    return _bg.block_gemm_batched_shared(As, b_op)
+
+
+# ---------------------------------------------------- Freivalds sign draws --
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h, c: int):
+    """(h * c) mod 2^32 for integers below 2^32 held in int64 tensors or
+    uint64 arrays, with every partial product below 2^49 (no overflow)."""
+    lo = (h & 0xFFFF) * c
+    hi = ((h >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _mix32(h):
+    """A 32-bit avalanche hash (bijective on [0, 2^32))."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    return h ^ (h >> 16)
+
+
+def rademacher(seed: int, task_ids, iters: int, n: int, salt: int,
+               device) -> torch.Tensor:
+    """(len(task_ids), iters, n) float32 signs from a counter-based hash of
+    ``(seed, salt, task_id, iter, index)``: the draw of a rectangle depends
+    on its global task id, never on how rectangles were bucketed.  The
+    per-(task, iter) keys are hashed on the host; the device runs two
+    rounds over the index."""
+    h = _mix32(np.uint64((int(seed) & _M32) ^ 0x9E3779B9))
+    h = _mix32(h ^ np.uint64(int(salt) & _M32))
+    tid = np.asarray(task_ids, np.uint64)[:, None] & np.uint64(_M32)
+    key = _mix32(_mix32(h ^ tid) ^ np.arange(iters, dtype=np.uint64))
+    k = torch.as_tensor(key.astype(np.int64), device=device)[:, :, None]
+    ix = torch.arange(n, dtype=torch.int64, device=device)
+    h = _mix32(_mix32(k ^ ix) ^ k)
+    return 1.0 - 2.0 * ((h >> 31) & 1).to(torch.float32)
+
+
+def _bucket_gemm(a_pad, b_op, r0s, *, pm, kernel, compute_dtype):
+    """One band bucket: gather its A row bands, cast to the policy compute
+    dtype, and run the whole bucket as ONE band GEMM against the shared
+    padded B (f32 accumulation)."""
+    As = _gather_bands(a_pad, r0s, pm, compute_dtype)
+    return _band_matmul(As, b_op, kernel)
+
+
+def _bucket_gemm_verified(a_pad, b_op, r0s, hs, bidx, slot, c0s, c1s,
+                          corrupt, seed, task_ids, *, pm, R, kernel,
+                          compute_dtype, iters):
+    """:func:`_bucket_gemm` plus device-side batched Freivalds residuals
+    (the reference's ``_bucket_gemm_verified``): per rectangle, masked sign
+    vectors ``r`` (iters x band rows) and ``s`` (iters x output columns),
+    ``lhs = r·(A (B s))`` against ``rhs = (r·C)·s`` and the noise scale
+    Σ|C| over the rectangle, grouped ``(band, slot)`` so the band-shared
+    contractions batch.  ``corrupt`` flags poisoned rectangles, which get
+    the ``C[0,0] += 1 + |C[0,0]|`` injection before the residuals.  The
+    residual contractions are plain torch (XLA einsums in the reference);
+    only the band product runs the kernel."""
+    dev = a_pad.device
+    As = _gather_bands(a_pad, r0s, pm, compute_dtype)
+    C = _band_matmul(As, b_op, kernel)
+    qk = C.shape[2]
+    Gb = len(r0s)
+    bidx_t = torch.as_tensor(bidx, dtype=torch.int64, device=dev)
+    slot_t = torch.as_tensor(slot, dtype=torch.int64, device=dev)
+    c0_t = torch.as_tensor(c0s, dtype=torch.int64, device=dev)
+    c1_t = torch.as_tensor(c1s, dtype=torch.int64, device=dev)
+    zero = torch.zeros_like(bidx_t)
+    corr = torch.as_tensor(corrupt, dtype=torch.float32, device=dev)
+    c00 = C[bidx_t, zero, c0_t]
+    C.index_put_((bidx_t, zero, c0_t), corr * (1.0 + c00.abs()),
+                 accumulate=True)
+
+    r = rademacher(seed, task_ids, iters, pm, 0, dev)
+    s = rademacher(seed, task_ids, iters, qk, 1, dev)
+    hs_t = torch.as_tensor(hs, dtype=torch.int64, device=dev)
+    rowm = (torch.arange(pm, device=dev)[None, :]
+            < hs_t[:, None]).float()                       # (Gb, pm)
+    cols = torch.arange(qk, device=dev)[None, :]
+    colm = ((cols >= c0_t[:, None]) & (cols < c1_t[:, None])).float()
+    r = r * rowm[bidx_t][:, None, :]
+    s = s * colm[:, None, :]
+    Af = As.float()
+    Bf = b_op.float()
+    t = torch.einsum("kq,riq->rki", Bf, s)
+    t_g = torch.zeros((Gb, R) + tuple(t.shape[1:]), device=dev)
+    t_g[bidx_t, slot_t] = t
+    u = torch.einsum("bmk,brki->bmri", Af, t_g)
+    r_g = torch.zeros((Gb, R, iters, pm), device=dev)
+    r_g[bidx_t, slot_t] = r
+    lhs = torch.einsum("brim,bmri->bri", r_g, u)[bidx_t, slot_t]
+    s_g = torch.zeros((Gb, R, iters, qk), device=dev)
+    s_g[bidx_t, slot_t] = s
+    Cs = torch.einsum("bmq,briq->bmri", C, s_g)
+    rhs = torch.einsum("brim,bmri->bri", r_g, Cs)[bidx_t, slot_t]
+    colm_g = torch.zeros((Gb, R, qk), device=dev)
+    colm_g[bidx_t, slot_t] = colm
+    Csa = torch.einsum("bmq,brq->bmr", C.abs(), colm_g)
+    scale = torch.einsum("bm,bmr->br", rowm, Csa)[bidx_t, slot_t]
+    return C, lhs, rhs, scale
+
+
+@dataclasses.dataclass
+class BucketRun:
+    """One band bucket's batched launch result.  ``out`` stays on the
+    operands' device; the residuals are host numpy."""
+    idx: np.ndarray          # rect indices into the caller's rects
+    pm: int                  # padded band height
+    q: int                   # un-padded output width (out is (Gb, pm, qk))
+    band_r0s: np.ndarray     # (Gb,) band origins
+    band_hs: np.ndarray      # (Gb,) un-padded band heights
+    bidx: np.ndarray         # (Gr,) band of each rect
+    c0s: np.ndarray          # (Gr,) rect column windows
+    c1s: np.ndarray
+    out: torch.Tensor        # (Gb, pm, qk) float32 band products
+    lhs: Optional[np.ndarray] = None     # (Gr, iters) Freivalds residuals
+    rhs: Optional[np.ndarray] = None
+    scale: Optional[np.ndarray] = None   # (Gr,) Σ|C| noise scale
+
+    def block(self, g: int) -> torch.Tensor:
+        """Rect ``g``'s un-padded block view into its band product."""
+        b = self.bidx[g]
+        return self.out[b, :self.band_hs[b], self.c0s[g]:self.c1s[g]]
+
+
+def _bucket_geometry(a_shape, b_shape, rects, block):
+    """Padded depths (nk, qk), row bands, and padded-height buckets of a
+    rect set (the reference's geometry, unchanged)."""
+    n = a_shape[1]
+    q = b_shape[1]
+    nk = max(-(-n // block) * block, block)
+    qk = max(-(-q // block) * block, block)
+    bands: dict = {}                     # (r0, r1) -> [rect index, ...]
+    for i, (r0, r1, c0, c1) in enumerate(rects):
+        if r1 - r0 <= 0 or c1 - c0 <= 0:
+            continue
+        bands.setdefault((r0, r1), []).append(i)
+    buckets: dict = {}                   # pm -> [(r0, r1), ...]
+    for (r0, r1) in bands:
+        pm = -(-(r1 - r0) // block) * block
+        buckets.setdefault(pm, []).append((r0, r1))
+    return nk, qk, bands, buckets
+
+
+def _device_of(a, b, device):
+    """``device`` if given, else the operand tensors' device, else the card
+    (numpy operands stage on the card unless the caller names the CPU)."""
+    if device is not None:
+        return resolve_device(device)
+    for x in (a, b):
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return resolve_device("cuda")
+
+
+def stage_plan_operands(a, b, rects, *, block=128, compute_dtype="float32",
+                        pad_cache: Optional[PadCache] = None, device=None):
+    """Pre-stage the padded device operands :func:`plan_gemm_buckets`
+    would build for ``rects`` -- same geometry, same cache keys.  Returns
+    ``(a_pad, b_op)`` (or ``(None, None)`` for an empty rect set)."""
+    dev = _device_of(a, b, device)
+    cd = torch_dtype(compute_dtype)
+    nk, qk, bands, buckets = _bucket_geometry(a.shape, b.shape, rects, block)
+    if not bands:
+        return None, None
+    pmax = max(buckets)
+    a_pad = _staged_pad(a, a.shape[0] + pmax, nk, "a", pad_cache, cd, dev)
+    b_op = _staged_pad(b, nk, qk, "b", pad_cache, cd, dev)
+    return a_pad, b_op
+
+
+def plan_gemm_buckets(a, b, rects, *, block=128, kernel="auto",
+                      compute_dtype=None, verify_seed=None,
+                      freivalds_iters: int = 2, corrupt=None,
+                      pad_cache: Optional[PadCache] = None, device=None):
+    """Bucketed execution of output rectangles of C = A @ B -- the fleet
+    executor's primitive (see the reference's ``plan_gemm_buckets``).
+
+    ``a``/``b`` are numpy arrays or tensors; they are staged (padded, cast
+    to ``compute_dtype``) on ``device`` (default: the tensors' device, else
+    the card).  Rectangles sharing a row range form a band; bands are
+    bucketed by padded height and each bucket runs as ONE band GEMM
+    against the shared padded B.  With ``verify_seed`` set, each launch
+    also yields per-rect Freivalds residuals; ``corrupt`` is an optional
+    per-rect flag vector of simulated poisoning devices.  Returns a list of
+    :class:`BucketRun`."""
+    dev = _device_of(a, b, device)
+    kernel = resolve_plan_kernel(kernel, dev)
+    if dev.type == "cuda":
+        # the residual contractions are IEEE f32, never TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if compute_dtype is None:
+        compute_dtype = "bfloat16" if dev.type == "cuda" else "float32"
+    cd = torch_dtype(compute_dtype)
+    m = a.shape[0]
+    q = b.shape[1]
+    nk, qk, bands, buckets = _bucket_geometry(a.shape, b.shape, rects, block)
+    runs: list = []
+    if not bands:
+        return runs
+    pmax = max(buckets)
+    a_pad = _staged_pad(a, m + pmax, nk, "a", pad_cache, cd, dev)
+    b_op = _staged_pad(b, nk, qk, "b", pad_cache, cd, dev)
+    for pm, bucket_bands in buckets.items():
+        r0s = np.asarray([r0 for r0, _ in bucket_bands], np.int32)
+        hs = np.asarray([r1 - r0 for r0, r1 in bucket_bands], np.int32)
+        ia, bidx, slot = [], [], []
+        for bi, bk_ in enumerate(bucket_bands):
+            for si, i in enumerate(bands[bk_]):
+                ia.append(i)
+                bidx.append(bi)
+                slot.append(si)
+        ia = np.asarray(ia, np.int64)
+        bidx = np.asarray(bidx, np.int32)
+        slot = np.asarray(slot, np.int32)
+        c0s = np.asarray([rects[i][2] for i in ia], np.int32)
+        c1s = np.asarray([rects[i][3] for i in ia], np.int32)
+        if verify_seed is None:
+            out = _bucket_gemm(a_pad, b_op, r0s, pm=pm, kernel=kernel,
+                               compute_dtype=cd)
+            runs.append(BucketRun(idx=ia, pm=pm, q=q, band_r0s=r0s,
+                                  band_hs=hs, bidx=bidx, c0s=c0s, c1s=c1s,
+                                  out=out))
+        else:
+            corr = np.zeros(len(ia), np.float32) if corrupt is None \
+                else np.asarray(corrupt, np.float32)[ia]
+            R = int(max(np.bincount(bidx))) if len(bidx) else 1
+            C, lhs, rhs, scale = _bucket_gemm_verified(
+                a_pad, b_op, r0s, hs, bidx, slot, c0s, c1s, corr,
+                verify_seed, ia, pm=pm, R=R, kernel=kernel,
+                compute_dtype=cd, iters=freivalds_iters)
+            # one device-to-host copy of the per-rect residual scalars
+            res = torch.cat([lhs, rhs, scale[:, None]], dim=1).cpu().numpy()
+            it = freivalds_iters
+            runs.append(BucketRun(idx=ia, pm=pm, q=q, band_r0s=r0s,
+                                  band_hs=hs, bidx=bidx, c0s=c0s, c1s=c1s,
+                                  out=C, lhs=res[:, :it],
+                                  rhs=res[:, it:2 * it], scale=res[:, -1]))
+    return runs
+
+
+def plan_gemm(a, b, rects, *, block=128, kernel="auto", compute_dtype=None,
+              pad_cache: Optional[PadCache] = None, device=None):
+    """Execute output rectangles of C = A @ B as batched band GEMMs.
+    Returns float32 blocks (tensors on the staging device) in ``rects``
+    order; degenerate rectangles give empty blocks."""
+    dev = _device_of(a, b, device)
+    blocks: list = [None] * len(rects)
+    for i, (r0, r1, c0, c1) in enumerate(rects):
+        if r1 - r0 <= 0 or c1 - c0 <= 0:
+            blocks[i] = torch.zeros((max(r1 - r0, 0), max(c1 - c0, 0)),
+                                    device=dev)
+    for run in plan_gemm_buckets(a, b, rects, block=block, kernel=kernel,
+                                 compute_dtype=compute_dtype,
+                                 pad_cache=pad_cache, device=dev):
+        for g, i in enumerate(run.idx):
+            blocks[i] = run.block(g)
+    return blocks
+
+
+def gqa_flash_decode_paged(q, k_pool, v_pool, page_table, lengths):
+    """Paged-KV single-token GQA decode: attention reads the serving page
+    pools in place through per-request page tables.  q: (B,1,H,D);
+    k_pool/v_pool: (P,page,K,D) -- one layer's pools; page_table: (B,maxp)
+    int32; lengths: (B,) int32.  Returns (B,1,H,D) in the pool dtype."""
+    B, _, H, D = q.shape
+    K = k_pool.shape[2]
+    qf = q.reshape(B, K, H // K, D)
+    out = _dec.flash_decode_paged(qf, k_pool, v_pool, page_table, lengths)
+    return out.reshape(B, 1, H, D)

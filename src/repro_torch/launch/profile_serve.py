@@ -1,0 +1,116 @@
+"""Where a fleet decode step's time goes on the card.
+
+Builds the full-width serving session of ``chip_smoke.py`` (llama3-8b at
+``--layers`` depth, bf16, 4 slots, 16-device fleet), runs one warm-up
+step, times ``--steps`` decode steps untraced, then traces as many with
+``torch.profiler`` and prints one JSON object: wall time per step (untraced
+and traced), device kernel time per step,
+the device's idle share, and the kernels that take the device time, each
+with its time and launches per step.
+
+Usage (on a machine with a CUDA card):
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      [--layers 4] [--steps 3] [--out chiprun_out/profile_serve.json]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        val = getattr(evt, name, None)
+        if val is not None:
+            return float(val)
+    return 0.0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import resolve_device
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.configs.base import get_config
+
+    dev = resolve_device("cuda")
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=args.layers)
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                            device=dev)
+    n_gen = 2 * args.steps + 1
+    sess = rt.serve_session(slots=args.slots, page_size=16,
+                            max_len=args.prompt_len + n_gen,
+                            backend="torch", dtype_policy="bf16")
+    rng = np.random.default_rng(0)
+    for _ in range(args.slots):
+        sess.submit(rng.integers(0, cfg.vocab_size, args.prompt_len)
+                    .astype(np.int32), max_new=n_gen)
+    sess.step()                                   # admission + warm-up
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        sess.step()
+    torch.cuda.synchronize(dev)
+    wall_untraced = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            sess.step()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+
+    kernels = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and getattr(evt, "device_type", None) is not None \
+                and "cuda" in str(evt.device_type).lower():
+            k = kernels.setdefault(evt.key, [0.0, 0])
+            k[0] += us
+            k[1] += evt.count
+    device_s = sum(v[0] for v in kernels.values()) / 1e6
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:args.top]
+    recs = [r for s in sess.step_reports[1 + args.steps:]
+            for r in s.records]
+    report = {
+        "card": torch.cuda.get_device_name(dev),
+        "arch": cfg.name, "n_layers": cfg.n_layers,
+        "slots": args.slots, "steps": args.steps,
+        "wall_s_per_step_untraced": wall_untraced / args.steps,
+        "wall_s_per_step": wall / args.steps,
+        "device_kernel_s_per_step": device_s / args.steps,
+        "device_idle_share": max(0.0, 1.0 - device_s / wall),
+        "fleet_exec_s_per_step": sum(r.exec_time for r in recs)
+        / args.steps,
+        "gemms_per_step": len(recs) // args.steps,
+        "top_kernels": [
+            {"name": name[:120], "ms_per_step": us / 1e3 / args.steps,
+             "launches_per_step": cnt / args.steps,
+             "share_of_device": us / 1e6 / max(device_s, 1e-12)}
+            for name, (us, cnt) in top],
+    }
+    text = json.dumps(report)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,134 @@
+"""Shared layer primitives in PyTorch: projection GEMM hook, norms, rotary
+embeddings, SwiGLU, embeddings, init helpers (port of
+``src/repro/models/layers.py``).  Params are nested dicts of tensors in the
+reference's layout; every ``init_*`` draws from a ``torch.Generator`` on
+the target device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.train_loop import hook as _gemm_hook
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def pdot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Projection matmul ``x @ w`` (x: (..., n), w: (n, q)).
+
+    With no hook installed this is ``x @ w`` (mixed float types promote as
+    in JAX); inside a fleet session the installed hook executes the GEMM on
+    the fleet executors."""
+    hook = _gemm_hook.active()
+    if hook is None:
+        if x.dtype != w.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dt), w.to(dt)
+        return x @ w
+    return hook(x, w)
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def pdtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
+
+
+def padded_vocab(cfg) -> int:
+    """Pad vocab to a multiple of 256 (the reference's layout)."""
+    return int(np.ceil(cfg.vocab_size / 256) * 256)
+
+
+# ------------------------------------------------------------------- inits --
+
+def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    """Standard normal draws times ``std`` in f32, cast to ``dtype``, on
+    the generator's device."""
+    x = torch.randn(tuple(shape), generator=gen, device=gen.device)
+    return (x * std).to(dtype)
+
+
+def dense_init(gen, fan_in, fan_out, dtype, scale=1.0, lead=()):
+    return normal(gen, tuple(lead) + (fan_in, fan_out),
+                  scale / np.sqrt(fan_in), dtype)
+
+
+def embed_init(gen, vocab, d, dtype):
+    return normal(gen, (vocab, d), 0.02, dtype)
+
+
+# ------------------------------------------------------------------- norms --
+
+def init_rmsnorm(d, dtype, device, lead=()):
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
+                                device=device)}
+
+
+def rmsnorm(params, x, eps=1e-5):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# -------------------------------------------------------------------- RoPE --
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    half = head_dim // 2
+    return 1.0 / (theta ** (np.arange(half, dtype=np.float64) / half))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B,S,H,D), positions: (B,S) int -> rotated x (rotate-half)."""
+    freqs = torch.as_tensor(rope_freqs(x.shape[-1], theta),
+                            dtype=torch.float32, device=x.device)
+    ang = positions.float()[..., None] * freqs            # (B,S,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ SwiGLU --
+
+def init_swiglu(gen, d, d_ff, dtype, lead=()):
+    return {
+        "w_gate": dense_init(gen, d, d_ff, dtype, lead=lead),
+        "w_up": dense_init(gen, d, d_ff, dtype, lead=lead),
+        "w_down": dense_init(gen, d_ff, d, dtype, lead=lead),
+    }
+
+
+def swiglu(params, x):
+    g = pdot(x, params["w_gate"])
+    u = pdot(x, params["w_up"])
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return pdot(h, params["w_down"])
+
+
+# -------------------------------------------------------------- embeddings --
+
+def init_embedding(gen, cfg):
+    return {"tok": embed_init(gen, padded_vocab(cfg), cfg.d_model,
+                              pdtype_of(cfg))}
+
+
+def embed_tokens(params, tokens, cfg):
+    return params["tok"][tokens.long()].to(dtype_of(cfg))
+
+
+def init_lm_head(gen, cfg):
+    if cfg.tie_embeddings:
+        return {}
+    return {"w": dense_init(gen, cfg.d_model, padded_vocab(cfg),
+                            pdtype_of(cfg))}
+
+
+def lm_logits(head_params, embed_params, x, cfg):
+    w = embed_params["tok"].T if cfg.tie_embeddings else head_params["w"]
+    return pdot(x, w)

@@ -1,0 +1,222 @@
+"""Dense decoder-only LM in PyTorch (port of ``src/repro/models/model.py``,
+dense GQA family).  Parameters keep the reference's layout, with the
+layers stacked on a leading axis, so ``interop.from_jax_params`` maps the
+reference's params one to one.  The layer loop is a Python loop.
+
+Public API
+----------
+init_params(cfg, generator)              -> params dict
+forward(cfg, params, batch, ...)         -> (final hidden, kv)
+prefill(cfg, params, batch)              -> (last_logits, cache)
+decode_step(cfg, params, cache, tokens)  -> (logits, cache)
+init_cache(cfg, batch, cache_len, ...)   -> cache dict
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+_LATER = (("moe", "MoE"), ("mla", "MLA"), ("ssm", "SSM"), ("rwkv", "RWKV"),
+          ("hybrid_parallel", "hybrid"), ("enc_dec", "encoder-decoder"),
+          ("attn_free", "attention-free"), ("m_rope", "M-RoPE"),
+          ("n_meta_tokens", "Hymba meta-token"))
+
+
+def require_dense(cfg) -> None:
+    """Raise for families this slice of the port does not cover."""
+    for flag, name in _LATER:
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"arch {cfg.name!r}: the {name} family comes with a later "
+                "slice of the port; this slice serves the dense GQA family")
+    if cfg.modality != "text":
+        raise NotImplementedError(f"arch {cfg.name!r}: {cfg.modality} "
+                                  "inputs come with a later slice")
+
+
+# ------------------------------------------------------------------- inits --
+
+def init_layer(cfg, gen, lead=()):
+    """One decoder layer's params; ``lead`` prepends axes to every leaf
+    (``(n_layers,)`` gives the stacked layout)."""
+    require_dense(cfg)
+    dt = L.pdtype_of(cfg)
+    dev = gen.device
+    return {
+        "ln1": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
+        "attn": A.init_attention(cfg, gen, lead),
+        "ln2": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
+        "mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, lead),
+    }
+
+
+def init_params(cfg, generator: torch.Generator):
+    """Random params with the reference's shapes and scales, drawn from
+    ``generator`` on its device (the bits differ from ``jax.random``)."""
+    require_dense(cfg)
+    return {
+        "embed": L.init_embedding(generator, cfg),
+        "layers": init_layer(cfg, generator, lead=(cfg.n_layers,)),
+        "final_norm": L.init_rmsnorm(cfg.d_model, L.pdtype_of(cfg),
+                                     generator.device),
+        "head": L.init_lm_head(generator, cfg),
+    }
+
+
+def layer_params(params, i: int):
+    """Layer ``i``'s slice of the stacked layer params."""
+    def take(t):
+        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[i]
+    return take(params["layers"])
+
+
+# ------------------------------------------------------------ layer bodies --
+
+def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
+                  k_chunk=512, causal=True):
+    """One decoder layer over a full sequence.  Returns (x, (k, v))."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    ao, kv = A.attention_block(cfg, p["attn"], h, positions, causal=causal,
+                               window=window, q_chunk=q_chunk,
+                               k_chunk=k_chunk)
+    x = x + ao
+    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    x = x + L.swiglu(p["mlp"], h2)
+    return x, kv
+
+
+def fuse_inputs(cfg, params, batch):
+    """Token embedding -> (x, positions)."""
+    require_dense(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    return x, positions
+
+
+def forward(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
+            collect_kv=False):
+    """Full forward to the final hidden states.  Returns (x, kv) with
+    ``kv = (k, v)`` stacked over layers when ``collect_kv``."""
+    x, positions = fuse_inputs(cfg, params, batch)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, (k, v) = layer_forward(
+            cfg, layer_params(params, i), x, positions, window=window,
+            q_chunk=q_chunk, k_chunk=k_chunk)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else ()
+    return x, kv
+
+
+def _vocab_mask(cfg, device):
+    vp = L.padded_vocab(cfg)
+    m = torch.zeros((vp,), dtype=torch.float32, device=device)
+    m[cfg.vocab_size:] = A.NEG_INF
+    return m
+
+
+# ------------------------------------------------------------------- cache --
+
+def init_cache(cfg, batch, cache_len, *, kv_quant=False, device="cuda"):
+    """Decode cache, stacked over layers.  ``kv_quant`` stores K/V int8 with
+    per-(token, head) float16 scales."""
+    require_dense(cfg)
+    dt = L.dtype_of(cfg)
+    Lc, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    kv_dt = torch.int8 if kv_quant else dt
+    c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    c["k"] = torch.zeros((Lc, batch, cache_len, K, hd), dtype=kv_dt,
+                         device=device)
+    c["v"] = torch.zeros_like(c["k"])
+    if kv_quant:
+        c["k_scale"] = torch.zeros((Lc, batch, cache_len, K),
+                                   dtype=torch.float16, device=device)
+        c["v_scale"] = torch.zeros_like(c["k_scale"])
+    return c
+
+
+def _kv_quantize(x):
+    """Symmetric int8 over the trailing (head_dim) axis with per-(token,
+    head) float16 scales; ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+# ------------------------------------------------------------- decode step --
+
+def decode_step(cfg, params, cache, tokens, *, window=0):
+    """One-token decode.  tokens: (B,1).  ``cache["pos"]`` is the absolute
+    position of the incoming token (scalar, or a (B,) vector for
+    continuous batching); slot = pos % cache_len.  Returns
+    ``(logits (B,1,V_padded) f32, new_cache)``; the input cache is not
+    modified."""
+    require_dense(cfg)
+    B = tokens.shape[0]
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    pos = cache["pos"]
+    vec_pos = pos.dim() == 1
+    cache_len = cache["k"].shape[2]
+    slot = pos % cache_len
+    n_valid = torch.clamp(pos + 1, max=cache_len)
+    ar = torch.arange(cache_len, device=x.device)
+    valid = ar[None, :] < n_valid[:, None] if vec_pos else ar < n_valid
+    # int8 caches: the reference's decode_step never hands the scale pools
+    # to its layer body (they are not among its per-layer inputs), so int8
+    # K/V are read as raw values and new entries are cast to int8 without
+    # scales.  The port keeps that behaviour for parity; ROADMAP.md (faults
+    # found against the reference) records it.
+    news = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        ao, nk, nv = A.attention_decode(cfg, lp["attn"], h, pos,
+                                        cache["k"][i], cache["v"][i], slot,
+                                        valid)
+        news.append({"k": nk, "v": nv})           # (B,1,K,hd) new entries
+        x = x + ao
+        h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        x = x + L.swiglu(lp["mlp"], h2)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.lm_logits(params["head"], params["embed"], x, cfg)
+    logits = logits.float() + _vocab_mask(cfg, x.device)
+
+    new_cache = dict(cache)
+    bidx = torch.arange(B, device=x.device)
+    for nm in news[0]:
+        upd = torch.stack([n[nm] for n in news]).to(cache[nm].dtype)
+        out = cache[nm].clone()
+        if vec_pos:
+            out[:, bidx, slot.long()] = upd[:, :, 0]
+        else:
+            s = int(slot)
+            out[:, :, s:s + 1] = upd
+        new_cache[nm] = out
+    new_cache["pos"] = pos + 1
+    return logits, new_cache
+
+
+def prefill(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512):
+    """Forward over a full prompt: last-position logits and the filled
+    decode cache."""
+    x, (k, v) = forward(cfg, params, batch, window=window,
+                           q_chunk=q_chunk, k_chunk=k_chunk,
+                           collect_kv=True)
+    logits = L.lm_logits(params["head"], params["embed"], x[:, -1:], cfg)
+    logits = logits.float() + _vocab_mask(cfg, x.device)
+    B, S = batch["tokens"].shape
+    cache = init_cache(cfg, B, S, device=x.device)
+    cache["k"] = k.to(cache["k"].dtype)
+    cache["v"] = v.to(cache["v"].dtype)
+    cache["pos"] = torch.full((), S, dtype=torch.int32, device=x.device)
+    return logits, cache

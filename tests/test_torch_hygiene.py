@@ -1,0 +1,82 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the reference
+package, its copies of the framework-neutral modules stay textually equal
+to the originals up to the package name, and its entry points run on the
+card unless told otherwise -- raising, not falling back, without one."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+
+COPIED = [
+    "core/cost_model.py", "core/scheduler.py", "core/churn.py",
+    "core/executor.py", "core/gemm_dag.py", "core/verify.py",
+    "core/seeding.py", "core/tail.py", "core/streaming.py",
+    "sim/engine.py", "sim/events.py", "sim/devices.py",
+    "api/fleet.py", "api/accounting.py", "api/mitigation.py",
+    "serving/batcher.py", "serving/loadgen.py", "train_loop/hook.py",
+] + sorted(f"configs/{p.name}"
+           for p in (ROOT / "src" / "repro" / "configs").glob("*.py"))
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = [(str(f.relative_to(ROOT)), mod) for f in files
+           for mod in _imports(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_equals_original(rel):
+    original = (ROOT / "src" / "repro" / rel).read_text()
+    assert (PORT / rel).read_text() == original.replace("repro.",
+                                                        "repro_torch.")
+
+
+def test_default_device_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchCleaveRuntime(arch="llama3-8b", fleet=Fleet.sample(4, seed=0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--batch", "1", "--gen", "2"])
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line on a host
+    without CUDA, and in a directory holding nothing else of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    res = _run_smoke(ROOT)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
