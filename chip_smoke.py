@@ -5,23 +5,45 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failed check exits non-zero:
+Phases, each printing JSON lines; any failed check exits non-zero:
 
-1. build   -- compile every CUDA kernel from ``src/repro_torch/csrc``.
+1. build   -- compile every CUDA kernel from ``src/repro_torch/csrc``
+              (one ``nvcc`` per source, all started together).
 2. gemm    -- the band GEMM kernel against its plain version at the decode
-              shapes of llama3-8b (bf16, and IEEE f32 with TF32 off), timed
-              beside the plain version, one ``torch.matmul`` and its bound.
+              shapes of llama3-8b and at bucket shapes of its forward, dA
+              and dW training GEMMs (bf16, and IEEE f32 with TF32 off); the
+              decode shapes timed beside the plain version, one
+              ``torch.matmul`` and their bound.
 3. paged   -- the paged decode kernel against its plain version (shuffled
               page tables, ragged lengths, a length-0 request), timed.
-4. reduced -- ``llama3-8b.reduced()`` fleet serving under the f32 policy
+4. flash   -- the flash-attention kernel against its plain version at the
+              training shape, a serving prefill, a sliding window and a
+              wide GQA case, in f32 and bf16; timed at the training shape
+              beside the plain version and ``scaled_dot_product_attention``.
+5. reduced -- ``llama3-8b.reduced()`` fleet serving under the f32 policy
               with a device failure: greedy tokens equal the port's
               monolithic decode, every step verified, tasks recovered.
-5. full    -- the main path: llama3-8b at full width (4 layers, bf16),
-              4 slots, fleet serving through both kernels with a device
-              failure at step 2 and the paged read checked every step; the
-              launch counts are read around this run only.  Then one
+6. full    -- serving at full width: llama3-8b (4 layers, bf16), 4 slots,
+              through all three kernels (the prefills run flash attention)
+              with a device failure at step 2 and the paged read checked
+              every step; launch counts read around this run.  Then one
               full-width GEMM with a poisoning device must be caught and
               corrected.
+7. train_reduced -- fleet training of ``llama3-8b.reduced()`` under the f32
+              policy for 3 steps with a mid-backward failure, against the
+              monolithic step: loss, grad_norm and moments within 1e-4
+              relative, params within 2e-5 in L2, which the same run
+              under the bf16 policy must fail; every band GEMM launch
+              (f32) held against the plain version on its own operands.
+8. train_full -- the training path at full width: llama3-8b (4 layers,
+              bf16 params and policy), batch 8 x 128, 16-device fleet, 3
+              fleet steps (forward, dA and dW GEMMs on the band GEMM
+              kernel, attention on the flash kernel) with a failure at
+              step 1, then a fourth step in which every band GEMM launch
+              is held against the plain version on its own operands;
+              launch counts read around these steps; the first step's
+              loss and grad_norm against the monolithic path; the first
+              step's set of band GEMM launches timed beside its bound.
 
 Then a ``kernels`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the result line.  ``--phases`` runs a
@@ -30,6 +52,8 @@ subset (for bring-up); the result line needs all of them.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -40,10 +64,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("build", "gemm", "paged", "reduced", "full")
+PHASES = ("build", "gemm", "paged", "flash", "reduced", "full",
+          "train_reduced", "train_full")
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # FLOP/s, f32 off-core
+# train_reduced: per-leaf relative L2 distance of the fleet's params from
+# the monolithic step's after 3 steps (f32 policy)
+TRAIN_PARAMS_L2_LIMIT = 2e-5
 
 
 def emit(obj) -> None:
@@ -81,6 +109,87 @@ def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+@contextlib.contextmanager
+def band_gemm_audit(verify: bool):
+    """Wraps the band GEMM wrapper while a path runs.  Records every
+    launch's operand shapes and type and, with ``verify``, holds each
+    result against the plain version on the same operands (relative
+    1e-5 of the largest output: both sides sum exact products in f32, in
+    another order).  The plain calls launch no kernel, so they add
+    nothing to the launch count."""
+    import torch
+    from repro_torch.kernels import block_gemm as bg
+    real = bg.block_gemm_batched_shared
+    audit = {"shapes": [], "checked": 0, "max_abs_err": 0.0,
+             "max_rel_err": 0.0}
+
+    def audited(a, b):
+        c = real(a, b)
+        audit["shapes"].append((tuple(a.shape), tuple(b.shape),
+                                str(a.dtype).rsplit(".", 1)[-1]))
+        if verify:
+            want = bg.block_gemm_batched_shared_plain(a, b)
+            err = float((c - want).abs().max())
+            rel = err / max(float(want.abs().max()), 1e-30)
+            if rel > 1e-5:
+                # which side drifted: both against an f64 product
+                exact = torch.matmul(a.double(), b.double())
+                scale = float(exact.abs().max())
+                check(False, f"band GEMM launch {audit['shapes'][-1]}: rel "
+                      f"err {rel:.3g} against the plain version (kernel "
+                      f"{float((c - exact).abs().max()) / scale:.3g}, plain "
+                      f"{float((want - exact).abs().max()) / scale:.3g} "
+                      f"against f64)")
+            audit["checked"] += 1
+            audit["max_abs_err"] = max(audit["max_abs_err"], err)
+            audit["max_rel_err"] = max(audit["max_rel_err"], rel)
+            del want
+        return c
+
+    bg.block_gemm_batched_shared = audited
+    try:
+        yield audit
+    finally:
+        bg.block_gemm_batched_shared = real
+
+
+def time_band_gemm_set(shapes):
+    """Device time of a recorded set of band GEMM launches: each distinct
+    (A, B, type) timed once on fresh operands of its shape (kernel, plain
+    version, one ``torch.matmul``) and weighted by its count, beside the
+    set's bound."""
+    import torch
+    from repro_torch.kernels import block_gemm as bg
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tot = {"launches": len(shapes), "distinct": 0, "ms": 0.0,
+           "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+           "ops_ms": 0.0}
+    for (ash, bsh, dt), n in collections.Counter(shapes).items():
+        dtype = getattr(torch, dt)
+        G, m, k = ash
+        q = bsh[1]
+        a = torch.randn(ash, generator=gen, device=dev).to(dtype)
+        b = (torch.randn(bsh, generator=gen, device=dev) / k ** 0.5).to(dtype)
+        tot["distinct"] += 1
+        tot["ms"] += n * time_ms(lambda: bg.block_gemm_batched_shared(a, b),
+                                 iters=3, reps=3)
+        tot["plain_ms"] += n * time_ms(
+            lambda: bg.block_gemm_batched_shared_plain(a, b), iters=3,
+            reps=3)
+        tot["library_ms"] += n * time_ms(lambda: torch.matmul(a, b),
+                                         iters=3, reps=3)
+        esz = a.element_size()
+        tot["bytes_ms"] += n * (esz * (G * m * k + k * q) + 4 * G * m * q) \
+            / PEAK_BW * 1e3
+        tot["ops_ms"] += n * 2.0 * G * m * k * q / PEAK_OPS[dt] * 1e3
+        del a, b
+    tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+    tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                       else "operations")
+    return tot
 
 
 # ------------------------------------------------------------------ phases --
@@ -121,6 +230,13 @@ def phase_gemm(cfg):
                       "max_abs_err": 0.0}
     cases = [(1, 128, k, q, c) for k, q, c in decode_gemm_shapes(cfg)]
     cases += [(3, 128, 4096, 4096, 0), (3, 100, 1000, 777, 0)]
+    # buckets the 16-device plans give the training GEMMs at batch 8 x 128
+    # (G bands of padded height m): forward, dA (the LM head's contracts
+    # over the 128256-word vocabulary), and dW contracting over the 1024
+    # (or, for the LM head's 64-token loss chunks, 512) tokens
+    cases += [(1, 1024, 4096, 14336, 0), (2, 512, 14336, 4096, 0),
+              (1, 512, 128256, 4096, 0), (4, 1920, 1024, 4096, 0),
+              (1, 4096, 512, 128256, 0)]
     for G, m, k, q, per_step in cases:
         a32 = torch.randn((G, m, k), generator=gen, device=dev)
         b32 = torch.randn((k, q), generator=gen, device=dev) / k ** 0.5
@@ -222,6 +338,89 @@ def phase_paged():
     return out
 
 
+# flash attention cases: (tag, B, S, H, K, D, causal, window)
+FLASH_CASES = (
+    ("train", 8, 128, 32, 8, 128, True, 0),      # the training step's shape
+    ("prefill", 1, 15, 32, 8, 128, True, 0),     # a serving prefill
+    ("window", 2, 256, 32, 8, 128, True, 64),    # sliding window of 64
+    ("gqa", 2, 100, 16, 2, 64, False, 0),        # 8 groups, ragged, no mask
+)
+
+
+def _visible_keys(S, causal, window):
+    """Keys each query row attends to, summed over rows (one head)."""
+    import numpy as np
+    q = np.arange(S)[:, None]
+    k = np.arange(S)[None, :]
+    ok = np.ones((S, S), bool)
+    if causal:
+        ok &= k <= q
+    if window:
+        ok &= k > q - window
+    return int(ok.sum())
+
+
+def phase_flash():
+    import torch
+    from repro_torch import ieee_f32
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    ieee_f32()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {"max_abs_err": 0.0}
+    for tag, B, S, H, K, D, causal, window in FLASH_CASES:
+        G = H // K
+        q32 = torch.randn((B * H, S, D), generator=gen, device=dev)
+        k32 = torch.randn((B * K, S, D), generator=gen, device=dev)
+        v32 = torch.randn((B * K, S, D), generator=gen, device=dev)
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            opts = dict(causal=causal, window=window, groups=G)
+            got = fa.flash_attention(q, k, v, **opts)
+            want = fa.flash_attention_plain(q, k, v, **opts)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            rel = err / float(want.float().abs().max())
+            # f32: sums in another order; bf16: one unit in the last place
+            # of the largest output (the output and p are rounded to bf16)
+            tol = 1e-5 if name == "float32" else 2.0 ** -7
+            check(rel <= tol, f"flash {tag} {name}: rel err {rel:.3g}")
+            row = {"phase": "flash", "case": tag, "dtype": name, "B": B,
+                   "S": S, "H": H, "K": K, "D": D, "causal": causal,
+                   "window": window, "max_abs_err": err, "rel_err": rel}
+            if tag == "train" and name == "float32":
+                # the model's (B, S, H, D) layout, read in place
+                q4 = q.reshape(B, H, S, D).transpose(1, 2).contiguous()
+                k4 = k.reshape(B, K, S, D).transpose(1, 2).contiguous()
+                v4 = v.reshape(B, K, S, D).transpose(1, 2).contiguous()
+                via_ops = ops.mha_flash(q4, k4, v4, causal=causal)
+                check(torch.equal(via_ops.transpose(1, 2).reshape(B * H, S, D),
+                                  got), "flash: mha_flash layout differs")
+                row["kernel_ms"] = time_ms(
+                    lambda: ops.mha_flash(q4, k4, v4, causal=causal))
+                row["plain_ms"] = time_ms(
+                    lambda: fa.flash_attention_plain(q, k, v, **opts))
+                qh = q.reshape(B, H, S, D)
+                kh = k.reshape(B, K, S, D).repeat_interleave(G, dim=1)
+                vh = v.reshape(B, K, S, D).repeat_interleave(G, dim=1)
+                row["library_ms"] = time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=causal))
+                nbytes = 4 * (2 * B * H * S * D + 2 * B * K * S * D)
+                flops = 4.0 * D * B * H * _visible_keys(S, causal, window)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    nbytes, flops, "float32")
+                out.update({k_: row[k_] for k_ in (
+                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")})
+            if name == "float32":
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+            emit(row)
+    return out
+
+
 def _monolithic_greedy(cfg, params, prompt, n_new, cache_len, dev):
     import torch
     from repro_torch.models import model as M
@@ -276,6 +475,7 @@ def phase_full(cfg):
     from repro_torch.core import cost_model as cm
     from repro_torch.kernels import block_gemm as bg
     from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
     dev = torch.device("cuda")
     slots, P, n_gen, page = 4, 16, 8, 16
@@ -297,13 +497,17 @@ def phase_full(cfg):
 
     bg.launches = 0
     dec.launches = 0
+    fa.launches = 0
     t0 = time.perf_counter()
     first = sess.step()
     first_logits = sess.last_logits.clone()
     rep = sess.run(fail_ids=[3], fail_at_step=1)   # the session's step 2
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
-    launches = {"band_gemm": bg.launches, "paged_decode": dec.launches}
+    # the prefills of the four admissions run the flash kernel, one
+    # launch per layer each
+    launches = {"band_gemm": bg.launches, "paged_decode": dec.launches,
+                "flash_attention": fa.launches}
 
     # the first step against the port's monolithic decode on the same
     # inputs: per-request prefill of prompt[:-1] into an f32 cache (the
@@ -385,6 +589,227 @@ def phase_full(cfg):
     return launches
 
 
+def _worst_rel(a, b, norm=None) -> float:
+    """Largest per-leaf relative difference of two trees: max |a - b| over
+    max |a| (the reference's measure), or with ``norm=2`` the L2 norm of
+    the difference over the L2 norm of the leaf."""
+    from repro_torch import tree as T
+    if norm == 2:
+        return max(float((x.float() - y.float()).norm()
+                         / (x.float().norm() + 1e-12))
+                   for x, y in zip(T.leaves(a), T.leaves(b)))
+    return max(float((x.float() - y.float()).abs().max()
+                     / (x.float().abs().max() + 1e-12))
+               for x, y in zip(T.leaves(a), T.leaves(b)))
+
+
+def phase_train_reduced():
+    """Fleet training (f32 policy) against the monolithic step: 3 steps,
+    device 2 failing mid-backward at step 1."""
+    import torch
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    dev = torch.device("cuda")
+    cfg = get_config("llama3-8b").reduced()
+    chunks = dict(q_chunk=16, k_chunk=16, loss_chunk=16)
+    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=2, total_steps=20)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adam.init(params, opt_cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=2, seed=0))
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
+                            device=dev)
+    sess = rt.train_session(opt_cfg, backend="torch", dtype_policy="f32",
+                            **chunks)
+    mono = make_train_step(cfg, opt_cfg, **chunks)
+    # the control: the same fleet run with every fleet GEMM's operands
+    # rounded to bf16 (the bf16 policy), which the params check must catch
+    rt_c = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
+                              device=dev)
+    ctl = rt_c.train_session(opt_cfg, backend="torch", dtype_policy="bf16",
+                             **chunks)
+    p_f, o_f, p_m, o_m, p_c, o_c = params, opt, params, opt, params, opt
+    rows = []
+    for step in range(3):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in data.batch(step).items()}
+        fail = dict(fail_ids=[2] if step == 1 else (), fail_at_gemm=20)
+        p_m, o_m, met_m = mono(p_m, o_m, batch)
+        # 16 forward GEMMs per step: GEMM 20 is in the backward
+        with band_gemm_audit(verify=True) as audit:
+            p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+        p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
+        rep = met_f["fleet"]
+        lm, lf = float(met_m["loss"]), float(met_f["loss"])
+        gm, gf = float(met_m["grad_norm"]), float(met_f["grad_norm"])
+        rows.append({"step": step, "loss_fleet": lf, "loss_mono": lm,
+                     "loss_rel": abs(lf - lm) / abs(lm),
+                     "grad_norm_rel": abs(gf - gm) / abs(gm),
+                     "n_gemms": rep.n_gemms, "verified": rep.verified,
+                     "n_recovered": rep.n_recovered,
+                     "failed_ids": list(rep.failed_ids),
+                     "band_gemm_checked": audit["checked"],
+                     "band_gemm_max_rel_err": audit["max_rel_err"]})
+    worst = {"params": _worst_rel(p_m, p_f), "mu": _worst_rel(o_m.mu, o_f.mu),
+             "nu": _worst_rel(o_m.nu, o_f.nu),
+             "params_l2": _worst_rel(p_m, p_f, norm=2),
+             "control_bf16_params": _worst_rel(p_m, p_c),
+             "control_bf16_params_l2": _worst_rel(p_m, p_c, norm=2)}
+    emit({"phase": "train_reduced", "steps": rows, "worst_rel": worst,
+          "params_l2_limit": TRAIN_PARAMS_L2_LIMIT})
+    # the reference's bar for fleet vs monolithic training: 1e-4 relative
+    # (max |difference| over max |leaf|, per leaf) on loss, grad_norm and
+    # the moments.  The params are held in L2, per leaf: Adam moves an
+    # element whose gradient lies within f32 rounding of zero by about
+    # +-lr whichever way its sign falls, so the max-element measure of the
+    # params swings across 1e-4 with summation order alone.  The L2 limit
+    # lies between the sound runs' readings and the bf16 control's, which
+    # must fail it.
+    for r in rows:
+        check(r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4,
+              f"train_reduced step {r['step']}: loss/grad_norm off {r}")
+        check(r["verified"], f"train_reduced step {r['step']} unverified")
+        check(r["band_gemm_checked"] > 0,
+              f"train_reduced step {r['step']}: no band GEMM launch")
+    check(max(worst["mu"], worst["nu"]) <= 1e-4,
+          f"train_reduced: moments off {worst}")
+    check(worst["params_l2"] <= TRAIN_PARAMS_L2_LIMIT,
+          f"train_reduced: params off {worst}")
+    check(worst["control_bf16_params_l2"] > TRAIN_PARAMS_L2_LIMIT,
+          f"train_reduced: the bf16 control passed the params check {worst}")
+    check(rows[1]["n_recovered"] > 0 and rows[1]["failed_ids"] == [2],
+          "train_reduced: the failure recovered nothing")
+
+
+def phase_train_full(cfg):
+    """The training path at full width: 3 fleet steps through the band
+    GEMM and flash kernels, device 3 failing mid-backward at step 1, then
+    a fourth step with every band GEMM launch held against the plain
+    version."""
+    import torch
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    dev = torch.device("cuda")
+    B, S, n_steps, audited = 8, 128, 4, 3
+    chunks = dict(q_chunk=64, k_chunk=64, loss_chunk=64)
+    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=3, total_steps=n_steps)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adam.init(params, opt_cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0))
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in data.batch(step).items()}
+               for step in range(n_steps)]
+
+    # the first step's loss and grad_norm on the monolithic path (plain
+    # torch.matmul projections), without a second optimizer state
+    t0 = time.perf_counter()
+    (loss_m, _), grads = M.value_and_grad(cfg, params, batches[0], **chunks)
+    gnorm_m = float(adam.global_norm(grads))
+    del grads
+    torch.cuda.synchronize()
+    t_mono = time.perf_counter() - t0
+
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                            device=dev)
+    sess = rt.train_session(opt_cfg, backend="torch", dtype_policy="bf16",
+                            **chunks)
+    bg.launches = 0
+    fa.launches = 0
+    rows, reports, audits = [], [], []
+    for step, batch in enumerate(batches):
+        n_bg, n_fa = bg.launches, fa.launches
+        torch.cuda.reset_peak_memory_stats()
+        # 30 forward GEMMs per step: GEMM 45 is in the backward
+        with band_gemm_audit(verify=step == audited) as audit:
+            params, opt, met = sess.step(
+                params, opt, batch, fail_ids=[3] if step == 1 else (),
+                fail_at_gemm=45)
+        audits.append(audit)
+        rep = met["fleet"]
+        reports.append(rep)
+        kinds = {}
+        for r in rep.records:
+            kinds[r.kind] = kinds.get(r.kind, 0) + 1
+        exec_by_kind = {k: sum(r.exec_time for r in rep.records
+                               if r.kind == k) for k in kinds}
+        rows.append({
+            "step": step, "loss": rep.loss, "grad_norm": rep.grad_norm,
+            "wall_s": rep.wall_time, "fleet_exec_s": rep.fleet_exec_time,
+            "fleet_exec_s_by_kind": exec_by_kind, "gemms_by_kind": kinds,
+            "n_tasks": rep.n_tasks, "n_recovered": rep.n_recovered,
+            "failed_ids": list(rep.failed_ids), "verified": rep.verified,
+            "all_gemms_verified": all(r.verified for r in rep.records),
+            "band_gemm_launches": bg.launches - n_bg,
+            "flash_launches": fa.launches - n_fa,
+            "band_gemm_checked_against_plain": audit["checked"],
+            "band_gemm_max_rel_err": audit["max_rel_err"],
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "plan_cache_hit_rate": rep.plan_cache_hit_rate,
+            "n_cold_plan_solves": rep.n_cold_plan_solves,
+            "predicted_makespan_s": rep.predicted_makespan})
+        emit({"phase": "train_full_step", **rows[-1]})
+    torch.cuda.synchronize()
+    launches = {"band_gemm": bg.launches, "flash_attention": fa.launches}
+    first = reports[0]
+    loss_rel = abs(first.loss - float(loss_m)) / abs(float(loss_m))
+    gnorm_rel = abs(first.grad_norm - gnorm_m) / abs(gnorm_m)
+    row = {"phase": "train_full", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "batch": B, "seq": S,
+           "param_init_s": t_init, "mono_grad_s": t_mono,
+           "loss_mono": float(loss_m), "grad_norm_mono": gnorm_m,
+           "first_step_loss_rel": loss_rel,
+           "first_step_grad_norm_rel": gnorm_rel, "launches": launches,
+           "pad_cache_hit_rate": rt._pad_cache.hit_rate}
+    emit(row)
+    fwd = first.n_gemms // 3
+    for r in rows:
+        check(r["verified"] and r["all_gemms_verified"],
+              f"train_full step {r['step']}: a GEMM failed verification")
+        check(r["gemms_by_kind"] == {"fwd": fwd, "dA": fwd, "dW": fwd},
+              f"train_full step {r['step']}: GEMM kinds {r['gemms_by_kind']}")
+        check(r["band_gemm_launches"] > 0 and r["flash_launches"] > 0,
+              f"train_full step {r['step']}: a kernel was not launched")
+        check(bool(torch.isfinite(torch.tensor(r["loss"]))),
+              f"train_full step {r['step']}: loss {r['loss']}")
+    check(rows[audited]["band_gemm_checked_against_plain"]
+          == rows[audited]["band_gemm_launches"],
+          f"train_full: step {audited} checked "
+          f"{rows[audited]['band_gemm_checked_against_plain']} of "
+          f"{rows[audited]['band_gemm_launches']} band GEMM launches")
+    check(rows[1]["failed_ids"] == [3] and rows[1]["n_recovered"] > 0,
+          "train_full: the failure did not fire or recovered nothing")
+    # every GEMM output is rounded to bf16, in another order on each path
+    check(loss_rel <= 1e-2, f"train_full: first-step loss rel {loss_rel}")
+    check(gnorm_rel <= 5e-2, f"train_full: first-step grad_norm rel "
+          f"{gnorm_rel}")
+
+    # the first step's band GEMM launches, timed apart from the run (these
+    # launches come after the counts were read)
+    del params, opt, met, batches
+    torch.cuda.empty_cache()
+    gemm_set = time_band_gemm_set(audits[0]["shapes"])
+    gemm_set["max_abs_err"] = audits[audited]["max_abs_err"]
+    gemm_set["max_rel_err"] = audits[audited]["max_rel_err"]
+    emit({"phase": "train_full_band_gemm_set", "step": 0, **gemm_set})
+    check(gemm_set["launches"] == rows[0]["band_gemm_launches"],
+          "train_full: the timed set is not step 0's launches")
+    return launches, gemm_set
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -406,30 +831,54 @@ def main(argv=None) -> int:
         phase_build()
     gemm = phase_gemm(full) if "gemm" in phases else None
     paged = phase_paged() if "paged" in phases else None
+    flash = phase_flash() if "flash" in phases else None
     if "reduced" in phases:
         phase_reduced()
     launches = phase_full(full) if "full" in phases else None
+    if "train_reduced" in phases:
+        phase_train_reduced()
+    train = phase_train_full(full) if "train_full" in phases else None
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    if gemm and paged and launches:
+    if gemm and paged and flash and launches and train:
+        train_launches, gset = train
         kernels = [
             {"name": "band_gemm", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
              "replaces": "src/repro/kernels/block_gemm.py:59",
-             "launches": launches["band_gemm"],
-             "max_abs_err": gemm["max_abs_err"], "ms": gemm["ms"],
-             "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
-             "bound_by": gemm["bound_by"],
-             "library_ms": gemm["library_ms"]},
+             "launches": train_launches["band_gemm"],
+             "launches_serving": launches["band_gemm"],
+             "ms_of": f"the {gset['launches']} launches of the first "
+                      "full-width training step",
+             "max_abs_err": gset["max_abs_err"], "ms": gset["ms"],
+             "plain_ms": gset["plain_ms"], "bound_ms": gset["bound_ms"],
+             "bound_by": gset["bound_by"],
+             "library_ms": gset["library_ms"],
+             "serving_step": {
+                 "ms_of": "the 29 launches of one full-width decode step",
+                 **{k: gemm[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}}},
             {"name": "paged_decode", "route": "cuda",
              "source": "src/repro_torch/csrc/paged_decode.cu",
              "replaces": "src/repro/kernels/decode_attention.py:97",
              "launches": launches["paged_decode"],
+             "ms_of": "one launch at the serving path's shape",
              "max_abs_err": paged["max_abs_err"], "ms": paged["kernel_ms"],
              "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
              "bound_by": paged["bound_by"], "library_ms": None},
+            {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:64",
+             "launches": train_launches["flash_attention"],
+             "launches_serving": launches["flash_attention"],
+             "ms_of": "one launch at the training step's shape (f32)",
+             "max_abs_err": flash["max_abs_err"], "ms": flash["kernel_ms"],
+             "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+             "bound_by": flash["bound_by"],
+             "library_ms": flash["library_ms"]},
         ]
         emit({"kernels": kernels})
     print(smi.splitlines()[0], flush=True)

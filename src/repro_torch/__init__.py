@@ -24,3 +24,10 @@ def resolve_device(device="cuda") -> torch.device:
             "device='cuda' but torch.cuda.is_available() is False; pass "
             "device='cpu' to run the port's plain CPU path")
     return dev
+
+
+def ieee_f32() -> None:
+    """Keep every f32 matrix product on the card in IEEE f32 (no TF32):
+    the f32 policy's Freivalds tolerance and the parity checks need it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

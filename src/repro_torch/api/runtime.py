@@ -1,12 +1,13 @@
-"""`TorchCleaveRuntime`: the plan → execute → recover → serve session of
-the port (``src/repro/api/runtime.py``'s ``CleaveRuntime``, serving
-slice).
+"""`TorchCleaveRuntime`: the plan → execute → recover → train/serve session
+of the port (``src/repro/api/runtime.py``'s ``CleaveRuntime``, serving and
+single-PS training slices).
 
 It owns the DAG cache, the fleet-signature-keyed plan cache, churn
 recovery that patches cached plans, and numerical execution on two
 backends: ``"numpy"`` (the float64 host stand-in) and ``"torch"`` (the
 band GEMM kernel on ``device``, with device-side Freivalds residuals).
-``execute_level``/``execute_batch``, training, ``stream_profile`` and
+``execute_level``/``execute_batch`` (with the dataflow dispatch of
+``core/dataflow.py``), multi-PS training, ``stream_profile`` and
 ``simulate`` belong to later slices of the port.
 
 Typical session::
@@ -15,6 +16,7 @@ Typical session::
     step = rt.execute_step(A, B, fail_ids=[7], backend="torch")
     rt.on_failure([7])            # evict + patch cached plans
     sess = rt.serve_session(params, slots=4)
+    train = rt.train_session(backend="torch")    # train.step(params, ...)
 """
 from __future__ import annotations
 
@@ -156,6 +158,8 @@ class TorchCleaveRuntime:
         self._sched_cache: Dict[Tuple[PlanRequest, str], SchedulePlan] = {}
         # device-resident padded-operand cache of the torch backend
         self._pad_cache = None
+        # warm training sessions of train_step, keyed by option values
+        self._train_sessions: dict = {}
 
     # ---------------------------------------------------------------- plan --
 
@@ -335,6 +339,69 @@ class TorchCleaveRuntime:
             return corrected
 
         return step, finalize
+
+    # ---------------------------------------------------------------- train --
+
+    def train_session(self, opt_cfg=None, *, backend: str = "torch",
+                      kernel: str = "auto", dtype_policy=None,
+                      verify: bool = True, q_chunk: int = 64,
+                      k_chunk: int = 64, loss_chunk: int = 64,
+                      dispatch: str = "level", n_ps: int = 1,
+                      diloco=None, checkpoint=None):
+        """A fresh PS-centric training session
+        (:class:`repro_torch.train_loop.FleetTrainSession`): every
+        projection GEMM of ``session.step(params, opt_state, batch)`` --
+        forward and the dA/dW backward mirrors -- executes through this
+        runtime's fleet executors (plan cache, Freivalds, churn recovery;
+        the band GEMM kernel with ``backend="torch"`` on the card), while
+        the PS hosts embeddings, norms, RoPE, attention, the loss and AdamW
+        on the runtime's device (§3.2).
+
+        ``dispatch="dataflow"`` defers each GEMM's Freivalds verification
+        to a background worker, overlapped with the next GEMM; ``"level"``
+        verifies inline.  ``n_ps > 1`` and ``diloco`` (multi-PS islands)
+        and ``checkpoint`` come with ROADMAP A.4 and raise here."""
+        if n_ps is None or n_ps != 1 or diloco is not None:
+            raise NotImplementedError(
+                "multi-PS training (n_ps > 1, DiLoCo) is not ported yet "
+                "(ROADMAP A.4); use n_ps=1")
+        from repro_torch.train_loop import FleetTrainSession
+        return FleetTrainSession(self, opt_cfg=opt_cfg, backend=backend,
+                                 kernel=kernel, dtype_policy=dtype_policy,
+                                 verify=verify, q_chunk=q_chunk,
+                                 k_chunk=k_chunk, loss_chunk=loss_chunk,
+                                 dispatch=dispatch, checkpoint=checkpoint)
+
+    def train_step(self, params, opt_state, batch, *, opt_cfg=None,
+                   backend: str = "torch", kernel: str = "auto",
+                   verify: bool = True,
+                   fail_ids: Sequence[int] = (), fail_at_gemm: int = 0,
+                   q_chunk: int = 64, k_chunk: int = 64,
+                   loss_chunk: int = 64, dispatch: str = "level"):
+        """One fleet-executed training step of the session architecture:
+        the monolithic ``launch.steps.make_train_step`` math while every
+        projection GEMM runs on the fleet.  Returns ``(params, opt_state,
+        metrics)``; ``metrics["fleet"]`` is the step's
+        :class:`~repro_torch.train_loop.FleetStepReport`.  ``fail_ids``
+        injects a mid-step device failure at the ``fail_at_gemm``-th GEMM.
+        Sessions are cached per option values, so repeated calls stay
+        warm; use :meth:`train_session` for explicit session control."""
+        # AdamConfig is a frozen dataclass: keying by value means equal
+        # configs share a warm session; None normalizes to the default
+        if opt_cfg is None:
+            from repro_torch.optim import adam
+            opt_cfg = adam.AdamConfig()
+        key = (opt_cfg, backend, kernel, verify, q_chunk, k_chunk,
+               loss_chunk, dispatch)
+        session = self._train_sessions.get(key)
+        if session is None:
+            session = self.train_session(
+                opt_cfg, backend=backend, kernel=kernel, verify=verify,
+                q_chunk=q_chunk, k_chunk=k_chunk, loss_chunk=loss_chunk,
+                dispatch=dispatch)
+            self._train_sessions[key] = session
+        return session.step(params, opt_state, batch, fail_ids=fail_ids,
+                            fail_at_gemm=fail_at_gemm)
 
     # ---------------------------------------------------------------- serve --
 

@@ -103,6 +103,30 @@ def _redispatch(Ab: torch.Tensor, Bb: torch.Tensor,
     return torch.matmul(Ab.to(cd).float(), Bb.to(cd).float())
 
 
+def _check_partition(rects, m: int, q: int) -> None:
+    """The rectangles tile the (m, q) output exactly: each inside it, no
+    two overlapping, areas summing to m·q -- the verdict a dense (m, q)
+    mask gives, at the cost of the rectangle count rather than of the
+    output (an LM-head weight gradient, 4096 x 128256, would need a 525 MB
+    host mask per GEMM).  Raises AssertionError otherwise."""
+    r = np.asarray(rects, np.int64).reshape(-1, 4)
+    r = r[(r[:, 1] > r[:, 0]) & (r[:, 3] > r[:, 2])]
+    r0, r1, c0, c1 = r.T
+    if not ((r0 >= 0) & (r1 <= m) & (c0 >= 0) & (c1 <= q)).all():
+        raise AssertionError("coverage violated: a rectangle leaves the "
+                             "output")
+    overlap = (np.minimum(r1[:, None], r1[None]) > np.maximum(r0[:, None],
+                                                             r0[None])) \
+        & (np.minimum(c1[:, None], c1[None]) > np.maximum(c0[:, None],
+                                                          c0[None]))
+    np.fill_diagonal(overlap, False)
+    if overlap.any():
+        raise AssertionError("overlapping assignment")
+    if int(((r1 - r0) * (c1 - c0)).sum()) != m * q:
+        raise AssertionError("coverage violated: the rectangles leave a "
+                             "hole")
+
+
 def execute_plan_torch_deferred(
         gemm: cm.GEMM, plan: cm.Plan, A, B, devices: cm.Fleetlike,
         fail_ids: Sequence[int] = (),
@@ -149,9 +173,9 @@ def execute_plan_torch_deferred(
                                  pad_cache=pad_cache, device=dev)
 
     C = torch.zeros((m, q), dtype=torch.float32, device=dev)
-    filled = np.zeros((m, q), bool)
     flops = 0.0
     run_dims = []
+    written = []                 # (r0, r1, c0, c1) of every write into C
     for run in runs:
         hs = run.band_hs.astype(np.int64)[run.bidx]
         ws = (run.c1s - run.c0s).astype(np.int64)
@@ -172,7 +196,7 @@ def execute_plan_torch_deferred(
                  [q] if cover[b, -1] else [])).astype(np.int64)
             for s0, s1 in bounds.reshape(-1, 2):
                 C[r0:r0 + h, s0:s1] = run.out[b, :h, s0:s1]
-                filled[r0:r0 + h, s0:s1] = True
+                written.append((r0, r0 + h, int(s0), int(s1)))
         if not verify:
             # unchecked poisoning lands in the output, same form as the
             # numpy executor
@@ -183,8 +207,9 @@ def execute_plan_torch_deferred(
         torch.cuda.synchronize(dev)
     exec_time = time.perf_counter() - t0
 
-    assert filled.all(), "coverage violated"
-    assert sum(t.area for t in tasks) == m * q, "overlapping assignment"
+    # the plan tiles the output, and so do the writes actually made
+    _check_partition(rects, m, q)
+    _check_partition(written, m, q)
     report = TorchExecutionReport(
         output=C, verified=True, n_tasks=len(tasks), n_recovered=n_rec,
         recovery=recovery, backend="torch", kernel=kernel, policy=pol.name,

@@ -15,8 +15,13 @@
 // Design: one block per (64 x 64 output tile, band g); the contraction is a
 // loop inside the block (the TPU's sequential grid axis), staging 16-deep
 // slices of A and B in shared memory as f32. Each of the 256 threads keeps
-// a 4 x 4 accumulator in registers. Every block reads the same B columns
-// for all g (the shared operand), so the G bands share B through L2.
+// a 4 x 4 accumulator in registers, fed by a 4 x 4 partial sum that
+// restarts every KSPAN contraction steps. Summed in one running f32 value,
+// the rounding error over k terms grows like sqrt(k) -- beyond 1e-5 of the
+// output at the LM head's k = 128256 in the training backward; the two
+// levels cut it to about sqrt(KSPAN) + sqrt(k / KSPAN). Every block reads
+// the same B columns for all g (the shared operand), so the G bands share
+// B through L2.
 // Strides are arguments: a B batch stride > 0 gives C[g] = A[g] · B[g]
 // and G = 1 gives the plain tiled product, for the other two Pallas
 // GEMM kernels later. Ragged edges are masked, so no shape must tile.
@@ -30,6 +35,7 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int TM = 4;
 constexpr int TN = 4;
+constexpr int KSPAN = 256;  // contraction steps per partial sum
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -58,11 +64,11 @@ band_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
 
-  float acc[TM][TN];
+  float acc[TM][TN], part[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = part[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     // A tile (BM x BK), stored transposed so a thread reads TM rows at once
@@ -89,9 +95,19 @@ band_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j)
+          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
     }
     __syncthreads();
+    if ((k0 + BK) % KSPAN == 0 || k0 + BK >= K) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[i][j] += part[i][j];
+          part[i][j] = 0.f;
+        }
+    }
   }
 
 #pragma unroll

@@ -2,7 +2,8 @@
 
 :func:`from_jax_params` takes the reference's params as a nested dict of
 **numpy** arrays (the caller applies ``np.asarray`` to each JAX leaf) and
-returns the port's params in the same layout.  A numpy bfloat16 array
+returns the port's params in the same layout; :func:`from_jax_opt_state`
+carries an ``AdamState`` across the same way.  A numpy bfloat16 array
 (``dtype.name == "bfloat16"``, from ``ml_dtypes``) is reinterpreted through
 ``uint16`` bits, so the port never imports ``ml_dtypes``.
 """
@@ -30,3 +31,14 @@ def from_jax_params(tree, device, dtype=None):
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device, dtype) for k, v in tree.items()}
     return _leaf(tree, device, dtype)
+
+
+def from_jax_opt_state(state, device):
+    """The reference's ``AdamState`` (``step``, ``mu``, ``nu``; leaves as
+    numpy arrays) -> the port's :class:`repro_torch.optim.adam.AdamState`,
+    moments on ``device`` and the step counter on the host."""
+    from repro_torch.optim.adam import AdamState
+    return AdamState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        mu=from_jax_params(state.mu, device),
+        nu=from_jax_params(state.nu, device))

@@ -3,7 +3,7 @@ operand padding and staging, band bucketing, device-side Freivalds
 residuals, GQA grouping.
 
 Port of ``src/repro/kernels/ops.py`` (``PadCache`` through ``plan_gemm``,
-and ``gqa_flash_decode_paged``).  Operands and results stay on the
+``mha_flash`` and ``gqa_flash_decode_paged``).  Operands and results stay on the
 operands' device; only the per-rectangle residual scalars come back to the
 host.
 """
@@ -17,9 +17,10 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import ieee_f32, resolve_device
 from repro_torch.kernels import block_gemm as _bg
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -104,12 +105,15 @@ def _staged_pad(arr, rows: int, cols: int, role: str,
         return arr
 
     def build():
-        src = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(arr))
-        padded = torch.zeros((rows, cols), dtype=dtype, device=device)
-        padded[:src.shape[0], :src.shape[1]] = src.to(device=device,
-                                                      dtype=dtype)
-        return padded
+        # profiler range of every staging copy, the transposed operands of
+        # the dA and dW GEMMs included (launch/profile_train.py)
+        with torch.profiler.record_function("ops.stage_copy"):
+            src = arr if isinstance(arr, torch.Tensor) else \
+                torch.from_numpy(np.ascontiguousarray(arr))
+            padded = torch.zeros((rows, cols), dtype=dtype, device=device)
+            padded[:src.shape[0], :src.shape[1]] = src.to(device=device,
+                                                          dtype=dtype)
+            return padded
     if cache is None:
         return build()
     return cache.get(arr, (role, tuple(arr.shape), rows, cols, dtype,
@@ -344,8 +348,7 @@ def plan_gemm_buckets(a, b, rects, *, block=128, kernel="auto",
     kernel = resolve_plan_kernel(kernel, dev)
     if dev.type == "cuda":
         # the residual contractions are IEEE f32, never TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        ieee_f32()
     if compute_dtype is None:
         compute_dtype = "bfloat16" if dev.type == "cuda" else "float32"
     cd = torch_dtype(compute_dtype)
@@ -413,6 +416,18 @@ def plan_gemm(a, b, rects, *, block=128, kernel="auto", compute_dtype=None,
         for g, i in enumerate(run.idx):
             blocks[i] = run.block(g)
     return blocks
+
+
+def mha_flash(q, k, v, *, causal=True, window=0, q_offset=0):
+    """GQA flash attention.  q: (B,Sq,H,D); k,v: (B,Sk,K,D) with H % K ==
+    0.  Returns (B,Sq,H,D) in q's dtype.  Query head h reads kv head
+    h // (H // K) by index (no repeated copy of k and v), and the kernel
+    reads the (B, S, heads, D) layout in place."""
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _fa.attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               out.transpose(1, 2), causal=causal, window=window,
+               q_offset=q_offset)
+    return out
 
 
 def gqa_flash_decode_paged(q, k_pool, v_pool, page_table, lengths):

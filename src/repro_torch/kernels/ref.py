@@ -13,6 +13,27 @@ def matmul_ref(a, b, out_dtype=None):
     return out.to(out_dtype or a.dtype)
 
 
+def attention_ref(q, k, v, *, causal=True, window=0):
+    """Naive masked softmax attention.  q: (BH,Sq,D); k,v: (BH,Sk,D).
+    Returns q's dtype."""
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask[None], p, torch.zeros_like(p))
+    out = torch.einsum("hqk,hkd->hqd", p, v.float())
+    return out.to(q.dtype)
+
+
 def paged_decode_ref(q, k_pool, v_pool, page_table, lengths):
     """Single-token GQA decode over paged pools: gather every request's
     pages into a contiguous view, then dense masked softmax attention in

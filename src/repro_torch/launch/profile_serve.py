@@ -77,6 +77,8 @@ def main(argv=None):
 
     kernels = {}
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue                  # a profiler range's span, no kernel
         us = _device_us(evt)
         if us > 0 and getattr(evt, "device_type", None) is not None \
                 and "cuda" in str(evt.device_type).lower():

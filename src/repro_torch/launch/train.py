@@ -1,0 +1,203 @@
+"""End-to-end training driver of the port (port of
+``src/repro/launch/train.py`` without the mesh).
+
+``--backend torch`` runs the monolithic step (``launch.steps``, plain
+``torch.matmul`` projections); ``--backend fleet`` runs every step
+PS-centrically through :class:`~repro_torch.api.TorchCleaveRuntime`: each
+projection GEMM -- forward and backward -- is planned, dispatched to the
+band GEMM kernel, Freivalds-verified and (under ``--fail-step``)
+churn-recovered on a simulated edge fleet, while the PS (the card) hosts
+the embeddings, norms, attention (the flash-attention kernel), the loss
+and AdamW.  Runs on the card unless ``--device cpu``.
+
+Usage (from the repository root)::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --layers 4 \\
+      --backend fleet --steps 3 --fail-step 1 --fail-ids 3
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --layers 2 \\
+      --d-model 64 --vocab 256 --steps 2 --batch 2 --seq 16 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import numpy as np
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the smoke-scale variant")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--d-model", type=int, default=None)
+    ap.add_argument("--vocab", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="not ported yet: PS-side checkpoints come with "
+                         "multi-PS (ROADMAP A.4)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="where the PS state and the kernels run")
+    ap.add_argument("--backend", default="torch", choices=("torch", "fleet"),
+                    help="torch: monolithic step; fleet: every projection "
+                         "GEMM executes on a simulated edge fleet via the "
+                         "TorchCleaveRuntime session (PS-centric, §3.2)")
+    ap.add_argument("--fleet-devices", type=int, default=16,
+                    help="fleet size for --backend fleet")
+    ap.add_argument("--fleet-exec", default="torch",
+                    choices=("torch", "numpy"),
+                    help="fleet executor (torch: the band GEMM kernel on "
+                         "--device; numpy: the float64 host stand-in)")
+    ap.add_argument("--fail-step", type=int, default=None,
+                    help="inject a device failure during this step "
+                         "(--backend fleet)")
+    ap.add_argument("--fail-ids", default="",
+                    help="comma-separated device ids for --fail-step")
+    ap.add_argument("--fail-at-gemm", type=int, default=0,
+                    help="GEMM index within --fail-step at which the "
+                         "failure strikes")
+    ap.add_argument("--edge-plan", type=int, default=0, metavar="N",
+                    help="before training, plan this config's batch over an "
+                         "N-device edge fleet and print the projected "
+                         "batch time")
+    ap.add_argument("--edge-accounting", default="broadcast",
+                    choices=("unicast", "broadcast"))
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+
+    if args.ckpt_dir:
+        raise SystemExit("--ckpt-dir: PS-side checkpoints are not ported "
+                         "yet (ROADMAP A.4, multi-PS and checkpoints)")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    over = {}
+    if args.layers:
+        over["n_layers"] = args.layers
+    if args.d_model:
+        over["d_model"] = args.d_model
+        over["d_ff"] = 4 * args.d_model
+    if args.vocab:
+        over["vocab_size"] = args.vocab
+    if over:
+        cfg = dataclasses.replace(cfg, **over)
+
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    if args.edge_plan > 0:
+        rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(args.edge_plan,
+                                                             seed=args.seed),
+                                accounting=args.edge_accounting, device=dev)
+        rep = rt.plan(batch=args.batch, seq=args.seq)
+        print(f"edge plan ({args.edge_plan} devices, "
+              f"{rep.accounting}): batch_time={rep.batch_time:.1f}s "
+              f"comm/dev={rep.per_device_comm / 1e6:.0f}MB "
+              f"mem/dev={rep.per_device_mem / 1e6:.0f}MB "
+              f"solved {rep.cache_misses} shapes in {rep.solve_time:.2f}s")
+
+    opt_cfg = adam.AdamConfig(lr=args.lr, warmup_steps=min(20, args.steps),
+                              total_steps=args.steps)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = M.init_params(cfg, gen)
+    opt_state = adam.init(params, opt_cfg)
+    n_params = sum(x.numel() for x in T.leaves(params))
+    print(f"arch={cfg.name} params={n_params:,} vocab={cfg.vocab_size} "
+          f"layers={cfg.n_layers} d={cfg.d_model} device={dev}")
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=args.seq,
+                                  global_batch=args.batch,
+                                  seed=args.seed))
+    fleet_session = None
+    fail_ids = [int(i) for i in args.fail_ids.split(",") if i.strip()]
+    if args.fail_step is not None and not fail_ids:
+        raise SystemExit("--fail-step needs --fail-ids (comma-separated "
+                         "device ids to fail)")
+    if (args.fail_step is not None or fail_ids) \
+            and args.backend != "fleet":
+        raise SystemExit("--fail-step/--fail-ids inject fleet device "
+                         "failures; pass --backend fleet")
+    if args.fail_step is not None and args.fail_step >= args.steps:
+        raise SystemExit(f"--fail-step {args.fail_step} never runs: the "
+                         f"run has only {args.steps} step(s)")
+    if args.backend == "fleet":
+        rt = TorchCleaveRuntime(arch=cfg,
+                                fleet=Fleet.sample(args.fleet_devices,
+                                                   seed=args.seed),
+                                accounting=args.edge_accounting, device=dev)
+        fleet_session = rt.train_session(
+            opt_cfg, backend=args.fleet_exec, q_chunk=64, k_chunk=64,
+            loss_chunk=64)
+        print(f"fleet backend: {len(rt.fleet)} devices "
+              f"({args.fleet_exec} executor), accounting="
+              f"{args.edge_accounting}")
+        step_fn = None
+    else:
+        step_fn = make_train_step(cfg, opt_cfg, q_chunk=64, k_chunk=64,
+                                  loss_chunk=64)
+
+    history = []
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in data.batch(step).items()}
+        if fleet_session is not None:
+            fid = fail_ids if step == args.fail_step else ()
+            params, opt_state, metrics = fleet_session.step(
+                params, opt_state, batch, fail_ids=fid,
+                fail_at_gemm=args.fail_at_gemm)
+        else:
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        row = {"step": step, "loss": loss,
+               "grad_norm": float(metrics["grad_norm"]),
+               "lr": float(metrics["lr"])}
+        if fleet_session is not None:
+            rep = metrics["fleet"]
+            row.update(fleet_gemms=rep.n_gemms, fleet_tasks=rep.n_tasks,
+                       fleet_recovered=rep.n_recovered,
+                       fleet_verified=rep.verified,
+                       fleet_exec_time=rep.fleet_exec_time,
+                       fleet_predicted_makespan=rep.predicted_makespan,
+                       fleet_cache_hit_rate=rep.plan_cache_hit_rate)
+        history.append(row)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            dt = time.perf_counter() - t0
+            print(f"step {step:5d} loss {loss:8.4f} "
+                  f"gnorm {row['grad_norm']:8.3f} lr {row['lr']:.2e} "
+                  f"({dt / (step + 1):.2f}s/step)")
+            if fleet_session is not None:
+                print(f"           {metrics['fleet'].log_line()}")
+        if not np.isfinite(loss):
+            raise SystemExit(f"loss diverged at step {step}")
+
+    first = np.mean([h["loss"] for h in history[:5]])
+    last = np.mean([h["loss"] for h in history[-5:]])
+    print(f"loss: first5={first:.4f} last5={last:.4f} "
+          f"improved={first - last:.4f}")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(history, f)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

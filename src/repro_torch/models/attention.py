@@ -1,7 +1,8 @@
-"""GQA/MHA attention in PyTorch: chunked-softmax prefill attention, decode
-attention against (per-request) KV caches, qk-norm and QKV bias (port of
-the GQA path of ``src/repro/models/attention.py``).  MLA, M-RoPE, Hymba
-meta tokens and cross-attention belong to later slices of the port.
+"""GQA/MHA attention in PyTorch: prefill/training attention through the
+flash-attention kernel, decode attention against (per-request) KV caches,
+qk-norm and QKV bias (port of the GQA path of
+``src/repro/models/attention.py``).  MLA, M-RoPE, Hymba meta tokens and
+cross-attention belong to later slices of the port.
 
 Every contraction runs in f32 on the operands' values (the reference's
 ``preferred_element_type=float32``); bf16 operands are upcast, which is
@@ -12,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import ieee_f32
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -23,12 +26,12 @@ def _chunk_sizes(sq, sk, q_chunk, k_chunk):
     return qc, kc
 
 
-def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                      q_chunk=256, k_chunk=512):
-    """q: (B,Sq,H,Dk); k: (B,Sk,K,Dk); v: (B,Sk,K,Dv) with H % K == 0.
-    Returns (B,Sq,H,Dv) in v's dtype.  ``window > 0`` keeps only the last
-    ``window`` keys; ``q_offset`` shifts query positions.  Query chunks
-    run one after another, each against the full key set."""
+def _chunked_reference(q, k, v, *, causal, window, q_offset, q_chunk,
+                       k_chunk):
+    """The torch body of :func:`chunked_attention`, in f32: query chunks
+    one after another, each against the full key set.  The attention
+    backward differentiates it (recomputing the forward, as the reference's
+    remat'd chunks do)."""
     B, Sq, H, Dk = q.shape
     K = k.shape[2]
     G = H // K
@@ -60,7 +63,45 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         p = torch.exp(s - m) * mask[None, None]
         l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
         outs.append(torch.einsum("bhqs,bshd->bqhd", p / l, vf))
-    out = torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash-attention kernel (``ops.mha_flash``) on f32
+    operands.  Backward: the gradient of :func:`_chunked_reference`,
+    recomputed from the saved inputs -- the flash kernel has no backward
+    kernel (neither has the TPU one), and the reference differentiates
+    through a remat of its query chunks."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, k_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        q_chunk=q_chunk, k_chunk=k_chunk)
+        return ops.mha_flash(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        if g.is_cuda:
+            ieee_f32()          # the recompute's einsums, in IEEE f32
+        with torch.enable_grad():
+            out = _chunked_reference(*leaves, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                      q_chunk=256, k_chunk=512):
+    """q: (B,Sq,H,Dk); k: (B,Sk,K,Dk); v: (B,Sk,K,Dv) with H % K == 0.
+    Returns (B,Sq,H,Dv) in v's dtype.  ``window > 0`` keeps only the last
+    ``window`` keys; ``q_offset`` shifts query positions.  The forward is
+    the flash-attention kernel on q, k and v upcast to f32 (the
+    reference's upcast, so the kernel's rounding of p to v's type is
+    exact); ``q_chunk``/``k_chunk`` shape the backward's recompute."""
+    out = _FlashAttention.apply(q.float(), k.float(), v.float(), causal,
+                                window, q_offset, q_chunk, k_chunk)
     return out.to(v.dtype)
 
 

@@ -7,6 +7,8 @@ Public API
 ----------
 init_params(cfg, generator)              -> params dict
 forward(cfg, params, batch, ...)         -> (final hidden, kv)
+loss_fn(cfg, params, batch, ...)         -> (loss, metrics)
+value_and_grad(cfg, params, batch, ...)  -> ((loss, metrics), grads)
 prefill(cfg, params, batch)              -> (last_logits, cache)
 decode_step(cfg, params, cache, tokens)  -> (logits, cache)
 init_cache(cfg, batch, cache_len, ...)   -> cache dict
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tree as T
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
@@ -121,6 +124,55 @@ def _vocab_mask(cfg, device):
     m = torch.zeros((vp,), dtype=torch.float32, device=device)
     m[cfg.vocab_size:] = A.NEG_INF
     return m
+
+
+def loss_fn(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
+            loss_chunk=256):
+    """Mean cross-entropy over valid labels (labels < 0 are masked),
+    computed over ``S // loss_chunk`` sequence chunks one after another so
+    the (B, S, V) logits never exist at once.  Returns
+    ``(loss + aux, {"loss", "aux_loss", "tokens"})``; the dense family has
+    no auxiliary loss."""
+    x, _ = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
+                   k_chunk=k_chunk)
+    labels = batch["labels"].long()
+    B, S = labels.shape
+    c = loss_chunk if (S % loss_chunk == 0 and S >= loss_chunk) else S
+    nc = S // c
+    xr = x.reshape(B, nc, c, -1).transpose(0, 1)
+    lr = labels.reshape(B, nc, c).transpose(0, 1)
+    vmask = _vocab_mask(cfg, x.device)
+    tot = torch.zeros((), device=x.device)
+    cnt = torch.zeros((), device=x.device)
+    for j in range(nc):
+        logits = L.lm_logits(params["head"], params["embed"], xr[j], cfg)
+        logits = logits.float() + vmask
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.clamp(lr[j], min=0)
+        picked = torch.gather(logits, -1, lab[..., None])[..., 0]
+        w = (lr[j] >= 0).float()
+        tot = tot + torch.sum((lse - picked) * w)
+        cnt = cnt + torch.sum(w)
+        del logits, lse, picked
+    loss = tot / torch.clamp(cnt, min=1.0)
+    aux = torch.zeros((), device=x.device)
+    return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": cnt}
+
+
+def value_and_grad(cfg, params, batch, **chunks):
+    """``loss_fn`` and its gradient with respect to every param (the
+    reference's ``jax.value_and_grad(loss_fn, has_aux=True)``): autograd
+    over detached leaves, so nothing accumulates in ``.grad`` across
+    calls.  Returns ``((loss, metrics), grads)`` with grads nested like
+    params.  On the card the embedding gather's backward sums with
+    atomics, in another order than the reference's scatter-add: the sums
+    agree to f32 (or bf16) rounding, within the parity tolerances."""
+    keys = T.paths(params)
+    leaves = [p.detach().requires_grad_() for p in T.leaves(params)]
+    loss, metrics = loss_fn(cfg, T.unflatten(keys, leaves), batch, **chunks)
+    grads = torch.autograd.grad(loss, leaves)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), T.unflatten(keys, list(grads))
 
 
 # ------------------------------------------------------------------- cache --

@@ -1,18 +1,24 @@
-"""Fleet-executed GEMMs of the port.
+"""PS-centric training and fleet-executed GEMMs of the port.
 
 ``hook``        the pluggable GEMM hook that ``models.layers.pdot``
                 consults (a copy of the reference module).
-``fleet_gemm``  :class:`FleetGemmSession`, which runs each intercepted
-                projection GEMM through the session runtime's numpy or
-                torch fleet executor.  This slice serves (forward only);
-                the autograd function with the dA/dW mirrors comes with the
-                training slice.
+``fleet_gemm``  :class:`FleetGemmSession`, whose differentiable dot runs
+                each intercepted projection GEMM, and its two backward
+                mirrors (dA = dO·Bᵀ, dW = Aᵀ·dO), through the session
+                runtime's numpy or torch fleet executor.
+``train_step``  :class:`FleetTrainSession` / :func:`make_fleet_train_step`
+                -- one forward + backward + AdamW step with PS-hosted
+                non-GEMM ops, fleet metrics and mid-step failure injection.
 """
 from __future__ import annotations
 
 _LAZY = {
     "FleetGemmSession": "repro_torch.train_loop.fleet_gemm",
     "GemmRecord": "repro_torch.train_loop.fleet_gemm",
+    "FleetStepReport": "repro_torch.train_loop.train_step",
+    "FleetTrainSession": "repro_torch.train_loop.train_step",
+    "make_fleet_train_step": "repro_torch.train_loop.train_step",
+    "price_request": "repro_torch.train_loop.train_step",
 }
 
 __all__ = sorted(_LAZY) + ["hook"]

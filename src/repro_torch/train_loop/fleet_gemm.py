@@ -1,16 +1,26 @@
-"""Fleet GEMM session: the bridge between the model's projection GEMMs on
-the PS and the CLEAVE executors on the (simulated) device fleet (port of
-``src/repro/train_loop/fleet_gemm.py``, forward GEMMs only).
+"""Differentiable fleet GEMM: the bridge between PyTorch autograd on the PS
+and the CLEAVE executors on the (simulated) device fleet (port of
+``src/repro/train_loop/fleet_gemm.py``).
 
 :meth:`FleetGemmSession.open` installs the ``models.layers.pdot`` hook;
-inside it every ``x @ w`` goes through
-:meth:`TorchCleaveRuntime.execute_step` -- plan cache, failure recovery
-(``churn.recover``), Freivalds verification and, for ``backend="torch"``,
-the band GEMM kernel with the session ``PadCache``.  PyTorch runs eagerly,
-so the hook calls the executor directly on tensors (no host callback).
-Tensors that require grad are refused: the autograd function whose
-backward sends dA = dO·Bᵀ and dW = Aᵀ·dO to the fleet comes with the
-training slice.
+inside it every ``x @ w`` is :class:`_FleetDot`, a
+``torch.autograd.Function`` whose primal *and* both cotangents run on the
+fleet:
+
+* forward:   C  = A·B          (kind ``fwd``)
+* backward:  dA = dO·Bᵀ        (kind ``dA``, ``gemm_dag``'s ``.dA`` mirror)
+*            dW = Aᵀ·dO        (kind ``dW``, the ``.dW`` mirror)
+
+Each goes through :meth:`TorchCleaveRuntime.execute_step` -- plan cache,
+failure recovery (``churn.recover``), Freivalds verification and, for
+``backend="torch"``, the band GEMM kernel with the session ``PadCache``.
+As in the reference's custom VJP, both backward GEMMs run for every fleet
+dot, so a training step runs three GEMMs per forward GEMM, and an armed
+failure counts GEMMs across the forward and the backward.  PyTorch runs
+eagerly, so the executor is called directly on tensors (no host
+callback); on the card autograd may run the backward on its own device
+thread while the caller waits, which the session's sequential state
+allows.
 """
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ class GemmRecord:
     m: int
     n: int
     q: int
-    kind: str                   # 'fwd'
+    kind: str                   # 'fwd' | 'dA' | 'dW'
     exec_time: float            # host wall-clock of the fleet execution
     predicted_makespan: float   # engine.price_plan of the executed plan
     n_tasks: int
@@ -137,13 +147,10 @@ class FleetGemmSession:
 
     def dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """The ``pdot`` hook: ``x @ w`` with leading dims flattened to the
-        GEMM's ``m``; the result has ``x``'s dtype, as in the reference."""
-        if x.requires_grad or w.requires_grad:
-            raise NotImplementedError(
-                "fleet GEMMs of tensors that require grad need the "
-                "training slice's autograd function")
+        GEMM's ``m``; the result has ``x``'s dtype, as in the reference.
+        Differentiable: both cotangent GEMMs also run on the fleet."""
         lead = tuple(x.shape[:-1])
-        out = self._execute(x.reshape(-1, x.shape[-1]), w, "fwd")
+        out = _FleetDot.apply(self, x.reshape(-1, x.shape[-1]), w)
         return out.reshape(lead + (w.shape[-1],))
 
     def _price(self, gemm, plan) -> float:
@@ -182,53 +189,77 @@ class FleetGemmSession:
 
     def _execute(self, a: torch.Tensor, b: torch.Tensor,
                  kind: str) -> torch.Tensor:
-        fail_ids: Tuple[int, ...] = ()
-        armed = self._armed
-        if armed is not None and not armed.fired \
-                and self._gemm_index >= armed.at_gemm:
-            fail_ids = armed.fail_ids
-            armed.fired = True
-        self._gemm_index += 1
+        # a profiler range per kind ("fleet.fwd", "fleet.dA", "fleet.dW"):
+        # launch/profile_train.py reads the kernel time under each
+        with torch.profiler.record_function(f"fleet.{kind}"):
+            fail_ids: Tuple[int, ...] = ()
+            armed = self._armed
+            if armed is not None and not armed.fired \
+                    and self._gemm_index >= armed.at_gemm:
+                fail_ids = armed.fail_ids
+                armed.fired = True
+            self._gemm_index += 1
 
-        from repro_torch.core import cost_model as cm
-        # the real element width keys the plan, as in the reference
-        gemm = cm.GEMM(m=a.shape[0], n=a.shape[1], q=b.shape[1],
-                       b=int(a.element_size()))
-        if self.dispatch == "dataflow":
-            rep, fin = self.rt.execute_step_deferred(
-                a, b, gemm=gemm, fail_ids=fail_ids, verify=self.verify,
-                backend=self.backend, dtype_policy=self.dtype_policy,
-                kernel=self.kernel)
+            from repro_torch.core import cost_model as cm
+            # the real element width keys the plan, as in the reference
+            gemm = cm.GEMM(m=a.shape[0], n=a.shape[1], q=b.shape[1],
+                           b=int(a.element_size()))
+            if self.dispatch == "dataflow":
+                rep, fin = self.rt.execute_step_deferred(
+                    a, b, gemm=gemm, fail_ids=fail_ids, verify=self.verify,
+                    backend=self.backend, dtype_policy=self.dtype_policy,
+                    kernel=self.kernel)
 
-            def _timed_verify():
-                t0 = time.perf_counter()
-                fin()
-                return time.perf_counter() - t0
+                def _timed_verify():
+                    t0 = time.perf_counter()
+                    fin()
+                    return time.perf_counter() - t0
 
-            if self._verify_pool is None:
-                from concurrent.futures import ThreadPoolExecutor
-                self._verify_pool = ThreadPoolExecutor(
-                    max_workers=1, thread_name_prefix="fleet-verify")
-            self._pending.append(
-                (None, rep, self._verify_pool.submit(_timed_verify)))
-        else:
-            rep = self.rt.execute_step(
-                a, b, gemm=gemm, fail_ids=fail_ids, verify=self.verify,
-                backend=self.backend, dtype_policy=self.dtype_policy,
-                kernel=self.kernel)
-        record = GemmRecord(
-            m=rep.gemm.m, n=rep.gemm.n, q=rep.gemm.q, kind=kind,
-            exec_time=rep.exec_time,
-            predicted_makespan=self._price(rep.gemm, rep.plan),
-            n_tasks=rep.n_tasks, n_recovered=rep.n_recovered,
-            verified=rep.verified, plan_cached=rep.plan_cached,
-            failed_ids=fail_ids, b=gemm.b)
-        if self.dispatch == "dataflow":
-            self._pending[-1] = (record, rep, self._pending[-1][2])
-        self.records.append(record)
-        if fail_ids and armed is not None and armed.evict:
-            self.churn_reports.append(self.rt.on_failure(fail_ids))
-        out = rep.output
-        if isinstance(out, np.ndarray):
-            out = torch.from_numpy(np.ascontiguousarray(out))
-        return out.to(device=a.device, dtype=a.dtype)
+                if self._verify_pool is None:
+                    from concurrent.futures import ThreadPoolExecutor
+                    self._verify_pool = ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix="fleet-verify")
+                self._pending.append(
+                    (None, rep, self._verify_pool.submit(_timed_verify)))
+            else:
+                rep = self.rt.execute_step(
+                    a, b, gemm=gemm, fail_ids=fail_ids, verify=self.verify,
+                    backend=self.backend, dtype_policy=self.dtype_policy,
+                    kernel=self.kernel)
+            record = GemmRecord(
+                m=rep.gemm.m, n=rep.gemm.n, q=rep.gemm.q, kind=kind,
+                exec_time=rep.exec_time,
+                predicted_makespan=self._price(rep.gemm, rep.plan),
+                n_tasks=rep.n_tasks, n_recovered=rep.n_recovered,
+                verified=rep.verified, plan_cached=rep.plan_cached,
+                failed_ids=fail_ids, b=gemm.b)
+            if self.dispatch == "dataflow":
+                self._pending[-1] = (record, rep, self._pending[-1][2])
+            self.records.append(record)
+            if fail_ids and armed is not None and armed.evict:
+                self.churn_reports.append(self.rt.on_failure(fail_ids))
+            out = rep.output
+            if isinstance(out, np.ndarray):
+                out = torch.from_numpy(np.ascontiguousarray(out))
+            return out.to(device=a.device, dtype=a.dtype)
+
+
+# ------------------------------------------------------ autograd fleet dot
+
+class _FleetDot(torch.autograd.Function):
+    """``a @ w`` on the fleet, with dA = dO·wᵀ and dW = aᵀ·dO on the fleet
+    too (the reference's ``fleet_dot`` custom VJP).  Each result has its
+    left operand's dtype (``_execute``), cast to the primal's dtype."""
+
+    @staticmethod
+    def forward(ctx, sess, a, w):
+        ctx.sess = sess
+        ctx.save_for_backward(a, w)
+        return sess._execute(a, w, "fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        da = ctx.sess._execute(g, w.T, "dA")       # dA = dO · Bᵀ
+        dw = ctx.sess._execute(a.T, g, "dW")       # dW = Aᵀ · dO
+        return None, da.to(a.dtype), dw.to(w.dtype)

@@ -215,3 +215,50 @@ def test_runtime_rejects_unknown_backend(rng):
                             device="cpu")
     with pytest.raises(ValueError):
         rt.execute_step(*_ab(rng, 8, 8, 8), backend="jax")
+
+
+@pytest.mark.parametrize("rects,ok", [
+    ([(0, 2, 0, 3), (2, 4, 0, 1), (2, 4, 1, 3)], True),
+    ([(0, 4, 0, 3), (1, 1, 0, 3)], True),          # a degenerate rect
+    ([(0, 2, 0, 3), (1, 4, 0, 3)], False),         # overlap
+    ([(0, 2, 0, 3), (2, 4, 0, 2)], False),         # a hole
+    ([(0, 2, 0, 3), (2, 5, 0, 3)], False),         # outside the output
+])
+def test_partition_check_matches_dense_mask(rects, ok):
+    """The executor's coverage check over rectangles gives the verdict a
+    dense mask of the written cells gives."""
+    mask = np.zeros((5, 3), int)
+    for r0, r1, c0, c1 in rects:
+        mask[r0:r1, c0:c1] += 1
+    assert ok == bool((mask[:4] == 1).all() and not mask[4:].any())
+    if ok:
+        torch_executor._check_partition(rects, 4, 3)
+    else:
+        with pytest.raises(AssertionError):
+            torch_executor._check_partition(rects, 4, 3)
+
+
+def test_executor_catches_an_unwritten_rect(rng, monkeypatch):
+    """A rectangle lost between the plan and the output writes (here
+    dropped from its bucket run) leaves cells of C unwritten: the executor
+    raises rather than return zeros as a verified product."""
+    devs = TFleet.sample(8, seed=0).devices
+    g = cm.GEMM(m=130, n=200, q=150)
+    plan = solve_level_gemm(g, devs)
+    A, B = _ab(rng, g.m, g.n, g.q)
+    real = ops.plan_gemm_buckets
+
+    def drop_last_rect(*args, **kw):
+        runs = real(*args, **kw)
+        run = runs[0]
+        for name in ("idx", "bidx", "c0s", "c1s", "lhs", "rhs", "scale"):
+            setattr(run, name, getattr(run, name)[:-1])
+        return runs
+
+    rep = torch_executor.execute_plan_torch(g, plan, A, B, devs, rng=0,
+                                            policy="f32", device="cpu")
+    assert rep.verified
+    monkeypatch.setattr(ops, "plan_gemm_buckets", drop_last_rect)
+    with pytest.raises(AssertionError, match="coverage violated"):
+        torch_executor.execute_plan_torch(g, plan, A, B, devs, rng=0,
+                                          policy="f32", device="cpu")

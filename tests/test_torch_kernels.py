@@ -9,9 +9,14 @@ import torch
 
 from repro.kernels import block_gemm as jbg
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import attention as jattn
 from repro_torch.kernels import block_gemm as bg
 from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+from repro_torch.models import attention as attn
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -126,3 +131,148 @@ def test_paged_decode_kernel_on_card(cuda, dtype, rng):
     tol = 2e-4 if dtype == "float32" else 1e-2
     assert float((got.float() - want.float()).abs().max()) <= tol
     assert not got[1].any()
+
+
+# ---------------------------------------------------------- flash attention --
+
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+# f32: the same arithmetic summed in another order.  bf16: the output is
+# rounded to bf16, so one unit in the last place of the largest output.
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
+
+def _qkv(rng, B, Sq, Sk, H, K, D):
+    return (rng.standard_normal((B, Sq, H, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, K, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, K, D)).astype(np.float32))
+
+
+def _rel_err(got, want):
+    want = np.asarray(want, np.float32)
+    return float(np.abs(np.asarray(got, np.float32) - want).max()
+                 / np.abs(want).max())
+
+
+@pytest.mark.parametrize("S,H,K,D,window", [
+    (128, 4, 4, 32, 0), (256, 4, 2, 32, 0), (256, 8, 2, 64, 64),
+    (128, 2, 1, 16, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_flash_plain_matches_pallas(S, H, K, D, window, dtype, rng):
+    """``ops.mha_flash`` (CPU: the plain version, GQA by index) against the
+    Pallas kernel in interpret mode, which repeats k and v per group."""
+    q, k, v = _qkv(rng, 2, S, S, H, K, D)
+    want = jops.mha_flash(*(jnp.asarray(x, JAX_DT[dtype]) for x in (q, k, v)),
+                          causal=True, window=window, bq=64, bk=64)
+    got = ops.mha_flash(*(torch.from_numpy(x).to(TORCH_DT[dtype])
+                          for x in (q, k, v)), causal=True, window=window)
+    assert got.dtype == TORCH_DT[dtype] and got.shape == (2, S, H, D)
+    assert _rel_err(got.float().numpy(), want) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("Sq,Sk,G,causal,window", [
+    (64, 64, 1, True, 0), (48, 48, 4, True, 16), (15, 15, 4, True, 0),
+    (40, 72, 2, False, 0), (100, 100, 8, True, 33)])
+def test_flash_attention_plain_matches_attention_ref(Sq, Sk, G, causal,
+                                                     window, rng):
+    """The (BH, S, D) entry point against the naive oracles of both
+    packages (k and v repeated per group for them); ragged lengths and a
+    non-causal case included.  f32, 1e-5 of the largest output."""
+    BHk, D = 3, 32
+    q = rng.standard_normal((BHk * G, Sq, D)).astype(np.float32)
+    k = rng.standard_normal((BHk, Sk, D)).astype(np.float32)
+    v = rng.standard_normal((BHk, Sk, D)).astype(np.float32)
+    got = fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                             causal=causal, window=window, groups=G)
+    kr, vr = np.repeat(k, G, axis=0), np.repeat(v, G, axis=0)
+    want_j = np.asarray(jref.attention_ref(jnp.asarray(q), jnp.asarray(kr),
+                                           jnp.asarray(vr), causal=causal,
+                                           window=window))
+    want_t = ref.attention_ref(*(torch.from_numpy(x) for x in (q, kr, vr)),
+                               causal=causal, window=window)
+    assert _rel_err(got.numpy(), want_j) <= 1e-5
+    assert _rel_err(want_t.numpy(), want_j) <= 1e-5
+
+
+@pytest.mark.parametrize("q_offset", [0, 24, -5])
+def test_flash_q_offset_matches_reference_chunked(q_offset, rng):
+    """``q_offset`` shifts query positions as the reference's
+    ``chunked_attention`` does; rows that see no key (negative offsets,
+    causal) come out as zeros in both."""
+    q, k, v = _qkv(rng, 2, 16, 40, 4, 2, 32)
+    want = np.asarray(jattn.chunked_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=True, window=12,
+        q_offset=q_offset, q_chunk=8, k_chunk=8))
+    got = ops.mha_flash(*(torch.from_numpy(x) for x in (q, k, v)),
+                        causal=True, window=12, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    if q_offset < 0:
+        assert not got[:, :-q_offset].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_function_grad_matches_plain_autograd(dtype, rng):
+    """The model's attention (flash forward, recomputed-reference
+    backward) against autograd through the plain chunked body, and the
+    reference's ``jax.grad`` of ``chunked_attention``."""
+    import jax
+    q, k, v = _qkv(rng, 2, 32, 32, 4, 2, 16)
+    g = rng.standard_normal((2, 32, 4, 16)).astype(np.float32)
+    opts = dict(causal=True, window=20, q_chunk=8, k_chunk=8)
+
+    def grads(fn):
+        ts = [torch.from_numpy(x).to(TORCH_DT[dtype]).requires_grad_()
+              for x in (q, k, v)]
+        out = fn(*ts)
+        return out.detach(), torch.autograd.grad(
+            out, ts, torch.from_numpy(g).to(out.dtype))
+
+    out, got = grads(lambda *t: attn.chunked_attention(*t, **opts))
+    out_p, want = grads(lambda *t: attn._chunked_reference(
+        *t, q_offset=0, **opts).to(t[2].dtype))
+    assert out.dtype == TORCH_DT[dtype]
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    assert _rel_err(out.float().numpy(), out_p.float().numpy()) <= tol
+    for a, b in zip(got, want):
+        assert a.dtype == TORCH_DT[dtype]
+        assert _rel_err(a.float().numpy(), b.float().numpy()) <= tol
+    if dtype == "float32":
+        _, vjp = jax.vjp(lambda *t: jattn.chunked_attention(*t, **opts),
+                         *(jnp.asarray(x) for x in (q, k, v)))
+        for a, b in zip(got, vjp(jnp.asarray(g))):
+            assert _rel_err(a.numpy(), np.asarray(b)) <= 1e-4
+
+
+def test_flash_wrapper_never_falls_back():
+    """Only CPU tensors take the plain version: any other device launches
+    the kernel or raises; shapes that do not fit raise everywhere."""
+    q = torch.empty((1, 8, 2, 16), device="meta")
+    kv = torch.empty((1, 8, 1, 16), device="meta")
+    with pytest.raises(ValueError):
+        ops.mha_flash(q, kv, kv)
+    with pytest.raises(ValueError):
+        fa.flash_attention(torch.zeros(4, 8, 16), torch.zeros(3, 8, 16),
+                           torch.zeros(3, 8, 16), groups=1)
+    with pytest.raises(ValueError):
+        ops.mha_flash(torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 2, 16),
+                      torch.zeros(1, 8, 2, 16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,K,D,window", [(128, 32, 8, 128, 0),
+                                            (15, 32, 8, 128, 0),
+                                            (200, 16, 2, 64, 64)])
+def test_flash_kernel_on_card(cuda, S, H, K, D, window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((2, S, n, D), generator=gen, device=cuda)
+               .to(TORCH_DT[dtype]) for n in (H, K, K))
+    n0 = fa.launches
+    got = ops.mha_flash(q, k, v, causal=True, window=window)
+    assert fa.launches == n0 + 1
+    want = torch.empty_like(got)
+    want.copy_(fa._attend_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                window=window, q_offset=0).transpose(1, 2))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
