@@ -20,22 +20,36 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               training shape, a serving prefill, a sliding window and a
               wide GQA case, in f32 and bf16; timed at the training shape
               beside the plain version and ``scaled_dot_product_attention``.
-5. reduced -- ``llama3-8b.reduced()`` fleet serving under the f32 policy
+5. decode  -- the contiguous-cache flash-decode kernel against its plain
+              version (and, in f32, the reference's ``decode_attention``)
+              at the serving shape, with ragged per-request lengths, an
+              8-group GQA case and a 32k-token cache, in f32 and bf16;
+              timed at the serving shape and at the 32k cache beside the
+              plain version, ``scaled_dot_product_attention`` and the
+              bound.
+6. wkv     -- the WKV-6 kernel against its plain version at the RWKV
+              training shape (zero and random incoming state), a prompt
+              length off the 32-step chunk grid and S = 1, y and the last
+              state; against the step-exact recurrence at a small shape;
+              timed at the training shape beside the plain version and
+              the bound.
+7. reduced -- ``llama3-8b.reduced()`` fleet serving under the f32 policy
               with a device failure: greedy tokens equal the port's
               monolithic decode, every step verified, tasks recovered.
-6. full    -- serving at full width: llama3-8b (4 layers, bf16), 4 slots,
-              through all three kernels (the prefills run flash attention)
-              with a device failure at step 2 and the paged read checked
-              every step; launch counts read around this run.  Then one
+8. full    -- serving at full width: llama3-8b (4 layers, bf16), 4 slots,
+              through four kernels (the prefills run flash attention, every
+              decode step's attention the flash-decode kernel) with a
+              device failure at step 2 and the paged read checked every
+              step; launch counts read around this run.  Then one
               full-width GEMM with a poisoning device must be caught and
               corrected.
-7. train_reduced -- fleet training of ``llama3-8b.reduced()`` under the f32
+9. train_reduced -- fleet training of ``llama3-8b.reduced()`` under the f32
               policy for 3 steps with a mid-backward failure, against the
               monolithic step: loss, grad_norm and moments within 1e-4
               relative, params within 2e-5 in L2, which the same run
               under the bf16 policy must fail; every band GEMM launch
               (f32) held against the plain version on its own operands.
-8. train_full -- the training path at full width: llama3-8b (4 layers,
+10. train_full -- the training path at full width: llama3-8b (4 layers,
               bf16 params and policy), batch 8 x 128, 16-device fleet, 3
               fleet steps (forward, dA and dW GEMMs on the band GEMM
               kernel, attention on the flash kernel) with a failure at
@@ -44,6 +58,18 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               launch counts read around these steps; the first step's
               loss and grad_norm against the monolithic path; the first
               step's set of band GEMM launches timed beside its bound.
+11. rwkv_reduced -- fleet training of ``rwkv6-7b.reduced()`` under the f32
+              policy for 3 steps with a device failure mid-step, against
+              the monolithic step (loss, grad_norm, moments within 1e-4,
+              params in L2 beside a bf16-policy control); then greedy
+              prefill + 8 decode steps against token-by-token decoding.
+12. rwkv_full -- rwkv6-7b at full width (4 layers, bf16), batch 8 x 128,
+              16-device fleet: 3 fleet steps (the LM head's GEMMs on the
+              fleet, the time mix on the WKV kernel) with a failure at step
+              1, the first step against the monolithic path; then prefill
+              of 4 prompts of 16 and 8 decode steps, the first decode
+              step's logits against token-by-token decoding; WKV launch
+              counts read around training, prefill and decode.
 
 Then a ``kernels`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the result line.  ``--phases`` runs a
@@ -60,12 +86,13 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("build", "gemm", "paged", "flash", "reduced", "full",
-          "train_reduced", "train_full")
+PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
+          "full", "train_reduced", "train_full", "rwkv_reduced", "rwkv_full")
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # FLOP/s, f32 off-core
@@ -421,6 +448,185 @@ def phase_flash():
     return out
 
 
+# flash-decode cases: (tag, B, Smax, H, K, D, per-request occupied slots)
+DECODE_CASES = (
+    # the full serving cell: 4 slots, cache of 32 (pages of 16), requests
+    # at positions 16..23
+    ("serving", 4, 32, 32, 8, 128, [17, 18, 19, 24]),
+    ("ragged", 4, 200, 32, 8, 128, [1, 200, 73, 130]),
+    ("gqa8", 2, 100, 16, 2, 64, [100, 37]),
+    ("cache32k", 4, 32768, 32, 8, 128, [32768, 30000, 32768, 20000]),
+)
+
+
+def _decode_bound(B, H, K, D, lengths, esz):
+    """Bytes each read once (q f32, the occupied K and V slots, the mask)
+    and written once (the output), against 4·G·D operations per occupied
+    slot and kv head (f32 on the CUDA cores)."""
+    ntok = sum(lengths)
+    nbytes = 4 * B * H * D + 2 * esz * ntok * K * D + B * max(lengths) \
+        + esz * B * H * D
+    return bound_ms(nbytes, 4.0 * ntok * H * D, "float32")
+
+
+def phase_decode():
+    import torch
+    from repro_torch import ieee_f32
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.models.attention import decode_attention_plain
+    ieee_f32()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {"max_abs_err": 0.0, "timed": {}}
+    for tag, B, S, H, K, D, lengths in DECODE_CASES:
+        q = torch.randn((B, 1, H, D), generator=gen, device=dev)
+        k32 = torch.randn((B, S, K, D), generator=gen, device=dev)
+        v32 = torch.randn((B, S, K, D), generator=gen, device=dev)
+        ln = torch.as_tensor(lengths, device=dev)
+        valid = torch.arange(S, device=dev)[None, :] < ln[:, None]
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            k, v = k32.to(dt), v32.to(dt)
+            got = dec.flash_decode(q, k, v, valid)
+            want = dec.flash_decode_plain(q, k, v, valid)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = max(1.0, float(want.float().abs().max()))
+            # f32: sums in another order (the reference's 2e-4); bf16: the
+            # output is rounded to bf16 (one ulp in [1, 2) is 7.8e-3)
+            tol = 2e-4 if name == "float32" else 1e-2
+            row = {"phase": "decode", "case": tag, "dtype": name, "B": B,
+                   "Smax": S, "H": H, "K": K, "D": D, "lengths": lengths,
+                   "splits": dec.decode_splits(B, K, S),
+                   "max_abs_err": err}
+            check(err <= tol * scale, f"flash decode {tag} {name}: max abs "
+                  f"err {err:.3g}")
+            if name == "float32":
+                # the model's own function (normalised p, rounded q): the
+                # same in f32 up to summation order
+                ref = decode_attention_plain(q, k, v, valid)
+                row["vs_decode_attention"] = float((got - ref).abs().max())
+                check(row["vs_decode_attention"] <= tol * scale,
+                      f"flash decode {tag}: off decode_attention {row}")
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+            if tag in ("serving", "cache32k") and (
+                    name == "bfloat16" or tag == "serving"):
+                G = H // K
+                row["kernel_ms"] = time_ms(
+                    lambda: dec.flash_decode(q, k, v, valid), iters=20)
+                row["plain_ms"] = time_ms(
+                    lambda: dec.flash_decode_plain(q, k, v, valid), iters=3,
+                    reps=3)
+                qh = q.to(dt).transpose(1, 2)
+                kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
+                vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
+                mask = valid[:, None, None, :]
+                row["library_ms"] = time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask), iters=20)
+                del kh, vh
+                row["bound_ms"], row["bound_by"] = _decode_bound(
+                    B, H, K, D, lengths, k.element_size())
+                out["timed"][f"{tag}_{name}"] = {
+                    k_: row[k_] for k_ in ("kernel_ms", "plain_ms",
+                                           "library_ms", "bound_ms",
+                                           "bound_by")}
+            emit(row)
+            del k, v
+    return out
+
+
+def _wkv_flops(B, S, H, hd, chunk):
+    """Operations of the chunked form (what the kernel computes), per chunk
+    of c steps: the inter-chunk product and the state carry (2·c·hd² each),
+    the pairwise decays and scores (4 per pair j < t and dim: product,
+    exp, multiply-add), the diagonal bonus, the intra-chunk product, and
+    the elementwise decays."""
+    tot = 0.0
+    for c0 in range(0, S, chunk):
+        c = min(chunk, S - c0)
+        tot += (4 * c * hd * hd + 2 * c * (c - 1) * hd + 3 * c * hd
+                + c * (c + 1) * hd + 2 * hd * hd + 6 * c * hd)
+    return B * H * tot
+
+
+def phase_wkv():
+    import torch
+    from repro_torch import ieee_f32
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import wkv6 as wkv
+    ieee_f32()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"max_rel_err": 0.0}
+
+    def inputs(B, S, H, hd, dt, state):
+        r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+                   .to(dt) for _ in range(3))
+        # the model's decays: exp(-exp(w0 + lora)), w0 = -2
+        ww = -2.0 + 0.5 * torch.randn((B, S, H, hd), generator=gen,
+                                      device=dev)
+        w = torch.exp(-torch.exp(ww))
+        u = 0.1 * torch.randn((H, hd), generator=gen, device=dev)
+        s0 = torch.randn((B, H, hd, hd), generator=gen, device=dev) \
+            if state else None
+        return r, k, v, w, u, s0
+
+    # (tag, B, S, H, hd, incoming state): the training shape, a prefill
+    # of 100 (three chunks of 32 and one of 4), the decode step
+    for tag, B, S, H, hd, state in (("train", 8, 128, 64, 64, False),
+                                    ("train_state", 8, 128, 64, 64, True),
+                                    ("prompt100", 4, 100, 64, 64, True),
+                                    ("decode", 4, 1, 64, 64, True)):
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            r, k, v, w, u, s0 = inputs(B, S, H, hd, dt, state)
+            y, s_last = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32)
+            yp, sp = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=32)
+            torch.cuda.synchronize()
+            ey = float((y - yp).abs().max() / yp.abs().max())
+            es = float((s_last - sp).abs().max() / sp.abs().max())
+            row = {"phase": "wkv", "case": tag, "dtype": name, "B": B,
+                   "S": S, "H": H, "hd": hd, "state_in": state,
+                   "y_rel_err": ey, "s_last_rel_err": es,
+                   "y_max_abs_err": float((y - yp).abs().max())}
+            # both sides read the same values and compute the same chunked
+            # form in f32, summing in another order
+            check(ey <= 1e-5 and es <= 1e-5,
+                  f"wkv {tag} {name}: rel err y {ey:.3g}, s_last {es:.3g}")
+            out["max_rel_err"] = max(out["max_rel_err"], ey, es)
+            if tag == "train" and name == "bfloat16":
+                out["max_abs_err"] = row["y_max_abs_err"]
+                row["kernel_ms"] = time_ms(
+                    lambda: wkv.wkv6(r, k, v, w, u, chunk=32))
+                row["plain_ms"] = time_ms(
+                    lambda: wkv.wkv6_plain(r, k, v, w, u, None, chunk=32),
+                    iters=3, reps=3)
+                row["library_ms"] = None     # no single PyTorch call
+                nbytes = r.numel() * 2 * 3 + 4 * (w.numel() + y.numel()
+                                                  + s_last.numel() + u.numel())
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    nbytes, _wkv_flops(B, S, H, hd, 32), "float32")
+                out.update({k_: row[k_] for k_ in (
+                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")})
+            emit(row)
+            del r, k, v, w, y, yp
+    # the step-exact recurrence, at the reference test's own tolerance
+    r, k, v, w, u, _ = inputs(2, 64, 2, 16, torch.float32, False)
+    y, _ = wkv.wkv6(r, k, v, w, u, chunk=16)
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(4, 64, 16)
+    want = kref.wkv6_ref(flat(r), flat(k), flat(v), flat(w),
+                         u[None].expand(2, 2, 16).reshape(4, 16))
+    ok = bool(torch.allclose(flat(y), want, rtol=1e-4, atol=1e-3))
+    emit({"phase": "wkv", "case": "step_exact", "ok": ok,
+          "max_abs_err": float((flat(y) - want).abs().max())})
+    check(ok, "wkv: off the step-exact recurrence")
+    return out
+
+
 def _monolithic_greedy(cfg, params, prompt, n_new, cache_len, dev):
     import torch
     from repro_torch.models import model as M
@@ -497,6 +703,7 @@ def phase_full(cfg):
 
     bg.launches = 0
     dec.launches = 0
+    dec.flash_decode_launches = 0
     fa.launches = 0
     t0 = time.perf_counter()
     first = sess.step()
@@ -505,9 +712,11 @@ def phase_full(cfg):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     # the prefills of the four admissions run the flash kernel, one
-    # launch per layer each
+    # launch per layer each; every decode step's attention the flash-decode
+    # kernel, one launch per layer
     launches = {"band_gemm": bg.launches, "paged_decode": dec.launches,
-                "flash_attention": fa.launches}
+                "flash_attention": fa.launches,
+                "flash_decode": dec.flash_decode_launches}
 
     # the first step against the port's monolithic decode on the same
     # inputs: per-request prefill of prompt[:-1] into an f32 cache (the
@@ -567,6 +776,9 @@ def phase_full(cfg):
     check(rel_l2 <= 2e-2, f"full width: first-step logits rel L2 {rel_l2}")
     check(all(v > 0 for v in launches.values()),
           f"full width: a kernel was not launched: {launches}")
+    check(launches["flash_decode"] == n_steps * cfg.n_layers,
+          f"full width: {launches['flash_decode']} flash-decode launches in "
+          f"{n_steps} steps of {cfg.n_layers} layers")
 
     # one full-width GEMM with a poisoning device, under the f32 policy:
     # under bf16 the tolerance (32 x 7.8e-3 x sqrt(n / area) of sum |C|)
@@ -810,6 +1022,243 @@ def phase_train_full(cfg):
     return launches, gemm_set
 
 
+def _rwkv_greedy(cfg, params, prompts, n_new, dev):
+    """Greedy continuation two ways: one prefill of the prompts, then
+    ``n_new`` decode steps on its states; and the prompts fed token by
+    token through ``decode_step`` from ``init_cache``.  Both paths take the
+    token the prefill's logits pick first, then each its own argmax.
+    Returns, per path, the tokens and the first decode step's logits."""
+    import torch
+    from repro_torch.models import model as M
+    toks = torch.as_tensor(prompts, device=dev)
+    B, P = toks.shape
+    lg, cache = M.prefill(cfg, params, {"tokens": toks})
+    cache_tbt = M.init_cache(cfg, B, P, device=dev)
+    for t in range(P):
+        _, cache_tbt = M.decode_step(cfg, params, cache_tbt, toks[:, t:t + 1])
+    nxt0 = torch.argmax(lg[:, -1, :cfg.vocab_size], dim=-1)[:, None]
+    out = []
+    for cache_ in (cache, cache_tbt):
+        nxt, seq, first = nxt0, [], None
+        for _ in range(n_new):
+            seq.append(nxt)
+            lg_, cache_ = M.decode_step(cfg, params, cache_, nxt)
+            first = lg_ if first is None else first
+            nxt = torch.argmax(lg_[:, -1, :cfg.vocab_size], dim=-1)[:, None]
+        out.append((torch.cat(seq, dim=1).cpu().tolist(), first))
+    return out
+
+
+def phase_rwkv_reduced():
+    """RWKV fleet training (f32 policy) against the monolithic step: 3
+    steps, device 2 failing at GEMM 3 (in the backward) of step 1; then
+    greedy serving against token-by-token decoding."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import wkv6 as wkv
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    dev = torch.device("cuda")
+    cfg = get_config("rwkv6-7b").reduced()
+    chunks = dict(loss_chunk=16)
+    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=2, total_steps=20)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adam.init(params, opt_cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=2, seed=0))
+    sessions = []
+    for policy in ("f32", "bf16"):       # the bf16 run is the control
+        rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
+                                device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # PS-local GEMMs
+            sessions.append(rt.train_session(opt_cfg, backend="torch",
+                                             dtype_policy=policy, **chunks))
+    sess, ctl = sessions
+    mono = make_train_step(cfg, opt_cfg, **chunks)
+    p_f, o_f, p_m, o_m, p_c, o_c = params, opt, params, opt, params, opt
+    rows = []
+    wkv.launches = 0
+    for step in range(3):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in data.batch(step).items()}
+        # 2 loss chunks: GEMMs 0-1 forward, 2-5 the backward
+        fail = dict(fail_ids=[2] if step == 1 else (), fail_at_gemm=3)
+        p_m, o_m, met_m = mono(p_m, o_m, batch)
+        with band_gemm_audit(verify=True) as audit:
+            p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+        p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
+        rep = met_f["fleet"]
+        lm, lf = float(met_m["loss"]), float(met_f["loss"])
+        gm, gf = float(met_m["grad_norm"]), float(met_f["grad_norm"])
+        rows.append({"step": step, "loss_fleet": lf, "loss_mono": lm,
+                     "loss_rel": abs(lf - lm) / abs(lm),
+                     "grad_norm_rel": abs(gf - gm) / abs(gm),
+                     "n_gemms": rep.n_gemms, "verified": rep.verified,
+                     "n_recovered": rep.n_recovered,
+                     "failed_ids": list(rep.failed_ids),
+                     "band_gemm_checked": audit["checked"],
+                     "band_gemm_max_rel_err": audit["max_rel_err"]})
+    train_wkv = wkv.launches
+    worst = {"params": _worst_rel(p_m, p_f), "mu": _worst_rel(o_m.mu, o_f.mu),
+             "nu": _worst_rel(o_m.nu, o_f.nu),
+             "params_l2": _worst_rel(p_m, p_f, norm=2),
+             "control_bf16_params_l2": _worst_rel(p_m, p_c, norm=2)}
+    rng = np.random.default_rng(2)
+    # a prompt of 40: one chunk of 32 and a ragged one of 8 in the kernel
+    prompts = rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int64)
+    wkv.launches = 0
+    (toks, _), (toks_tbt, _) = _rwkv_greedy(cfg, p_f, prompts, 8, dev)
+    serve_wkv = wkv.launches
+    emit({"phase": "rwkv_reduced", "steps": rows, "worst_rel": worst,
+          "params_l2_limit": TRAIN_PARAMS_L2_LIMIT,
+          "wkv_launches_training": train_wkv,
+          "wkv_launches_serving": serve_wkv,
+          "greedy_tokens": toks, "greedy_tokens_match": toks == toks_tbt})
+    for r in rows:
+        check(r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4,
+              f"rwkv_reduced step {r['step']}: loss/grad_norm off {r}")
+        check(r["verified"] and r["band_gemm_checked"] > 0,
+              f"rwkv_reduced step {r['step']}: unverified or no launch {r}")
+    check(max(worst["mu"], worst["nu"]) <= 1e-4,
+          f"rwkv_reduced: moments off {worst}")
+    # params in L2, as train_reduced holds them (the max-element measure
+    # reads summation order where Adam meets a gradient near zero)
+    check(worst["params_l2"] <= TRAIN_PARAMS_L2_LIMIT,
+          f"rwkv_reduced: params off {worst}")
+    check(worst["control_bf16_params_l2"] > TRAIN_PARAMS_L2_LIMIT,
+          f"rwkv_reduced: the bf16 control passed the params check {worst}")
+    check(rows[1]["n_recovered"] > 0 and rows[1]["failed_ids"] == [2],
+          "rwkv_reduced: the failure recovered nothing")
+    # 2 layers: one WKV launch per layer and step (monolithic and fleet
+    # runs; the control too), per prefill, and per decode step
+    check(train_wkv == 3 * 3 * cfg.n_layers,
+          f"rwkv_reduced: {train_wkv} WKV launches in training")
+    check(serve_wkv == (1 + 40 + 2 * 8) * cfg.n_layers,
+          f"rwkv_reduced: {serve_wkv} WKV launches in serving")
+    check(toks == toks_tbt, f"rwkv_reduced: greedy tokens {toks} != "
+          f"token-by-token {toks_tbt}")
+
+
+def phase_rwkv_full(cfg):
+    """RWKV at full width: 3 fleet training steps, device 3 failing at GEMM
+    3 (in the backward) of step 1, the first step against the monolithic
+    path; then serving, prefill against token-by-token decoding."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import wkv6 as wkv
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    dev = torch.device("cuda")
+    B, S, n_steps = 8, 128, 3
+    chunks = dict(loss_chunk=64)
+    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=3, total_steps=n_steps)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adam.init(params, opt_cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in T.leaves(params))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0))
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in data.batch(step).items()}
+               for step in range(n_steps)]
+    t0 = time.perf_counter()
+    (loss_m, _), grads = M.value_and_grad(cfg, params, batches[0], **chunks)
+    gnorm_m = float(adam.global_norm(grads))
+    del grads
+    torch.cuda.synchronize()
+    t_mono = time.perf_counter() - t0
+
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                            device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)      # PS-local GEMMs
+        sess = rt.train_session(opt_cfg, backend="torch",
+                                dtype_policy="bf16", **chunks)
+    rows = []
+    wkv.launches = 0
+    bg.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for step, batch in enumerate(batches):
+        n_w, n_b = wkv.launches, bg.launches
+        params, opt, met = sess.step(
+            params, opt, batch, fail_ids=[3] if step == 1 else (),
+            fail_at_gemm=3)
+        rep = met["fleet"]
+        rows.append({
+            "step": step, "loss": rep.loss, "grad_norm": rep.grad_norm,
+            "wall_s": rep.wall_time, "fleet_exec_s": rep.fleet_exec_time,
+            "n_gemms": rep.n_gemms, "n_tasks": rep.n_tasks,
+            "n_recovered": rep.n_recovered,
+            "failed_ids": list(rep.failed_ids), "verified": rep.verified,
+            "wkv_launches": wkv.launches - n_w,
+            "band_gemm_launches": bg.launches - n_b})
+        emit({"phase": "rwkv_full_step", **rows[-1]})
+    torch.cuda.synchronize()
+    train_launches = {"wkv6": wkv.launches, "band_gemm": bg.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del opt, met, batches
+
+    # serving: 4 prompts of 16, prefill then 8 decode steps
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int64)
+    wkv.launches = 0
+    t0 = time.perf_counter()
+    (toks, first), (toks_tbt, first_tbt) = _rwkv_greedy(cfg, params,
+                                                         prompts, 8, dev)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    serve_wkv = wkv.launches
+    V = cfg.vocab_size
+    diff = (first[..., :V] - first_tbt[..., :V]).float()
+    rel_l2 = float(diff.norm() / first_tbt[..., :V].float().norm())
+    loss_rel = abs(rows[0]["loss"] - float(loss_m)) / abs(float(loss_m))
+    gnorm_rel = abs(rows[0]["grad_norm"] - gnorm_m) / abs(gnorm_m)
+    row = {"phase": "rwkv_full", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": cfg.d_model // cfg.rwkv_head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "n_params": n_params,
+           "batch": B, "seq": S, "param_init_s": t_init,
+           "mono_grad_s": t_mono, "loss_mono": float(loss_m),
+           "grad_norm_mono": gnorm_m, "first_step_loss_rel": loss_rel,
+           "first_step_grad_norm_rel": gnorm_rel,
+           "launches_training": train_launches,
+           "max_memory_allocated_gb": peak_gb, "serve_s": t_serve,
+           "wkv_launches_serving": serve_wkv,
+           "first_decode_logits_rel_l2": rel_l2,
+           "greedy_tokens_match": toks == toks_tbt}
+    emit(row)
+    for r in rows:
+        check(r["verified"], f"rwkv_full step {r['step']}: unverified")
+        check(r["wkv_launches"] == cfg.n_layers and r["band_gemm_launches"] > 0,
+              f"rwkv_full step {r['step']}: kernel launches {r}")
+        check(bool(np.isfinite(r["loss"])), f"rwkv_full step {r['step']}: "
+              f"loss {r['loss']}")
+    check(rows[1]["failed_ids"] == [3] and rows[1]["n_recovered"] > 0,
+          "rwkv_full: the failure did not fire or recovered nothing")
+    # every GEMM output is rounded to bf16, in another order on each path
+    check(loss_rel <= 1e-2, f"rwkv_full: first-step loss rel {loss_rel}")
+    check(gnorm_rel <= 5e-2, f"rwkv_full: first-step grad_norm rel "
+          f"{gnorm_rel}")
+    # prefill (1 launch per layer), 16 token-by-token steps, and 8 decode
+    # steps on each path, one launch per layer each
+    check(serve_wkv == (1 + 16 + 2 * 8) * cfg.n_layers,
+          f"rwkv_full: {serve_wkv} WKV launches in serving")
+    # the chunked and the one-step forms round differently in bf16
+    check(rel_l2 <= 2e-2, f"rwkv_full: first decode step's logits rel L2 "
+          f"{rel_l2}")
+    return {"training": train_launches["wkv6"], "serving": serve_wkv}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -826,24 +1275,33 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.configs.base import get_config
     full = dataclasses.replace(get_config("llama3-8b"), n_layers=4)
+    rwkv_full = dataclasses.replace(get_config("rwkv6-7b"), n_layers=4)
 
     if "build" in phases:
         phase_build()
     gemm = phase_gemm(full) if "gemm" in phases else None
     paged = phase_paged() if "paged" in phases else None
     flash = phase_flash() if "flash" in phases else None
+    decode = phase_decode() if "decode" in phases else None
+    wkv = phase_wkv() if "wkv" in phases else None
     if "reduced" in phases:
         phase_reduced()
     launches = phase_full(full) if "full" in phases else None
     if "train_reduced" in phases:
         phase_train_reduced()
     train = phase_train_full(full) if "train_full" in phases else None
+    if "rwkv_reduced" in phases:
+        phase_rwkv_reduced()
+    rwkv = phase_rwkv_full(rwkv_full) if "rwkv_full" in phases else None
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    if gemm and paged and flash and launches and train:
+    if all(x is not None for x in (gemm, paged, flash, decode, wkv,
+                                   launches, train, rwkv)):
         train_launches, gset = train
+        dec_serve, dec_long = (decode["timed"]["serving_float32"],
+                               decode["timed"]["cache32k_bfloat16"])
         kernels = [
             {"name": "band_gemm", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
@@ -879,6 +1337,28 @@ def main(argv=None) -> int:
              "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
              "bound_by": flash["bound_by"],
              "library_ms": flash["library_ms"]},
+            {"name": "flash_decode", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_decode.cu",
+             "replaces": "src/repro/kernels/decode_attention.py:144",
+             "launches": launches["flash_decode"],
+             "ms_of": "one launch at the serving path's shape (4 requests, "
+                      "cache of 32, f32 pools)",
+             "max_abs_err": decode["max_abs_err"],
+             "ms": dec_serve["kernel_ms"], "plain_ms": dec_serve["plain_ms"],
+             "bound_ms": dec_serve["bound_ms"],
+             "bound_by": dec_serve["bound_by"],
+             "library_ms": dec_serve["library_ms"],
+             "cache_32k_bf16": dec_long},
+            {"name": "wkv6", "route": "cuda",
+             "source": "src/repro_torch/csrc/wkv6.cu",
+             "replaces": "src/repro/kernels/wkv6.py:66",
+             "launches": rwkv["training"],
+             "launches_serving": rwkv["serving"],
+             "ms_of": "one launch at the RWKV training shape (B 8, S 128, "
+                      "64 heads of 64, bf16 r/k/v)",
+             "max_abs_err": wkv["max_abs_err"], "ms": wkv["kernel_ms"],
+             "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
+             "bound_by": wkv["bound_by"], "library_ms": wkv["library_ms"]},
         ]
         emit({"kernels": kernels})
     print(smi.splitlines()[0], flush=True)

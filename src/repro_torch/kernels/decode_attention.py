@@ -1,10 +1,13 @@
-"""Paged single-token GQA decode: attention reads the serving page pools in
-place through per-request page tables.
+"""Single-token GQA decode attention: over a contiguous KV cache with a
+validity mask (:func:`flash_decode`), and over the serving page pools read
+in place through per-request page tables (:func:`flash_decode_paged`).
 
-Port of the Pallas ``flash_decode_paged``
-(``src/repro/kernels/decode_attention.py:97``).  On a CUDA tensor the
-wrapper launches the hand-written Hopper kernel in
-``csrc/paged_decode.cu`` (or raises); on a CPU tensor it runs
+Ports of the Pallas ``flash_decode``
+(``src/repro/kernels/decode_attention.py:144``) and ``flash_decode_paged``
+(``:97``).  On a CUDA tensor each wrapper launches its hand-written Hopper
+kernel, ``csrc/flash_decode.cu`` or ``csrc/paged_decode.cu`` (or raises);
+on a CPU tensor it runs its plain version: :func:`flash_decode_plain`, the
+same split online softmax in plain PyTorch, or
 :func:`flash_decode_paged_plain`, which gathers the pages and runs dense
 masked softmax attention.
 """
@@ -16,9 +19,10 @@ import math
 
 import torch
 
-from repro_torch.kernels.ref import paged_decode_ref
+from repro_torch.kernels.ref import NEG_INF, paged_decode_ref
 
-launches = 0                 # kernel launches since the last reset
+launches = 0                 # paged kernel launches since the last reset
+flash_decode_launches = 0    # contiguous-cache kernel launches, likewise
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -93,4 +97,150 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    return out
+
+
+# ------------------------------------------------- contiguous-cache decode --
+
+SPLIT_MAX = 1024             # cache slots per block of the kernel
+_SPLIT_BLOCKS = 264          # blocks to aim for: two per SM of an H100
+GROUPS_MAX = 16              # query heads per kv head the kernel takes
+_THREADS = 256
+_DEC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_float] \
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+
+
+def decode_splits(B: int, K: int, S: int):
+    """``(split, nsplit)``: the key axis of each (request, kv head) is cut
+    into ``nsplit`` splits of ``split`` slots (the last one ragged), enough
+    of them that B·K·nsplit blocks fill the card, each a multiple of 64
+    slots and at most :data:`SPLIT_MAX`.  The kernel and
+    :func:`flash_decode_plain` cut alike, so they round alike."""
+    want = max(1, -(-_SPLIT_BLOCKS // max(B * K, 1)))
+    ns = max(1, min(want, -(-S // 64)))
+    split = -(-S // ns)
+    split = min(-(-split // 64) * 64, SPLIT_MAX)
+    return split, max(1, -(-S // split))
+
+
+def _valid_rows(valid, B, S):
+    if valid.dim() == 1 and valid.shape[0] == S:
+        return valid[None].expand(B, S)
+    if valid.dim() == 2 and tuple(valid.shape) == (B, S):
+        return valid
+    raise ValueError(f"valid must be (Smax,) or (B, Smax) = ({S},) or "
+                     f"({B}, {S}); got {tuple(valid.shape)}")
+
+
+def flash_decode_plain(q, k_cache, v_cache, valid):
+    """Plain version of :func:`flash_decode` (same arguments): per split of
+    :func:`decode_splits`, scores of the f32-scaled query in f32, the
+    split's max m, p = exp(s - m)·valid rounded to the cache type before
+    the p·V product, then the splits combined with weights exp(m_i - max
+    m); the output acc / max(l, 1e-30) in the cache type."""
+    B, _, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    split, ns = decode_splits(B, K, S)
+    pad = split * ns - S
+    qf = q.float().reshape(B, K, G, D) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    ok = _valid_rows(valid, B, S)[:, None, None, :]
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    v = v_cache.float()
+    if pad:
+        s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+        ok = torch.nn.functional.pad(ok, (0, pad), value=False)
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    s = s.reshape(B, K, G, ns, split)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * ok.reshape(B, 1, 1, ns, split)
+    l = p.sum(dim=-1)                                    # (B, K, G, ns)
+    pr = p.to(v_cache.dtype).float()
+    acc = torch.einsum("bkgnl,bnlkd->bkgnd", pr,
+                       v.reshape(B, ns, split, K, D))
+    wgt = torch.exp(m[..., 0] - m[..., 0].amax(dim=-1, keepdim=True))
+    lt = (l * wgt).sum(dim=-1)
+    out = (acc * wgt[..., None]).sum(dim=-2) \
+        / torch.clamp(lt, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, D).to(v_cache.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_kernel(dtype):
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_decode")
+    fn = lib.flash_decode_bf16 if dtype == torch.bfloat16 \
+        else lib.flash_decode_f32
+    fn.argtypes = _DEC_ARGS
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """q: (B, 1, H, D); k_cache/v_cache: (B, Smax, K, D), float32 or
+    bfloat16 of one type, H % K == 0; valid: (Smax,) or (B, Smax) bool.
+    Returns (B, 1, H, D) in the cache type.  Query head h reads kv head
+    h // (H // K) by index; the caches are read through their strides
+    (unit stride along D).  A row with no valid slot gives zeros, as the
+    TPU kernel's does (``models.attention.decode_attention`` gives the
+    mean of V there; ``decode_step`` never forms such a row)."""
+    global flash_decode_launches
+    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
+            or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != q.shape[0] \
+            or k_cache.shape[3] != q.shape[3] \
+            or q.shape[2] % k_cache.shape[2] != 0:
+        raise ValueError(f"flash decode needs q (B,1,H,D) and caches "
+                         f"(B,Smax,K,D) with H % K == 0; got "
+                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    B, _, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    _valid_rows(valid, B, S)             # checks the mask's shape
+    devs = {t.device for t in (q, k_cache, v_cache, valid)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash decode runs on cuda or cpu, not {q.device}")
+    if k_cache.dtype != v_cache.dtype \
+            or k_cache.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"caches must be float32 or bfloat16 of one type; "
+                         f"got {k_cache.dtype}/{v_cache.dtype}")
+    if valid.dtype != torch.bool:
+        raise ValueError(f"valid must be bool, not {valid.dtype}")
+    if k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
+        raise ValueError("flash decode needs unit stride along D")
+    if G > GROUPS_MAX or D > _THREADS or _THREADS % D:
+        raise ValueError(f"flash decode takes up to {GROUPS_MAX} query heads "
+                         f"per kv head and D dividing {_THREADS}; got G={G}, "
+                         f"D={D}")
+    if B > 65535 or S == 0:
+        raise ValueError(f"flash decode needs 0 < Smax and B <= 65535; got "
+                         f"B={B}, Smax={S}")
+    split, ns = decode_splits(B, K, S)
+    smem = 4 * (G * D + G * split + G * _THREADS + 2 * G)
+    qf = q.float().reshape(B, K, G, D).contiguous()
+    vrow = valid.contiguous().view(torch.uint8)
+    out = torch.empty((B, 1, H, D), dtype=v_cache.dtype, device=q.device)
+    part = torch.empty((B * K * ns * (G * D + 2 * G),) if ns > 1 else (1,),
+                       dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 6)(
+        *(s_ for t in (k_cache, v_cache)
+          for s_ in (t.stride(0), t.stride(1), t.stride(2))))
+    with torch.cuda.device(q.device):
+        err = _flash_kernel(k_cache.dtype)(
+            qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            vrow.data_ptr(), S if valid.dim() == 2 else 0, out.data_ptr(),
+            part.data_ptr(), B, K, G, D, S, split, ns, 1.0 / math.sqrt(D),
+            strides, smem, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_decode_launches += 1
     return out

@@ -3,9 +3,9 @@ operand padding and staging, band bucketing, device-side Freivalds
 residuals, GQA grouping.
 
 Port of ``src/repro/kernels/ops.py`` (``PadCache`` through ``plan_gemm``,
-``mha_flash`` and ``gqa_flash_decode_paged``).  Operands and results stay on the
-operands' device; only the per-rectangle residual scalars come back to the
-host.
+``mha_flash``, ``gqa_flash_decode``, ``gqa_flash_decode_paged`` and
+``wkv6``).  Operands and results stay on the operands' device; only the
+per-rectangle residual scalars come back to the host.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch import ieee_f32, resolve_device
 from repro_torch.kernels import block_gemm as _bg
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import wkv6 as _wkv
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -430,6 +431,14 @@ def mha_flash(q, k, v, *, causal=True, window=0, q_offset=0):
     return out
 
 
+def gqa_flash_decode(q, k, v, valid):
+    """Single-token GQA decode over a contiguous cache.  q: (B,1,H,D);
+    k,v: (B,S,K,D); valid: (S,) or (B,S) bool.  Returns (B,1,H,D) in the
+    cache dtype.  Query head h reads kv head h // (H // K) by index (no
+    repeated copy of the cache)."""
+    return _dec.flash_decode(q, k, v, valid)
+
+
 def gqa_flash_decode_paged(q, k_pool, v_pool, page_table, lengths):
     """Paged-KV single-token GQA decode: attention reads the serving page
     pools in place through per-request page tables.  q: (B,1,H,D);
@@ -440,3 +449,11 @@ def gqa_flash_decode_paged(q, k_pool, v_pool, page_table, lengths):
     qf = q.reshape(B, K, H // K, D)
     out = _dec.flash_decode_paged(qf, k_pool, v_pool, page_table, lengths)
     return out.reshape(B, 1, H, D)
+
+
+def wkv6(r, k, v, w, u, *, s0=None, chunk=32):
+    """RWKV-6 recurrence.  r,k,v,w: (B,S,H,hd); u: (H,hd); s0: (B,H,hd,hd)
+    or None (zero state).  Returns ``(y (B,S,H,hd) float32, s_last)``.
+    The reference's wrapper returns y alone, from a zero state; the port's
+    carries the state in and out, as ``wkv_chunked`` (its jnp twin) does."""
+    return _wkv.wkv6(r, k, v, w, u, s0=s0, chunk=chunk)

@@ -57,3 +57,21 @@ def paged_decode_ref(q, k_pool, v_pool, page_table, lengths):
     p = p.to(v_pool.dtype).float()
     out = torch.einsum("bkgs,bskd->bkgd", p, v)
     return (out / torch.clamp(l, min=1e-30)).to(v_pool.dtype)
+
+
+def wkv6_ref(r, k, v, w, u):
+    """Step-exact RWKV-6 recurrence (the oracle of the WKV kernel).
+    r,k,v,w: (BH,S,hd); u: (BH,hd).  Returns float32 (BH,S,hd):
+    ``y_t = r_tᵀ (S_{t-1} + diag(u) k_t v_tᵀ)``,
+    ``S_t = diag(w_t) S_{t-1} + k_t v_tᵀ``, from a zero state."""
+    BH, S, hd = r.shape
+    r_, k_, v_, w_ = (a.float() for a in (r, k, v, w))
+    u_ = u.float()
+    s = torch.zeros((BH, hd, hd), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        kv = k_[:, t, :, None] * v_[:, t, None, :]      # (BH, hd, hd)
+        ys.append(torch.einsum("bd,bde->be", r_[:, t],
+                               s + u_[:, :, None] * kv))
+        s = w_[:, t, :, None] * s + kv
+    return torch.stack(ys, dim=1)

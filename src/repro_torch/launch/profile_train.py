@@ -1,23 +1,28 @@
 """Where a fleet training step's time goes on the card.
 
-Builds the full-width training session of ``chip_smoke.py`` (llama3-8b at
-``--layers`` depth, bf16 params and policy, batch 8 x 128, 16-device
-fleet), runs one warm-up step (cold plan solves), times ``--steps`` steps
-untraced, traces as many with ``torch.profiler``, times every band GEMM
-launch of as many more with CUDA events, and prints one JSON
-object: wall time per step (untraced and traced), the fleet executors'
-host time by GEMM kind, the fleet GEMMs' bound on the card, device kernel time per step and the device's idle
-share, the kernel time launched under each profiler range of the step
-(``fleet.fwd``, ``fleet.dA``, ``fleet.dW``, ``ops.stage_copy`` for the
-padded and transposed operand copies, ``ps.adam``) -- the sum of the
-kernels launched inside the range, not the range's span on the device
+Builds the full-width training session of ``chip_smoke.py`` (``--arch``,
+llama3-8b or rwkv6-7b, at ``--layers`` depth, bf16 params and policy,
+batch 8 x 128, 16-device fleet), runs one warm-up step (cold plan solves),
+times ``--steps`` steps untraced, traces as many with ``torch.profiler``,
+times every band GEMM and WKV launch of as many more with CUDA events, and
+prints one JSON object: wall time per step (untraced and traced), the
+fleet executors' host time by GEMM kind, the fleet GEMMs' bound on the
+card, device kernel time per step and the device's idle share, the kernel
+time launched under each profiler range of the step (``fleet.fwd``,
+``fleet.dA``, ``fleet.dW``, ``ops.stage_copy`` for the padded and
+transposed operand copies, ``ps.adam``, and for RWKV
+``rwkv.wkv_backward``, the WKV backward's torch recompute) -- the sum of
+the kernels launched inside the range, not the range's span on the device
 timeline -- the band GEMM's time and launches per step by fleet GEMM
-kind, and the kernels that take the device time, each with its time and
-launches per step.
+kind, the WKV kernel's time and launches per step (CUDA events, and its
+own entry in the trace), and the kernels that take the device time, each
+with its time and launches per step.  The port's kernels are launched
+through ctypes, which the profiler ties to no range: they are timed by
+CUDA events and read by kernel name.
 
 Usage (on a machine with a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-      [--layers 4] [--steps 2] [--out profile_train.json]
+      [--arch rwkv6-7b] [--layers 4] [--steps 2] [--out profile_train.json]
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import dataclasses
 import json
 import time
 
-RANGES = ("fleet.fwd", "fleet.dA", "fleet.dW", "ops.stage_copy", "ps.adam")
+RANGES = ("fleet.fwd", "fleet.dA", "fleet.dW", "ops.stage_copy", "ps.adam",
+          "rwkv.wkv_backward")
 # one H100 SXM at 700 W (NVIDIA data sheet): memory rate, dense bf16 rate
 PEAK_BW, PEAK_BF16 = 3.35e12, 989e12
 
@@ -101,8 +107,33 @@ def _band_gemm_events(torch):
         FleetGemmSession._execute = execute
 
 
+@contextlib.contextmanager
+def _wkv_events(torch):
+    """For the extent of the block, time every WKV kernel launch with CUDA
+    events; yields the list of ``(start, end)``."""
+    from repro_torch.kernels import wkv6 as wkv
+    launch, events = wkv.wkv6, []
+
+    def timed_launch(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    wkv.wkv6 = timed_launch
+    try:
+        yield events
+    finally:
+        wkv.wkv6 = launch
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b",
+                    choices=("llama3-8b", "rwkv6-7b"))
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--batch", type=int, default=8)
@@ -110,6 +141,8 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
+
+    import warnings
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -122,8 +155,7 @@ def main(argv=None):
     from repro_torch.optim import adam
 
     dev = resolve_device("cuda")
-    cfg = dataclasses.replace(get_config("llama3-8b"),
-                              n_layers=args.layers)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
     opt_cfg = adam.AdamConfig(warmup_steps=3, total_steps=100)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     opt = adam.init(params, opt_cfg)
@@ -132,8 +164,11 @@ def main(argv=None):
                                   seed=0))
     rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
                             device=dev)
-    sess = rt.train_session(opt_cfg, backend="torch", dtype_policy="bf16",
-                            q_chunk=64, k_chunk=64, loss_chunk=64)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # RWKV: PS-local GEMMs
+        sess = rt.train_session(opt_cfg, backend="torch",
+                                dtype_policy="bf16", q_chunk=64, k_chunk=64,
+                                loss_chunk=64)
     batches = [{k: torch.as_tensor(v, device=dev)
                 for k, v in data.batch(i).items()}
                for i in range(1 + 3 * args.steps)]
@@ -160,7 +195,7 @@ def main(argv=None):
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
 
-    with _band_gemm_events(torch) as events:
+    with _band_gemm_events(torch) as events, _wkv_events(torch) as wkv_ev:
         timed = run(batches[1 + 2 * args.steps:])
     torch.cuda.synchronize(dev)
     band_ms = {}
@@ -208,6 +243,11 @@ def main(argv=None):
         "band_gemm_launches_by_kind_per_step": {
             k: sum(1 for e in events if e[0] == k) / args.steps
             for k in band_ms},
+        "wkv_ms_per_step": sum(s.elapsed_time(e) for s, e in wkv_ev) / n,
+        "wkv_launches_per_step": len(wkv_ev) / n,
+        "wkv_kernel_ms_per_step_traced": sum(
+            us for name, (us, _) in kernels.items() if "wkv6_kernel" in name)
+        / 1e3 / n,
         "losses": [r.loss for r in untraced + traced + timed],
         "top_kernels": [
             {"name": name[:120], "ms_per_step": us / 1e3 / n,

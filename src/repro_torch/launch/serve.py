@@ -1,6 +1,6 @@
 """Batched serving driver of the port: prefill a batch of prompts, then
-greedy- or temperature-decode with the KV cache, on ``--device`` (the card
-by default).
+greedy- or temperature-decode with the KV cache (RWKV: the recurrent states
+the prefill leaves), on ``--device`` (the card by default).
 
 ``--edge-plan N`` also drives the fleet decode path: the same prompts run
 through ``TorchCleaveRuntime.serve_session`` -- paged KV on the device,
@@ -12,6 +12,8 @@ the monolithic decode.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --batch 4 --prompt-len 16 --gen 32 [--kv-int8] [--edge-plan 16]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --no-reduced --layers 4 --batch 4 --prompt-len 16 --gen 8
   (``--no-reduced --layers 4`` runs full width at 4 layers;
   ``--device cpu`` runs the plain CPU path.)
 """
@@ -74,6 +76,9 @@ def main(argv=None):
     t_prefill = time.perf_counter() - t0
 
     cache = M.init_cache(cfg, B, P + G, kv_quant=args.kv_int8, device=dev)
+    for nm in ("wkv_state", "tm_prev", "cm_prev"):
+        if nm in pre_cache:        # RWKV: the prompt's recurrent states
+            cache[nm] = pre_cache[nm]
     if args.kv_int8:
         # re-ingest the prompt token by token (int8 writes)
         cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
@@ -82,7 +87,8 @@ def main(argv=None):
                                           prompts[:, t:t + 1])
     else:
         for nm in ("k", "v"):
-            cache[nm][:, :, :P] = pre_cache[nm].to(cache[nm].dtype)
+            if nm in cache:
+                cache[nm][:, :, :P] = pre_cache[nm].to(cache[nm].dtype)
         cache["pos"] = pre_cache["pos"]
 
     def sample(lg):

@@ -16,6 +16,11 @@ Usage (from the repository root)::
       --backend fleet --steps 3 --fail-step 1 --fail-ids 3
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --layers 2 \\
       --d-model 64 --vocab 256 --steps 2 --batch 2 --seq 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --layers 4 --backend fleet --steps 3 --fail-step 1 --fail-ids 3
+
+For RWKV-6, as in the reference, only the LM head's GEMMs reach the fleet;
+the time mix (the WKV kernel) and the channel mix run on the PS.
 """
 from __future__ import annotations
 

@@ -109,8 +109,25 @@ def decode_attention(q, k_cache, v_cache, valid):
     """Single-token attention against a cache.  q: (B,1,H,Dk);
     k_cache: (B,Smax,K,Dk); v_cache: (B,Smax,K,Dv); valid: (Smax,) bool or
     (B,Smax) per-request occupancy.  Returns (B,1,H,Dv) in the cache
-    dtype.  Scores take q rounded to the cache dtype, probabilities are
-    rounded to it before the V product (the reference's roundings)."""
+    dtype.  On the card it runs the flash-decode kernel
+    (``ops.gqa_flash_decode``), which keeps the TPU kernel's roundings:
+    q scaled in f32, the un-normalised probabilities rounded to the cache
+    dtype; on the CPU it is :func:`decode_attention_plain`, the
+    reference's function and roundings.  The two agree to summation order
+    in f32; a row with no valid slot (which ``decode_step`` never forms)
+    gives zeros on the card and the mean of V here.  int8 caches, which
+    the reference reads without their scales (ROADMAP.md, faults), take
+    the plain body on both devices: no kernel of either package reads
+    them."""
+    if q.is_cuda and k_cache.is_floating_point():
+        return ops.gqa_flash_decode(q, k_cache, v_cache, valid)
+    return decode_attention_plain(q, k_cache, v_cache, valid)
+
+
+def decode_attention_plain(q, k_cache, v_cache, valid):
+    """The reference's ``decode_attention`` in plain torch: scores take q
+    scaled and rounded to the cache dtype, probabilities are normalised
+    and rounded to it before the V product."""
     B, _, H, Dk = q.shape
     K = k_cache.shape[2]
     G = H // K

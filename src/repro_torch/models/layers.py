@@ -1,5 +1,5 @@
-"""Shared layer primitives in PyTorch: projection GEMM hook, norms, rotary
-embeddings, SwiGLU, embeddings, init helpers (port of
+"""Shared layer primitives in PyTorch: projection GEMM hook, norms (RMS and
+group), rotary embeddings, SwiGLU, embeddings, init helpers (port of
 ``src/repro/models/layers.py``).  Params are nested dicts of tensors in the
 reference's layout; every ``init_*`` draws from a ``torch.Generator`` on
 the target device.
@@ -15,18 +15,22 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` on the PS, mixed float types promoted as in JAX."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def pdot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Projection matmul ``x @ w`` (x: (..., n), w: (n, q)).
 
-    With no hook installed this is ``x @ w`` (mixed float types promote as
-    in JAX); inside a fleet session the installed hook executes the GEMM on
-    the fleet executors."""
+    With no hook installed this is :func:`matmul`; inside a fleet session
+    the installed hook executes the GEMM on the fleet executors."""
     hook = _gemm_hook.active()
     if hook is None:
-        if x.dtype != w.dtype:
-            dt = torch.promote_types(x.dtype, w.dtype)
-            x, w = x.to(dt), w.to(dt)
-        return x @ w
+        return matmul(x, w)
     return hook(x, w)
 
 
@@ -73,6 +77,26 @@ def rmsnorm(params, x, eps=1e-5):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def init_groupnorm(n_groups, d, dtype, device, lead=()):
+    del n_groups  # static; passed to `groupnorm` at apply time
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
+                                device=device),
+            "bias": torch.zeros(tuple(lead) + (d,), dtype=dtype,
+                                device=device)}
+
+
+def groupnorm(params, x, groups, eps=1e-5):
+    """GroupNorm over the last dim split into ``groups`` groups (RWKV
+    head-wise ln_x), in f32 inside.  x: (..., d)."""
+    d = x.shape[-1]
+    xg = x.float().reshape(x.shape[:-1] + (groups, d // groups))
+    mu = torch.mean(xg, dim=-1, keepdim=True)
+    var = torch.var(xg, dim=-1, keepdim=True, unbiased=False)
+    y = ((xg - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
 
 
 # -------------------------------------------------------------------- RoPE --

@@ -1,7 +1,8 @@
-"""Dense decoder-only LM in PyTorch (port of ``src/repro/models/model.py``,
-dense GQA family).  Parameters keep the reference's layout, with the
-layers stacked on a leading axis, so ``interop.from_jax_params`` maps the
-reference's params one to one.  The layer loop is a Python loop.
+"""Decoder-only LM in PyTorch (port of ``src/repro/models/model.py``, the
+dense GQA family and the RWKV-6 family).  Parameters keep the reference's
+layout, with the layers stacked on a leading axis, so
+``interop.from_jax_params`` maps the reference's params one to one.  The
+layer loop is a Python loop.
 
 Public API
 ----------
@@ -20,20 +21,23 @@ import torch
 from repro_torch import tree as T
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
 
-_LATER = (("moe", "MoE"), ("mla", "MLA"), ("ssm", "SSM"), ("rwkv", "RWKV"),
+_LATER = (("moe", "MoE"), ("mla", "MLA"), ("ssm", "SSM"),
           ("hybrid_parallel", "hybrid"), ("enc_dec", "encoder-decoder"),
           ("attn_free", "attention-free"), ("m_rope", "M-RoPE"),
           ("n_meta_tokens", "Hymba meta-token"))
 
 
-def require_dense(cfg) -> None:
-    """Raise for families this slice of the port does not cover."""
+def require_ported(cfg) -> None:
+    """Raise for families the port does not cover yet: it runs the dense
+    GQA family and RWKV-6 (attention-free by design)."""
     for flag, name in _LATER:
-        if getattr(cfg, flag):
+        if getattr(cfg, flag) and not (cfg.rwkv and flag == "attn_free"):
             raise NotImplementedError(
                 f"arch {cfg.name!r}: the {name} family comes with a later "
-                "slice of the port; this slice serves the dense GQA family")
+                "slice of the port; the port runs the dense GQA and RWKV-6 "
+                "families")
     if cfg.modality != "text":
         raise NotImplementedError(f"arch {cfg.name!r}: {cfg.modality} "
                                   "inputs come with a later slice")
@@ -44,9 +48,16 @@ def require_dense(cfg) -> None:
 def init_layer(cfg, gen, lead=()):
     """One decoder layer's params; ``lead`` prepends axes to every leaf
     (``(n_layers,)`` gives the stacked layout)."""
-    require_dense(cfg)
+    require_ported(cfg)
     dt = L.pdtype_of(cfg)
     dev = gen.device
+    if cfg.rwkv:
+        return {
+            "ln1": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
+            "time_mix": R.init_time_mix(cfg, gen, lead),
+            "ln2": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
+            "channel_mix": R.init_channel_mix(cfg, gen, lead),
+        }
     return {
         "ln1": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
         "attn": A.init_attention(cfg, gen, lead),
@@ -58,7 +69,7 @@ def init_layer(cfg, gen, lead=()):
 def init_params(cfg, generator: torch.Generator):
     """Random params with the reference's shapes and scales, drawn from
     ``generator`` on its device (the bits differ from ``jax.random``)."""
-    require_dense(cfg)
+    require_ported(cfg)
     return {
         "embed": L.init_embedding(generator, cfg),
         "layers": init_layer(cfg, generator, lead=(cfg.n_layers,)),
@@ -80,7 +91,25 @@ def layer_params(params, i: int):
 
 def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
                   k_chunk=512, causal=True):
-    """One decoder layer over a full sequence.  Returns (x, (k, v))."""
+    """One decoder layer over a full sequence.  Returns (x, (k, v)), or for
+    RWKV (x, (s_last, tm_last, cm_last)): the layer's final WKV state and
+    the last normed inputs of its two token shifts."""
+    if cfg.rwkv:
+        B = x.shape[0]
+        H = cfg.d_model // cfg.rwkv_head_dim
+        hd = cfg.rwkv_head_dim
+        s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=x.device)
+        zt = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
+        # the reference normalises with rmsnorm's default eps here and
+        # with cfg.norm_eps in decode_step; mirrored as written
+        h1 = L.rmsnorm(p["ln1"], x)
+        tm, tm_last, s_last = R.time_mix(cfg, p["time_mix"], h1, zt, s0,
+                                         chunk=32)
+        x = x + tm
+        h2 = L.rmsnorm(p["ln2"], x)
+        cm, cm_last = R.channel_mix(cfg, p["channel_mix"], h2, zt)
+        return x + cm, (s_last, tm_last, cm_last)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     ao, kv = A.attention_block(cfg, p["attn"], h, positions, causal=causal,
                                window=window, q_chunk=q_chunk,
@@ -93,7 +122,7 @@ def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
 
 def fuse_inputs(cfg, params, batch):
     """Token embedding -> (x, positions)."""
-    require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed_tokens(params["embed"], tokens, cfg)
@@ -103,19 +132,20 @@ def fuse_inputs(cfg, params, batch):
 
 def forward(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
             collect_kv=False):
-    """Full forward to the final hidden states.  Returns (x, kv) with
-    ``kv = (k, v)`` stacked over layers when ``collect_kv``."""
+    """Full forward to the final hidden states.  Returns (x, kv) with the
+    layers' ``(k, v)`` -- for RWKV ``(wkv_state, tm_prev, cm_prev)`` --
+    stacked over layers when ``collect_kv``."""
     x, positions = fuse_inputs(cfg, params, batch)
-    ks, vs = [], []
+    per_layer = []
     for i in range(cfg.n_layers):
-        x, (k, v) = layer_forward(
+        x, kv = layer_forward(
             cfg, layer_params(params, i), x, positions, window=window,
             q_chunk=q_chunk, k_chunk=k_chunk)
         if collect_kv:
-            ks.append(k)
-            vs.append(v)
+            per_layer.append(kv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else ()
+    kv = tuple(torch.stack(t) for t in zip(*per_layer)) if collect_kv \
+        else ()
     return x, kv
 
 
@@ -131,8 +161,8 @@ def loss_fn(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
     """Mean cross-entropy over valid labels (labels < 0 are masked),
     computed over ``S // loss_chunk`` sequence chunks one after another so
     the (B, S, V) logits never exist at once.  Returns
-    ``(loss + aux, {"loss", "aux_loss", "tokens"})``; the dense family has
-    no auxiliary loss."""
+    ``(loss + aux, {"loss", "aux_loss", "tokens"})``; neither ported family
+    has an auxiliary loss."""
     x, _ = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
                    k_chunk=k_chunk)
     labels = batch["labels"].long()
@@ -179,12 +209,24 @@ def value_and_grad(cfg, params, batch, **chunks):
 
 def init_cache(cfg, batch, cache_len, *, kv_quant=False, device="cuda"):
     """Decode cache, stacked over layers.  ``kv_quant`` stores K/V int8 with
-    per-(token, head) float16 scales."""
-    require_dense(cfg)
+    per-(token, head) float16 scales.  RWKV keeps its recurrent states
+    instead: ``wkv_state`` (L,B,H,hd,hd) f32 and the token-shift inputs
+    ``tm_prev``/``cm_prev`` (L,B,d)."""
+    require_ported(cfg)
     dt = L.dtype_of(cfg)
+    c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.rwkv:
+        hd = cfg.rwkv_head_dim
+        H = cfg.d_model // hd
+        Lc = cfg.n_layers
+        c["wkv_state"] = torch.zeros((Lc, batch, H, hd, hd),
+                                     dtype=torch.float32, device=device)
+        c["tm_prev"] = torch.zeros((Lc, batch, cfg.d_model), dtype=dt,
+                                   device=device)
+        c["cm_prev"] = torch.zeros_like(c["tm_prev"])
+        return c
     Lc, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     kv_dt = torch.int8 if kv_quant else dt
-    c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     c["k"] = torch.zeros((Lc, batch, cache_len, K, hd), dtype=kv_dt,
                          device=device)
     c["v"] = torch.zeros_like(c["k"])
@@ -212,8 +254,11 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
     position of the incoming token (scalar, or a (B,) vector for
     continuous batching); slot = pos % cache_len.  Returns
     ``(logits (B,1,V_padded) f32, new_cache)``; the input cache is not
-    modified."""
-    require_dense(cfg)
+    modified.  RWKV runs the recurrence one step (``time_mix`` with
+    ``chunk=1``) and replaces its states wholesale."""
+    require_ported(cfg)
+    if cfg.rwkv:
+        return _rwkv_decode_step(cfg, params, cache, tokens)
     B = tokens.shape[0]
     x = L.embed_tokens(params["embed"], tokens, cfg)
     pos = cache["pos"]
@@ -258,17 +303,43 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
     return logits, new_cache
 
 
+def _rwkv_decode_step(cfg, params, cache, tokens):
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    news = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        hq = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, _, s_last = R.time_mix(cfg, lp["time_mix"], hq,
+                                  cache["tm_prev"][i],
+                                  cache["wkv_state"][i], chunk=1)
+        x = x + y
+        h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        cm, _ = R.channel_mix(cfg, lp["channel_mix"], h2,
+                              cache["cm_prev"][i])
+        x = x + cm
+        news.append((s_last, hq[:, -1], h2[:, -1]))
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.lm_logits(params["head"], params["embed"], x, cfg)
+    logits = logits.float() + _vocab_mask(cfg, x.device)
+    new_cache = dict(cache)
+    # recurrent states are replaced wholesale (they are small)
+    for nm, vals in zip(("wkv_state", "tm_prev", "cm_prev"), zip(*news)):
+        new_cache[nm] = torch.stack(vals).to(cache[nm].dtype)
+    new_cache["pos"] = cache["pos"] + 1
+    return logits, new_cache
+
+
 def prefill(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512):
     """Forward over a full prompt: last-position logits and the filled
-    decode cache."""
-    x, (k, v) = forward(cfg, params, batch, window=window,
-                           q_chunk=q_chunk, k_chunk=k_chunk,
-                           collect_kv=True)
+    decode cache (RWKV: the final recurrent states)."""
+    x, kv = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
+                    k_chunk=k_chunk, collect_kv=True)
     logits = L.lm_logits(params["head"], params["embed"], x[:, -1:], cfg)
     logits = logits.float() + _vocab_mask(cfg, x.device)
     B, S = batch["tokens"].shape
     cache = init_cache(cfg, B, S, device=x.device)
-    cache["k"] = k.to(cache["k"].dtype)
-    cache["v"] = v.to(cache["v"].dtype)
+    names = ("wkv_state", "tm_prev", "cm_prev") if cfg.rwkv else ("k", "v")
+    for nm, t in zip(names, kv):
+        cache[nm] = t.to(cache[nm].dtype)
     cache["pos"] = torch.full((), S, dtype=torch.int32, device=x.device)
     return logits, cache

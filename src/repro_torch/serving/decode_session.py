@@ -102,20 +102,22 @@ class ServeSession:
         self.rt = runtime
         self.device = runtime.device
         self.cfg = cfg if cfg is not None else runtime.cfg
-        M.require_dense(self.cfg)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = M.init_params(self.cfg, gen)
-        self.params = params
+        M.require_ported(self.cfg)
         self.slots = int(slots)
         self.page = int(page_size)
         self.cache_len = self.page * math.ceil(max_len / self.page)
         pages_per_req = self.cache_len // self.page
+        # raises the reference's ValueError for recurrent families (RWKV),
+        # whose states are not paged, before any params are drawn
         self.kv = PagedKVCache(
             self.cfg, page_size=self.page, kv_int8=kv_int8,
             n_pages=(n_pages if n_pages is not None
                      else self.slots * pages_per_req),
             device=self.device)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = M.init_params(self.cfg, gen)
+        self.params = params
         self.batcher = ContinuousBatcher(self.slots, self.kv)
         self.dispatch = dispatch
         self.gemms = FleetGemmSession(runtime, backend=backend,
@@ -271,10 +273,14 @@ class ServeSession:
 
     def _check_paged_read(self, rids: List[Optional[int]]) -> None:
         """The paged decode kernel reading layer 0's pools in place must
-        match dense attention over the gathered contiguous view (2e-4,
-        the reference's tolerance: f32 sums in another order)."""
+        match plain dense attention over the gathered contiguous view
+        (2e-4, the reference's tolerance: f32 sums in another order).
+        The plain version is called by name: on the card
+        ``decode_attention`` is the flash-decode kernel, and this check
+        holds one kernel against plain PyTorch, not against another
+        kernel."""
         from repro_torch.kernels import ops
-        from repro_torch.models.attention import decode_attention
+        from repro_torch.models.attention import decode_attention_plain
         pt, ln = self.kv.page_table_array(rids)
         if not ln.any():
             return
@@ -300,7 +306,7 @@ class ServeSession:
         lnt = torch.as_tensor(ln, device=dev)
         valid = torch.arange(self.cache_len, device=dev)[None, :] \
             < lnt[:, None]
-        want = decode_attention(self._check_q, k, v, valid)
+        want = decode_attention_plain(self._check_q, k, v, valid)
         live = lnt > 0       # rows of length 0 are fully masked in the oracle
         np.testing.assert_allclose(got[live].float().cpu().numpy(),
                                    want[live].float().cpu().numpy(),

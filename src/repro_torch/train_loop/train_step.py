@@ -220,7 +220,7 @@ class FleetTrainSession:
                  q_chunk: int = 64, k_chunk: int = 64,
                  loss_chunk: int = 64, dispatch: str = "level",
                  checkpoint=None):
-        from repro_torch.models.model import require_dense
+        from repro_torch.models.model import require_ported
         from repro_torch.optim import adam
         if checkpoint is not None:
             raise NotImplementedError(
@@ -228,7 +228,7 @@ class FleetTrainSession:
                 "multi-PS and checkpoints); pass checkpoint=None")
         self.rt = runtime
         self.cfg = cfg if cfg is not None else runtime.cfg
-        require_dense(self.cfg)
+        require_ported(self.cfg)
         self.opt_cfg = opt_cfg or adam.AdamConfig()
         self.dispatch = dispatch
         self.checkpoint = None
@@ -242,6 +242,15 @@ class FleetTrainSession:
         self.reports: List[FleetStepReport] = []
         self._priced: Dict[tuple, float] = {}
         self._last_cold_solves = 0
+        cfg = self.cfg
+        if cfg.moe or cfg.ssm or cfg.rwkv or cfg.hybrid_parallel:
+            import warnings
+            warnings.warn(
+                f"arch {cfg.name!r}: routed-expert / recurrent GEMMs run "
+                "PS-locally — the dense projection GEMMs, MoE router, and "
+                "shared experts lower onto the fleet; predicted_makespan "
+                "covers the fleet-lowered set (docs/TRAINING.md)",
+                stacklevel=3)
 
     # ---------------------------------------------------------------- step --
 

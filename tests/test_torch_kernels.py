@@ -16,6 +16,7 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as wkv
 from repro_torch.models import attention as attn
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -276,3 +277,218 @@ def test_flash_kernel_on_card(cuda, S, H, K, D, window, dtype):
                                 window=window, q_offset=0).transpose(1, 2))
     err = float((got.float() - want.float()).abs().max())
     assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
+
+
+# ------------------------------------------------- contiguous-cache decode --
+
+def _decode_inputs(rng, B, S, H, K, D):
+    return (rng.standard_normal((B, 1, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, K, D)).astype(np.float32),
+            rng.standard_normal((B, S, K, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("S,H,K,D,n_valid", [(256, 4, 2, 32, 256),
+                                             (512, 2, 2, 64, 300),
+                                             (128, 4, 1, 16, 60)])
+def test_flash_decode_plain_matches_pallas(S, H, K, D, n_valid, rng):
+    """The reference's kernel test shapes: the plain version (what the
+    wrapper runs on the CPU) against the Pallas ``flash_decode`` in
+    interpret mode and against both packages' ``decode_attention``.  2e-4:
+    f32 sums in another order (the reference's tolerance)."""
+    q, k, v = _decode_inputs(rng, 2, S, H, K, D)
+    valid = np.arange(S) < n_valid
+    jargs = [jnp.asarray(x) for x in (q, k, v, valid)]
+    args = [torch.from_numpy(x) for x in (q, k, v, valid)]
+    got = ops.gqa_flash_decode(*args)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 1, H, D)
+    for want in (jops.gqa_flash_decode(*jargs, bs=64),
+                 jattn.decode_attention(*jargs),
+                 attn.decode_attention(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("S,H,K,D", [(24, 32, 8, 32), (3000, 4, 1, 16)])
+def test_flash_decode_plain_per_request_mask(S, H, K, D, rng):
+    """A per-request (B, Smax) occupancy mask (the serving path's), one
+    split (S = 24) and many (S = 3000, 47 splits combined): against the
+    reference's ``decode_attention``, 2e-4."""
+    B = 3
+    q, k, v = _decode_inputs(rng, B, S, H, K, D)
+    lens = np.asarray([S, 1, S // 2 + 3])
+    valid = np.arange(S)[None, :] < lens[:, None]
+    assert dec.decode_splits(B, K, S)[1] == (1 if S == 24 else 47)
+    want = jattn.decode_attention(*(jnp.asarray(x) for x in (q, k, v, valid)))
+    got = dec.flash_decode(*(torch.from_numpy(x) for x in (q, k, v, valid)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_flash_decode_all_masked_row_gives_zeros(rng):
+    """A request with no valid slot: zeros from the kernel's plain version
+    (as from the TPU kernel), the mean of V from ``decode_attention`` (a
+    uniform softmax over -1e30 scores).  ``decode_step`` never forms such
+    a row, since n_valid = min(pos + 1, cache_len) >= 1."""
+    q, k, v = (torch.from_numpy(x) for x in _decode_inputs(rng, 2, 16, 4, 2,
+                                                           8))
+    valid = torch.ones((2, 16), dtype=torch.bool)
+    valid[1] = False
+    got = dec.flash_decode_plain(q, k, v, valid)
+    assert not got[1].any() and got[0].abs().sum() > 0
+    mean_v = attn.decode_attention_plain(q, k, v, valid)[1, 0]
+    torch.testing.assert_close(
+        mean_v, v[1].mean(dim=0).repeat_interleave(2, dim=0), rtol=1e-5,
+        atol=1e-6)
+
+
+def test_flash_decode_bf16_rounds_like_the_tpu_kernel(rng):
+    """In bf16 the plain version rounds where the TPU kernel does (p before
+    the V product): against the Pallas kernel in interpret mode at one
+    split of 64 (its block), within one bf16 unit of the largest
+    output."""
+    q, k, v = _decode_inputs(rng, 2, 64, 4, 2, 32)
+    valid = np.arange(64) < 50
+    kb, vb = (jnp.asarray(x, jnp.bfloat16) for x in (k, v))
+    want = np.asarray(jops.gqa_flash_decode(jnp.asarray(q), kb, vb,
+                                            jnp.asarray(valid), bs=64),
+                      np.float32)
+    got = ops.gqa_flash_decode(torch.from_numpy(q),
+                               torch.from_numpy(k).bfloat16(),
+                               torch.from_numpy(v).bfloat16(),
+                               torch.from_numpy(valid))
+    assert got.dtype == torch.bfloat16
+    assert _rel_err(got.float().numpy(), want) <= 2.0 ** -7
+
+
+def test_flash_decode_wrapper_never_falls_back():
+    q = torch.empty((1, 1, 4, 16), device="meta")
+    kv = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError):
+        dec.flash_decode(q, kv, kv, torch.ones(8, dtype=torch.bool,
+                                               device="meta"))
+    with pytest.raises(ValueError):
+        dec.flash_decode(torch.zeros(1, 1, 3, 16), torch.zeros(1, 8, 2, 16),
+                         torch.zeros(1, 8, 2, 16),
+                         torch.ones(8, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        dec.flash_decode(torch.zeros(1, 1, 4, 16), torch.zeros(1, 8, 2, 16),
+                         torch.zeros(1, 8, 2, 16),
+                         torch.ones(7, dtype=torch.bool))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,D", [(4, 24, 32, 8, 128),
+                                       (2, 5000, 16, 2, 64)])
+def test_flash_decode_kernel_on_card(cuda, B, S, H, K, D, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda)
+    k, v = (torch.randn((B, S, K, D), generator=gen, device=cuda)
+            .to(TORCH_DT[dtype]) for _ in range(2))
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=cuda)
+    valid = torch.arange(S, device=cuda)[None, :] < lens[:, None]
+    n0 = dec.flash_decode_launches
+    got = dec.flash_decode(q, k, v, valid)
+    assert dec.flash_decode_launches == n0 + 1
+    want = dec.flash_decode_plain(q, k, v, valid)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
+
+
+# -------------------------------------------------------------------- WKV --
+
+def _wkv_args(rng, B, S, H, hd):
+    return [rng.standard_normal((B, S, H, hd)).astype(np.float32)
+            for _ in range(3)] \
+        + [rng.uniform(0.1, 0.999, (B, S, H, hd)).astype(np.float32),
+           rng.standard_normal((H, hd)).astype(np.float32)]
+
+
+def _flat_bh(x):
+    B, S, H, hd = x.shape
+    return x.transpose(0, 2, 1, 3).reshape(B * H, S, hd)
+
+
+@pytest.mark.parametrize("S,H,hd,chunk", [(64, 2, 16, 16), (128, 1, 32, 32),
+                                          (96, 2, 16, 32)])
+def test_wkv6_plain_matches_pallas_and_ref(S, H, hd, chunk, rng):
+    """The reference's kernel test shapes: the plain version (what the
+    wrapper runs on the CPU) against the Pallas ``wkv6`` in interpret mode
+    over the same chunks (1e-5 of the largest output: f32 sums in another
+    order) and, with both packages' step-exact oracles, at the
+    reference's own 1e-4 relative / 1e-3 absolute."""
+    B = 2
+    r, k, v, w, u = _wkv_args(rng, B, S, H, hd)
+    jy = np.asarray(jops.wkv6(*(jnp.asarray(x) for x in (r, k, v, w, u)),
+                              chunk=chunk))
+    y, s_last = ops.wkv6(*(torch.from_numpy(x) for x in (r, k, v, w, u)),
+                         chunk=chunk)
+    assert y.dtype == s_last.dtype == torch.float32
+    assert tuple(s_last.shape) == (B, H, hd, hd)
+    assert _rel_err(y.numpy(), jy) <= 1e-5
+    uu = np.broadcast_to(u[None], (B, H, hd)).reshape(B * H, hd)
+    flat = [_flat_bh(x) for x in (r, k, v, w)]
+    jwant = np.asarray(jref.wkv6_ref(*(jnp.asarray(x) for x in flat),
+                                     jnp.asarray(uu)))
+    want = ref.wkv6_ref(*(torch.from_numpy(np.ascontiguousarray(x))
+                          for x in flat), torch.from_numpy(uu.copy()))
+    np.testing.assert_allclose(want.numpy(), jwant, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_flat_bh(y.numpy()), jwant, rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("S,chunk", [(1, 32), (45, 32), (45, 16), (7, 4)])
+def test_wkv6_plain_ragged_chunks_and_state(S, chunk, rng):
+    """Any S: the last chunk ragged (and S = 1, the decode step), from a
+    random incoming state: y and the last state against the step-exact
+    recurrence run from that state (1e-4 relative / 1e-3 absolute, the
+    reference's bar for chunked against step-exact)."""
+    B, H, hd = 2, 2, 16
+    r, k, v, w, u = (torch.from_numpy(x) for x in _wkv_args(rng, B, S, H,
+                                                            hd))
+    s0 = torch.from_numpy(rng.standard_normal((B, H, hd, hd))
+                          .astype(np.float32))
+    y, s_last = ops.wkv6(r, k, v, w, u, s0=s0, chunk=chunk)
+    s = s0.clone()
+    for t in range(S):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        yt = torch.einsum("bhd,bhde->bhe", r[:, t], s + u[None, :, :, None]
+                          * kv)
+        np.testing.assert_allclose(y[:, t].numpy(), yt.numpy(), rtol=1e-4,
+                                   atol=1e-3)
+        s = w[:, t, :, :, None] * s + kv
+    np.testing.assert_allclose(s_last.numpy(), s.numpy(), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_wkv6_wrapper_never_falls_back():
+    x = torch.empty((1, 4, 2, 16), device="meta")
+    with pytest.raises(ValueError):
+        ops.wkv6(x, x, x, x, torch.empty((2, 16), device="meta"))
+    z = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError):
+        ops.wkv6(z, z, z, z, torch.zeros(2, 8))
+    with pytest.raises(ValueError):
+        ops.wkv6(z, z, z, z, torch.zeros(2, 16), s0=torch.zeros(1, 2, 8, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,with_state", [(128, False), (100, True),
+                                          (1, True)])
+def test_wkv6_kernel_on_card(cuda, S, with_state, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, H, hd = 2, 8, 64
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=cuda)
+               .to(TORCH_DT[dtype]) for _ in range(3))
+    w = torch.rand((B, S, H, hd), generator=gen, device=cuda) * 0.9 + 0.05
+    u = torch.randn((H, hd), generator=gen, device=cuda)
+    s0 = torch.randn((B, H, hd, hd), generator=gen, device=cuda) \
+        if with_state else None
+    n0 = wkv.launches
+    y, s_last = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32)
+    assert wkv.launches == n0 + 1
+    yp, sp = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=32)
+    for got, want in ((y, yp), (s_last, sp)):
+        assert float((got - want).abs().max()) \
+            <= 1e-5 * float(want.abs().max())
