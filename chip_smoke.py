@@ -70,6 +70,29 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               of 4 prompts of 16 and 8 decode steps, the first decode
               step's logits against token-by-token decoding; WKV launch
               counts read around training, prefill and decode.
+13. bgemm  -- the batched block GEMM (the MoE experts' products) against
+              its plain version, f32 and bf16, at every shape of a
+              full-width granite-moe-1b-a400m training step (forward, dA,
+              dW) and decode step, and the plain block GEMM at the kernels
+              benchmark's 512^3; each timed beside its plain version, one
+              ``torch.bmm`` / ``torch.matmul`` and its bound, and the
+              training and decode steps' launch sets summed.
+14. moe_reduced -- fleet training of ``granite-moe-1b-a400m.reduced()``
+              under the f32 policy for 3 steps with a device failure
+              mid-backward, against the monolithic step (loss, grad_norm,
+              moments within 1e-4, params in L2 beside a bf16-policy
+              control); then fleet serving against token-by-token
+              monolithic decoding, tokens identical (capacity factor 32).
+15. moe_full -- granite-moe-1b-a400m at full width (4 layers, bf16), batch
+              8 x 128, 16-device fleet: 3 fleet steps (attention
+              projections, router and LM head on the band GEMM, the
+              experts on the batched block GEMM) with a failure in step
+              1's backward, the first step against the monolithic path with
+              the share of routing choices that differ; then serving, 4
+              slots, a failure at step 2, the paged read checked every
+              step, the first decode step against the monolithic
+              ``decode_step``; batched block GEMM launches counted around
+              both, each held against the plain version.
 
 Then a ``kernels`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the result line.  ``--phases`` runs a
@@ -92,7 +115,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
-          "full", "train_reduced", "train_full", "rwkv_reduced", "rwkv_full")
+          "full", "train_reduced", "train_full", "rwkv_reduced", "rwkv_full",
+          "bgemm", "moe_reduced", "moe_full")
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # FLOP/s, f32 off-core
@@ -139,8 +163,9 @@ def check(ok: bool, what: str) -> None:
 
 
 @contextlib.contextmanager
-def band_gemm_audit(verify: bool):
-    """Wraps the band GEMM wrapper while a path runs.  Records every
+def band_gemm_audit(verify: bool, entry: str = "block_gemm_batched_shared"):
+    """Wraps a block GEMM wrapper (``entry`` of ``kernels.block_gemm``: the
+    band GEMM, or ``block_gemm_batched``) while a path runs.  Records every
     launch's operand shapes and type and, with ``verify``, holds each
     result against the plain version on the same operands (relative
     1e-5 of the largest output: both sides sum exact products in f32, in
@@ -148,7 +173,7 @@ def band_gemm_audit(verify: bool):
     nothing to the launch count."""
     import torch
     from repro_torch.kernels import block_gemm as bg
-    real = bg.block_gemm_batched_shared
+    real, plain = getattr(bg, entry), getattr(bg, entry + "_plain")
     audit = {"shapes": [], "checked": 0, "max_abs_err": 0.0,
              "max_rel_err": 0.0}
 
@@ -157,14 +182,14 @@ def band_gemm_audit(verify: bool):
         audit["shapes"].append((tuple(a.shape), tuple(b.shape),
                                 str(a.dtype).rsplit(".", 1)[-1]))
         if verify:
-            want = bg.block_gemm_batched_shared_plain(a, b)
+            want = plain(a, b)
             err = float((c - want).abs().max())
             rel = err / max(float(want.abs().max()), 1e-30)
             if rel > 1e-5:
                 # which side drifted: both against an f64 product
                 exact = torch.matmul(a.double(), b.double())
                 scale = float(exact.abs().max())
-                check(False, f"band GEMM launch {audit['shapes'][-1]}: rel "
+                check(False, f"{entry} launch {audit['shapes'][-1]}: rel "
                       f"err {rel:.3g} against the plain version (kernel "
                       f"{float((c - exact).abs().max()) / scale:.3g}, plain "
                       f"{float((want - exact).abs().max()) / scale:.3g} "
@@ -175,20 +200,22 @@ def band_gemm_audit(verify: bool):
             del want
         return c
 
-    bg.block_gemm_batched_shared = audited
+    setattr(bg, entry, audited)
     try:
         yield audit
     finally:
-        bg.block_gemm_batched_shared = real
+        setattr(bg, entry, real)
 
 
-def time_band_gemm_set(shapes):
-    """Device time of a recorded set of band GEMM launches: each distinct
-    (A, B, type) timed once on fresh operands of its shape (kernel, plain
-    version, one ``torch.matmul``) and weighted by its count, beside the
-    set's bound."""
+def time_band_gemm_set(shapes, entry: str = "block_gemm_batched_shared"):
+    """Device time of a recorded set of block GEMM launches (``entry`` as in
+    :func:`band_gemm_audit`): each distinct (A, B, type) timed once on
+    fresh operands of its shape (kernel, plain version, one
+    ``torch.matmul``, which is a batched product for a 3-d B) and weighted
+    by its count, beside the set's bound."""
     import torch
     from repro_torch.kernels import block_gemm as bg
+    kernel, plain = getattr(bg, entry), getattr(bg, entry + "_plain")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     tot = {"launches": len(shapes), "distinct": 0, "ms": 0.0,
@@ -197,20 +224,17 @@ def time_band_gemm_set(shapes):
     for (ash, bsh, dt), n in collections.Counter(shapes).items():
         dtype = getattr(torch, dt)
         G, m, k = ash
-        q = bsh[1]
+        q = bsh[-1]
         a = torch.randn(ash, generator=gen, device=dev).to(dtype)
         b = (torch.randn(bsh, generator=gen, device=dev) / k ** 0.5).to(dtype)
         tot["distinct"] += 1
-        tot["ms"] += n * time_ms(lambda: bg.block_gemm_batched_shared(a, b),
-                                 iters=3, reps=3)
-        tot["plain_ms"] += n * time_ms(
-            lambda: bg.block_gemm_batched_shared_plain(a, b), iters=3,
-            reps=3)
+        tot["ms"] += n * time_ms(lambda: kernel(a, b), iters=3, reps=3)
+        tot["plain_ms"] += n * time_ms(lambda: plain(a, b), iters=3, reps=3)
         tot["library_ms"] += n * time_ms(lambda: torch.matmul(a, b),
                                          iters=3, reps=3)
         esz = a.element_size()
-        tot["bytes_ms"] += n * (esz * (G * m * k + k * q) + 4 * G * m * q) \
-            / PEAK_BW * 1e3
+        tot["bytes_ms"] += n * (esz * (a.numel() + b.numel())
+                                + 4 * G * m * q) / PEAK_BW * 1e3
         tot["ops_ms"] += n * 2.0 * G * m * k * q / PEAK_OPS[dt] * 1e3
         del a, b
     tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
@@ -328,10 +352,14 @@ def phase_paged():
     from repro_torch.kernels import decode_attention as dec
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    B, K, G, D, page = 4, 8, 4, 128, 16
+    B, K, page = 4, 8, 16
     out = {}
-    for lengths, tag in (([37, 16, 0, 100], "ragged"),
-                         ([23, 23, 23, 23], "main_path")):
+    # llama3-8b's heads (4 query heads per kv head, D = 128), then
+    # granite-moe-1b-a400m's (2 per kv head, D = 64) at moe_full's serving
+    # shape
+    for lengths, tag, G, D in (([37, 16, 0, 100], "ragged", 4, 128),
+                               ([23, 23, 23, 23], "main_path", 4, 128),
+                               ([23, 23, 23, 23], "granite", 2, 64)):
         for name, dt, tol in (("float32", torch.float32, 2e-4),
                               ("bfloat16", torch.bfloat16, 1e-2)):
             args = _paged_case(dev, gen, B, K, G, D, page, 64, lengths, dt)
@@ -371,6 +399,10 @@ FLASH_CASES = (
     ("prefill", 1, 15, 32, 8, 128, True, 0),     # a serving prefill
     ("window", 2, 256, 32, 8, 128, True, 64),    # sliding window of 64
     ("gqa", 2, 100, 16, 2, 64, False, 0),        # 8 groups, ragged, no mask
+    # granite-moe-1b-a400m: 16 heads over 8, D = 64 (moe_full's training
+    # step and one serving prefill of 15)
+    ("granite_train", 8, 128, 16, 8, 64, True, 0),
+    ("granite_prefill", 1, 15, 16, 8, 64, True, 0),
 )
 
 
@@ -456,6 +488,8 @@ DECODE_CASES = (
     ("ragged", 4, 200, 32, 8, 128, [1, 200, 73, 130]),
     ("gqa8", 2, 100, 16, 2, 64, [100, 37]),
     ("cache32k", 4, 32768, 32, 8, 128, [32768, 30000, 32768, 20000]),
+    # moe_full's serving cell: granite-moe-1b-a400m, 16 heads over 8, D = 64
+    ("granite_serving", 4, 32, 16, 8, 64, [17, 18, 19, 24]),
 )
 
 
@@ -1259,6 +1293,509 @@ def phase_rwkv_full(cfg):
     return {"training": train_launches["wkv6"], "serving": serve_wkv}
 
 
+# ----------------------------------------------------------------- the MoE --
+
+def moe_expert_shapes(cfg, n_tokens: int, backward: bool):
+    """The batched block GEMM launches of one MoE layer routing
+    ``n_tokens`` tokens, as ``(A shape, B shape)``: the forward's gate, up
+    and down products, and with ``backward`` each one's dA (dC · Wᵀ) and
+    dW (Aᵀ · dC)."""
+    from repro_torch.models import moe as MOE
+    E, d, ff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    C = MOE.capacity(cfg, n_tokens)
+    up, down = ((E, C, d), (E, d, ff)), ((E, C, ff), (E, ff, d))
+    shapes = [up, up, down]
+    if backward:
+        shapes += [down, ((E, d, C), (E, C, ff))] * 2      # gate, up
+        shapes += [up, ((E, ff, C), (E, C, d))]            # down
+    return shapes
+
+
+def _set_sum(counts, rows, n_layers):
+    """Per-launch times of ``rows`` summed over a step's launch set."""
+    tot = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0}
+    for shape, n in counts.items():
+        row, n = rows[shape], n * n_layers
+        tot["launches"] += n
+        for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+            tot[key] += n * row[key]
+        tot["max_abs_err"] = max(tot["max_abs_err"],
+                                 row["bfloat16_max_abs_err"])
+    tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+    tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                       else "operations")
+    return tot
+
+
+def phase_bgemm(cfg):
+    """The batched block GEMM at every shape of a full-width MoE training
+    step (batch 8 x 128) and decode step (4 slots), and the plain block
+    GEMM at the kernels benchmark's shape."""
+    import torch
+    from repro_torch import ieee_f32
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import ops
+    ieee_f32()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    train = collections.Counter(moe_expert_shapes(cfg, 8 * 128, True))
+    decode = collections.Counter(moe_expert_shapes(cfg, 4, False))
+    rows = {}
+    for ash, bsh in sorted(set(train) | set(decode)):
+        a32 = torch.randn(ash, generator=gen, device=dev)
+        b32 = torch.randn(bsh, generator=gen, device=dev) / ash[2] ** 0.5
+        row = {"A": list(ash), "B": list(bsh)}
+        for name, dt in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+            a, b = a32.to(dt), b32.to(dt)
+            got = bg.block_gemm_batched(a, b)
+            want = bg.block_gemm_batched_plain(a, b)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            # both types: the same values' exact products summed in f32 on
+            # both sides, in another order, and an f32 output, so the band
+            # GEMM's bar holds for bf16 operands too
+            check(rel <= 1e-5, f"bgemm {name} {ash}x{bsh}: rel err {rel:.3g}")
+            row[f"{name}_max_abs_err"] = err
+            row[f"{name}_rel_err"] = rel
+        # timed in bf16, the full-width path's type
+        a, b = a32.bfloat16(), b32.bfloat16()
+        row["ms"] = time_ms(lambda: bg.block_gemm_batched(a, b))
+        row["plain_ms"] = time_ms(lambda: bg.block_gemm_batched_plain(a, b))
+        row["library_ms"] = time_ms(lambda: torch.bmm(a, b))
+        G, m, k = ash
+        n = bsh[2]
+        nbytes = 2 * (G * m * k + G * k * n) + 4 * G * m * n
+        row["bytes_ms"] = nbytes / PEAK_BW * 1e3
+        row["ops_ms"] = 2.0 * G * m * k * n / PEAK_OPS["bfloat16"] * 1e3
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2.0 * G * m * k * n, "bfloat16")
+        row["per_train_step"] = train[(ash, bsh)] * cfg.n_layers
+        row["per_decode_step"] = decode[(ash, bsh)] * cfg.n_layers
+        rows[(ash, bsh)] = row
+        emit({"phase": "bgemm", **row})
+        del a32, b32, a, b
+    out = {"train_step": _set_sum(train, rows, cfg.n_layers),
+           "decode_step": _set_sum(decode, rows, cfg.n_layers),
+           "train_shapes": train}
+    emit({"phase": "bgemm_steps", "train_step": out["train_step"],
+          "decode_step": out["decode_step"]})
+
+    # block_gemm at benchmarks/kernels_bench.py's shape (512^3, f32), the
+    # way that benchmark calls it (``ops.block_gemm``), once as the path
+    a = torch.randn((512, 512), generator=gen, device=dev)
+    b = torch.randn((512, 512), generator=gen, device=dev)
+    bg.block_gemm_launches = 0
+    got = ops.block_gemm(a, b)
+    torch.cuda.synchronize()
+    launches = bg.block_gemm_launches
+    want = bg.block_gemm_plain(a, b)
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    check(launches == 1 and rel <= 1e-5,
+          f"block_gemm 512^3 f32: {launches} launches, rel err {rel:.3g}")
+    ab, bb = a.bfloat16(), b.bfloat16()
+    rel16 = float((bg.block_gemm(ab, bb) - bg.block_gemm_plain(ab, bb))
+                  .abs().max() / bg.block_gemm_plain(ab, bb).abs().max())
+    check(rel16 <= 1e-5, f"block_gemm 512^3 bf16: rel err {rel16:.3g}")
+    row = {"m": 512, "k": 512, "n": 512, "dtype": "float32",
+           "launches": launches, "max_abs_err": err, "rel_err": rel,
+           "bfloat16_rel_err": rel16,
+           "ms": time_ms(lambda: ops.block_gemm(a, b), iters=20),
+           "plain_ms": time_ms(lambda: bg.block_gemm_plain(a, b), iters=20),
+           "library_ms": time_ms(lambda: torch.matmul(a, b), iters=20)}
+    row["bound_ms"], row["bound_by"] = bound_ms(4 * 3 * 512 * 512,
+                                                2.0 * 512 ** 3, "float32")
+    emit({"phase": "bgemm", "case": "block_gemm", **row})
+    out["block_gemm"] = row
+    return out
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Records the expert ids every ``moe.route`` call picks, in call
+    order, while the block runs."""
+    from repro_torch.models import moe as MOE
+    real, log = MOE.route, []
+
+    def logged(cfg, router, xt):
+        out = real(cfg, router, xt)
+        log.append(out[2].detach())
+        return out
+
+    MOE.route = logged
+    try:
+        yield log
+    finally:
+        MOE.route = real
+
+
+@contextlib.contextmanager
+def forced_routing(expert_ids):
+    """While the block runs, the i-th ``moe.route`` call picks the experts
+    ``expert_ids[i]`` (another run's choices) in place of its own top-k,
+    with their probabilities renormalised as ``route`` does: the two runs
+    then differ in rounding alone, not in discrete routing choices."""
+    import torch
+    from repro_torch.models import moe as MOE
+    real, calls = MOE.route, iter(expert_ids)
+
+    def forced(cfg, router, xt):
+        probs, _, _ = real(cfg, router, xt)
+        top_e = next(calls)
+        top_p = torch.gather(probs, 1, top_e)
+        return probs, top_p / torch.sum(top_p, dim=-1, keepdim=True), top_e
+
+    MOE.route = forced
+    try:
+        yield
+    finally:
+        MOE.route = real
+
+
+def routing_flip_share(a_log, b_log, n_experts: int) -> float:
+    """Share of (token, expert) assignments that one run of the layers
+    made and the other did not."""
+    import torch
+    diff = total = 0
+    for a, b in zip(a_log, b_log):
+        oa = torch.zeros((a.shape[0], n_experts), device=a.device) \
+            .scatter_(1, a, 1.0)
+        ob = torch.zeros_like(oa).scatter_(1, b, 1.0)
+        diff += float((oa != ob).sum()) / 2
+        total += a.numel()
+    return diff / max(total, 1)
+
+
+def phase_moe_reduced():
+    """MoE fleet training (f32 policy) against the monolithic step: 3
+    steps, device 2 failing at GEMM 14 (in the backward) of step 1; then
+    fleet serving against token-by-token monolithic decoding."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    dev = torch.device("cuda")
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    chunks = dict(q_chunk=16, k_chunk=16, loss_chunk=16)
+    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=2, total_steps=20)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adam.init(params, opt_cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=2, seed=0))
+    sessions = []
+    for policy in ("f32", "bf16"):       # the bf16 run is the control
+        rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
+                                device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # PS-local GEMMs
+            sessions.append(rt.train_session(opt_cfg, backend="torch",
+                                             dtype_policy=policy, **chunks))
+    sess, ctl = sessions
+    mono = make_train_step(cfg, opt_cfg, **chunks)
+    p_f, o_f, p_m, o_m, p_c, o_c = params, opt, params, opt, params, opt
+    rows = []
+    for step in range(3):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in data.batch(step).items()}
+        # 12 forward fleet GEMMs per step: GEMM 14 is in the backward
+        fail = dict(fail_ids=[2] if step == 1 else (), fail_at_gemm=14)
+        p_m, o_m, met_m = mono(p_m, o_m, batch)
+        with band_gemm_audit(verify=True) as audit, \
+                band_gemm_audit(verify=True,
+                                entry="block_gemm_batched") as audit2:
+            p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+        p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
+        rep = met_f["fleet"]
+        lm, lf = float(met_m["loss"]), float(met_f["loss"])
+        gm, gf = float(met_m["grad_norm"]), float(met_f["grad_norm"])
+        am, af = float(met_m["aux_loss"]), float(met_f["aux_loss"])
+        rows.append({"step": step, "loss_fleet": lf, "loss_mono": lm,
+                     "loss_rel": abs(lf - lm) / abs(lm),
+                     "aux_fleet": af, "aux_rel": abs(af - am) / abs(am),
+                     "grad_norm_rel": abs(gf - gm) / abs(gm),
+                     "n_gemms": rep.n_gemms, "verified": rep.verified,
+                     "n_recovered": rep.n_recovered,
+                     "failed_ids": list(rep.failed_ids),
+                     "band_gemm_checked": audit["checked"],
+                     "bgemm_checked": audit2["checked"],
+                     "bgemm_max_rel_err": audit2["max_rel_err"]})
+    worst = {"params": _worst_rel(p_m, p_f), "mu": _worst_rel(o_m.mu, o_f.mu),
+             "nu": _worst_rel(o_m.nu, o_f.nu),
+             "params_l2": _worst_rel(p_m, p_f, norm=2),
+             "control_bf16_params_l2": _worst_rel(p_m, p_c, norm=2)}
+
+    # serving: the session prefills prompt[:-1] in one call and decodes the
+    # slots together, the monolithic path decodes token by token; the two
+    # route different token sets together, so they agree only without
+    # capacity drops (capacity factor 32, as the reference's tests do)
+    cfg32 = dataclasses.replace(cfg, capacity_factor=32.0)
+    rt = TorchCleaveRuntime(arch=cfg32, fleet=Fleet.sample(8, seed=0),
+                            device=dev)
+    serve = rt.serve_session(p_f, slots=3, page_size=4, max_len=16,
+                             backend="torch", dtype_policy="f32",
+                             check_paged_read=True)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, 5).astype(np.int32)
+               for _ in range(3)]
+    for p in prompts:
+        serve.submit(p, max_new=4)
+    n_b2 = bg.batched_launches
+    srep = serve.run(fail_ids=[2], fail_at_step=1)
+    serve_b2 = bg.batched_launches - n_b2
+    got = {r.rid: r.tokens for r in serve.batcher.finished}
+    want = {i: _monolithic_greedy(cfg32, p_f, p, 4, 16, dev)
+            for i, p in enumerate(prompts)}
+    serve_ok = all(s.verified for s in serve.step_reports)
+    emit({"phase": "moe_reduced", "steps": rows, "worst_rel": worst,
+          "params_l2_limit": TRAIN_PARAMS_L2_LIMIT,
+          "serve_tokens_match": got == want, "serve_verified": serve_ok,
+          "serve_recovered": srep.n_recovered,
+          "serve_paged_read_checks": serve.paged_read_checks,
+          "serve_steps": srep.n_steps, "serve_bgemm_launches": serve_b2})
+    for r in rows:
+        check(r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4
+              and r["aux_rel"] <= 1e-4,
+              f"moe_reduced step {r['step']}: loss/aux/grad_norm off {r}")
+        check(r["verified"] and r["n_gemms"] == 36,
+              f"moe_reduced step {r['step']}: unverified or GEMMs {r}")
+        check(r["band_gemm_checked"] > 0 and r["bgemm_checked"] > 0,
+              f"moe_reduced step {r['step']}: a kernel was not launched {r}")
+    check(max(worst["mu"], worst["nu"]) <= 1e-4,
+          f"moe_reduced: moments off {worst}")
+    check(worst["params_l2"] <= TRAIN_PARAMS_L2_LIMIT,
+          f"moe_reduced: params off {worst}")
+    check(worst["control_bf16_params_l2"] > TRAIN_PARAMS_L2_LIMIT,
+          f"moe_reduced: the bf16 control passed the params check {worst}")
+    check(rows[1]["n_recovered"] > 0 and rows[1]["failed_ids"] == [2],
+          "moe_reduced: the failure recovered nothing")
+    check(got == want, f"moe_reduced: served tokens {got} != monolithic "
+          f"{want}")
+    check(serve_ok and srep.n_recovered > 0 and serve_b2 > 0
+          and serve.paged_read_checks == srep.n_steps,
+          "moe_reduced: serving unverified, unrecovered or unchecked")
+
+
+def phase_moe_full(cfg):
+    """granite-moe-1b-a400m at full width: 3 fleet training steps, device 3
+    failing at GEMM 30 (in the backward) of step 1, the first step against
+    the monolithic path; then fleet serving with a failure at step 2."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    dev = torch.device("cuda")
+    B, S, n_steps = 8, 128, 3
+    chunks = dict(q_chunk=64, k_chunk=64, loss_chunk=64)
+    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=3, total_steps=n_steps)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adam.init(params, opt_cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in T.leaves(params))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0))
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in data.batch(step).items()}
+               for step in range(n_steps)]
+    t0 = time.perf_counter()
+    with routing_log() as mono_routes:
+        (loss_m, met_m), grads = M.value_and_grad(cfg, params, batches[0],
+                                                  **chunks)
+    gnorm_m = float(adam.global_norm(grads))
+    del grads
+    torch.cuda.synchronize()
+    t_mono = time.perf_counter() - t0
+
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                            device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)      # PS-local GEMMs
+        sess = rt.train_session(opt_cfg, backend="torch",
+                                dtype_policy="bf16", **chunks)
+    rows, audits = [], []
+    bg.batched_launches = 0
+    bg.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for step, batch in enumerate(batches):
+        n_b2, n_b1 = bg.batched_launches, bg.launches
+        # 22 forward fleet GEMMs per step: GEMM 30 is in the backward
+        with routing_log() as routes, band_gemm_audit(
+                verify=True, entry="block_gemm_batched") as audit:
+            params, opt, met = sess.step(
+                params, opt, batch, fail_ids=[3] if step == 1 else (),
+                fail_at_gemm=30)
+        audits.append(audit)
+        if step == 0:
+            flip = routing_flip_share(mono_routes, routes, cfg.n_experts)
+        rep = met["fleet"]
+        kinds = collections.Counter(r.kind for r in rep.records)
+        rows.append({
+            "step": step, "loss": rep.loss, "aux_loss":
+                float(met["aux_loss"]), "grad_norm": rep.grad_norm,
+            "wall_s": rep.wall_time, "fleet_exec_s": rep.fleet_exec_time,
+            "n_gemms": rep.n_gemms, "gemms_by_kind": dict(kinds),
+            "n_tasks": rep.n_tasks, "n_recovered": rep.n_recovered,
+            "failed_ids": list(rep.failed_ids), "verified": rep.verified,
+            "bgemm_launches": bg.batched_launches - n_b2,
+            "bgemm_checked_against_plain": audit["checked"],
+            "bgemm_max_rel_err": audit["max_rel_err"],
+            "band_gemm_launches": bg.launches - n_b1})
+        emit({"phase": "moe_full_step", **rows[-1]})
+    torch.cuda.synchronize()
+    train_b2 = bg.batched_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss_rel = abs(rows[0]["loss"] - float(loss_m)) / abs(float(loss_m))
+    gnorm_rel = abs(rows[0]["grad_norm"] - gnorm_m) / abs(gnorm_m)
+    step_shapes = collections.Counter((a, b) for a, b, _ in
+                                      audits[0]["shapes"])
+    want_shapes = collections.Counter(
+        moe_expert_shapes(cfg, B * S, True) * cfg.n_layers)
+    del opt, met, batches
+
+    # serving: 4 slots, prompts of 16, 8 new tokens, device 3 failing at
+    # the session's step 2, the paged read checked every step
+    slots, P, n_gen, page = 4, 16, 8, 16
+    rt2 = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                             device=dev)
+    serve = rt2.serve_session(params, slots=slots, page_size=page,
+                              max_len=P + n_gen, backend="torch",
+                              dtype_policy="bf16", check_paged_read=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, P).astype(np.int32)
+               for _ in range(slots)]
+    for p in prompts:
+        serve.submit(p, max_new=n_gen)
+    n_b2 = bg.batched_launches
+    t0 = time.perf_counter()
+    with band_gemm_audit(verify=True, entry="block_gemm_batched") as saudit:
+        with routing_log() as serve_routes:
+            first = serve.step()
+        first_logits = serve.last_logits.clone()
+        srep = serve.run(fail_ids=[3], fail_at_step=1)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    serve_b2 = bg.batched_launches - n_b2
+
+    # the first decode step against the monolithic path on the same
+    # inputs: per-request prefill of prompt[:-1] (the session's own
+    # prefill, 15 tokens routed together) into an f32 cache (the pools'
+    # dtype), then one decode_step of the 4 last tokens (routed together,
+    # as the session's step routes them)
+    Lc, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    cache = {nm: torch.zeros((Lc, slots, serve.cache_len, K, hd), device=dev)
+             for nm in ("k", "v")}
+    for b, p in enumerate(prompts):
+        _, pc = M.prefill(cfg, params, {"tokens": torch.as_tensor(
+            p[None, :P - 1].astype(np.int64), device=dev)})
+        for nm in ("k", "v"):
+            cache[nm][:, b, :P - 1] = pc[nm][:, 0].float()
+    cache["pos"] = torch.full((slots,), P - 1, dtype=torch.int32, device=dev)
+    toks = torch.as_tensor(np.stack([p[-1:] for p in prompts])
+                           .astype(np.int64), device=dev)
+    # twice: as the monolithic path runs, and given the session's expert
+    # choices.  The fleet's router runs on bf16-rounded operands (the bf16
+    # policy) and the monolithic one in f32, and the hidden states reaching
+    # the router differ by bf16 roundings too, so an expert whose
+    # probability lies within rounding of the k-th may flip; with 4 tokens
+    # one flip moves the logits by about a percent.  The forced run holds
+    # the rest of the step to the serving bar; the free one is reported.
+    V = cfg.vocab_size
+    serve_routes = serve_routes[-cfg.n_layers:]     # the decode, not prefills
+    cmp = {}
+    for tag, ctx in (("as_run", contextlib.nullcontext),
+                     ("same_routing",
+                      lambda: forced_routing(serve_routes))):
+        with routing_log() as routes, ctx():
+            ref_logits, _ = M.decode_step(cfg, params, cache, toks)
+        diff = (first_logits[..., :V] - ref_logits[..., :V]).float()
+        cmp[tag] = {
+            "rel_l2": float(diff.norm() / ref_logits[..., :V].float().norm()),
+            "argmax_equal": bool((first_logits[..., :V].argmax(-1)
+                                  == ref_logits[..., :V].argmax(-1)).all()),
+            "routing_flip_share": routing_flip_share(routes, serve_routes,
+                                                     cfg.n_experts)}
+    rel_l2 = cmp["same_routing"]["rel_l2"]
+    n_steps = srep.n_steps
+    row = {"phase": "moe_full", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+           "top_k": cfg.moe_top_k, "moe_d_ff": cfg.moe_d_ff,
+           "vocab": cfg.vocab_size, "n_params": n_params, "batch": B,
+           "seq": S, "param_init_s": t_init, "mono_grad_s": t_mono,
+           "loss_mono": float(loss_m), "aux_loss_mono":
+               float(met_m["aux_loss"]), "grad_norm_mono": gnorm_m,
+           "first_step_loss_rel": loss_rel,
+           "first_step_grad_norm_rel": gnorm_rel,
+           "first_step_routing_flip_share": flip,
+           "max_memory_allocated_gb": peak_gb,
+           "bgemm_launches_training": train_b2,
+           "bgemm_step_shapes_as_timed": step_shapes == want_shapes,
+           "serve_s": t_serve, "n_steps": n_steps, "n_tokens":
+               srep.n_tokens, "tokens_per_s": srep.tokens_per_sec,
+           "gemms_per_decode_step": len(first.records),
+           "serve_all_verified": all(s.verified
+                                     for s in serve.step_reports),
+           "serve_failed_ids": list(srep.failed_ids),
+           "serve_recovered": srep.n_recovered,
+           "paged_read_checks": serve.paged_read_checks,
+           "bgemm_launches_serving": serve_b2,
+           "bgemm_serving_checked_against_plain": saudit["checked"],
+           "first_decode_vs_monolithic": cmp}
+    emit(row)
+    for r in rows:
+        check(r["verified"], f"moe_full step {r['step']}: unverified")
+        fwd = r["n_gemms"] // 3
+        check(r["gemms_by_kind"] == {"fwd": fwd, "dA": fwd, "dW": fwd}
+              and fwd == 5 * cfg.n_layers + S // chunks["loss_chunk"],
+              f"moe_full step {r['step']}: GEMM kinds {r['gemms_by_kind']}")
+        check(r["bgemm_launches"] == 9 * cfg.n_layers
+              and r["bgemm_checked_against_plain"] == r["bgemm_launches"]
+              and r["band_gemm_launches"] > 0,
+              f"moe_full step {r['step']}: kernel launches {r}")
+        check(bool(np.isfinite(r["loss"])), f"moe_full step {r['step']}: "
+              f"loss {r['loss']}")
+    check(rows[1]["failed_ids"] == [3] and rows[1]["n_recovered"] > 0,
+          "moe_full: the failure did not fire or recovered nothing")
+    check(row["bgemm_step_shapes_as_timed"],
+          f"moe_full: step 0's batched GEMM shapes {dict(step_shapes)} are "
+          f"not the set bgemm timed")
+    # every GEMM output is rounded to bf16, in another order on each path;
+    # the fleet's router runs on bf16 operands, the monolithic one in f32,
+    # so a few routing choices may differ (the flip share is printed above)
+    check(loss_rel <= 1e-2, f"moe_full: first-step loss rel {loss_rel} "
+          f"(routing flip share {flip:.3g})")
+    check(gnorm_rel <= 5e-2, f"moe_full: first-step grad_norm rel "
+          f"{gnorm_rel} (routing flip share {flip:.3g})")
+    check(row["serve_all_verified"] and srep.failed_ids == (3,)
+          and srep.n_recovered > 0,
+          "moe_full: serving unverified, or the failure did not recover")
+    check(serve.paged_read_checks == n_steps, "moe_full: paged read checks "
+          f"{serve.paged_read_checks} != steps {n_steps}")
+    check(train_b2 > 0 and serve_b2 > 0
+          and saudit["checked"] == serve_b2,
+          f"moe_full: batched GEMM launches training {train_b2}, serving "
+          f"{serve_b2}")
+    # the serving bar of the full cell (bf16 roundings in another order),
+    # against the monolithic decode given the same routing choices
+    check(rel_l2 <= 2e-2, f"moe_full: first decode step's logits rel L2 "
+          f"{rel_l2} against the monolithic decode with the same routing "
+          f"{cmp}")
+    return {"training": train_b2, "serving": serve_b2,
+            "max_abs_err": max(a["max_abs_err"] for a in audits + [saudit])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1276,6 +1813,8 @@ def main(argv=None) -> int:
     from repro_torch.configs.base import get_config
     full = dataclasses.replace(get_config("llama3-8b"), n_layers=4)
     rwkv_full = dataclasses.replace(get_config("rwkv6-7b"), n_layers=4)
+    moe_full = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                                   n_layers=4)
 
     if "build" in phases:
         phase_build()
@@ -1293,15 +1832,23 @@ def main(argv=None) -> int:
     if "rwkv_reduced" in phases:
         phase_rwkv_reduced()
     rwkv = phase_rwkv_full(rwkv_full) if "rwkv_full" in phases else None
+    bgemm = phase_bgemm(moe_full) if "bgemm" in phases else None
+    if "moe_reduced" in phases:
+        phase_moe_reduced()
+    moe = phase_moe_full(moe_full) if "moe_full" in phases else None
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     if all(x is not None for x in (gemm, paged, flash, decode, wkv,
-                                   launches, train, rwkv)):
+                                   launches, train, rwkv, bgemm, moe)):
         train_launches, gset = train
         dec_serve, dec_long = (decode["timed"]["serving_float32"],
                                decode["timed"]["cache32k_bfloat16"])
+        timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")
+        b2_train, b2_dec, b3 = (bgemm["train_step"], bgemm["decode_step"],
+                                bgemm["block_gemm"])
         kernels = [
             {"name": "band_gemm", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
@@ -1359,6 +1906,26 @@ def main(argv=None) -> int:
              "max_abs_err": wkv["max_abs_err"], "ms": wkv["kernel_ms"],
              "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
              "bound_by": wkv["bound_by"], "library_ms": wkv["library_ms"]},
+            {"name": "block_gemm_batched", "route": "cuda",
+             "source": "src/repro_torch/csrc/band_gemm.cu",
+             "replaces": "src/repro/kernels/block_gemm.py:92",
+             "launches": moe["training"],
+             "launches_serving": moe["serving"],
+             "ms_of": f"the {b2_train['launches']} launches of one "
+                      "full-width granite-moe-1b-a400m training step (bf16)",
+             **{k: b2_train[k] for k in timed},
+             "max_abs_err_on_path": moe["max_abs_err"],
+             "decode_step": {
+                 "ms_of": f"the {b2_dec['launches']} launches of one "
+                          "full-width decode step (4 slots)",
+                 **{k: b2_dec[k] for k in timed}}},
+            {"name": "block_gemm", "route": "cuda",
+             "source": "src/repro_torch/csrc/band_gemm.cu",
+             "replaces": "src/repro/kernels/block_gemm.py:125",
+             "launches": b3["launches"],
+             "ms_of": "one launch of ops.block_gemm at 512 x 512 x 512 f32 "
+                      "(benchmarks/kernels_bench.py's shape)",
+             **{k: b3[k] for k in timed}},
         ]
         emit({"kernels": kernels})
     print(smi.splitlines()[0], flush=True)

@@ -1,30 +1,50 @@
-// Band GEMM for Hopper: C[g] = A[g] · B, f32 accumulation, f32 output.
+// Band GEMM for Hopper: C[g] = A[g] · B[g], f32 accumulation, f32 output.
 //
-// Replaces the Pallas kernel `block_gemm_batched_shared`
-// (src/repro/kernels/block_gemm.py:59, body `_batched_shared_b_kernel`):
-// G row bands of one padded height multiply ONE shared right operand. It is
-// the compute kernel of every fleet GEMM (`kernels/ops._band_matmul`).
+// One template, three C entry points, one for each Pallas GEMM kernel of
+// src/repro/kernels/block_gemm.py:
 //
-// What bounds it on an H100: at the decode shapes of the serving path a
-// band is 4 real rows padded to 128, against a B of up to 4096 x 128256.
-// Streaming B once is the least the card must do (bytes / memory rate).
-// This first version computes on the CUDA cores in f32 FMA (IEEE, never
-// TF32: the f32 Freivalds tolerance is 16 x 1.2e-7 x sqrt(n / area)), so
-// at 128 padded rows it is bound by FMA issue, not by bytes.
+//   band_gemm_{f32,bf16}          replaces block_gemm_batched_shared (:59,
+//                                 body `_batched_shared_b_kernel`): G row
+//                                 bands of one padded height multiply ONE
+//                                 shared right operand (B batch stride 0).
+//                                 It is the compute kernel of every fleet
+//                                 GEMM (`kernels/ops._band_matmul`).
+//   block_gemm_batched_{f32,bf16} replaces block_gemm_batched (:92, body
+//                                 `_batched_matmul_kernel`): G independent
+//                                 products, B batch stride > 0. It runs the
+//                                 MoE routed experts (`ops.expert_matmul`:
+//                                 one product per expert, forward, dA, dW).
+//   block_gemm_{f32,bf16}         replaces block_gemm (:125, body
+//                                 `_matmul_kernel`): the plain product, G = 1
+//                                 (`ops.block_gemm`).
 //
-// Design: one block per (64 x 64 output tile, band g); the contraction is a
-// loop inside the block (the TPU's sequential grid axis), staging 16-deep
+// What bounds them on an H100. Band GEMM: at the decode shapes of the
+// serving path a band is 4 real rows padded to 128, against a B of up to
+// 4096 x 128256; streaming B once is the least the card must do (bytes /
+// memory rate). Batched: at the MoE training shape (32 experts x 320
+// capacity rows x 1024 x 512) each product is 10.7 GFLOP against 76 MB of
+// operands and output, so operations bound it; at the decode shape (4
+// capacity rows per expert) reading the 32 expert weights (33.5 MB in
+// bf16) is the least the card must do. Plain: 512^3 in f32 is bound by
+// operations. This first version computes all three on the CUDA cores in
+// f32 FMA (IEEE, never TF32: the f32 Freivalds tolerance is 16 x 1.2e-7 x
+// sqrt(n / area)), so at 64-row tiles it is bound by FMA issue, not by
+// bytes, and a tile of 64 rows holding 4 real ones wastes 15/16 of it.
+// Tensor cores (wgmma, TMA, bf16) for the template are the next kernel
+// work.
+//
+// Design: one block per (64 x 64 output tile, batch g); the contraction is
+// a loop inside the block (the TPU's sequential grid axis), staging 16-deep
 // slices of A and B in shared memory as f32. Each of the 256 threads keeps
 // a 4 x 4 accumulator in registers, fed by a 4 x 4 partial sum that
 // restarts every KSPAN contraction steps. Summed in one running f32 value,
 // the rounding error over k terms grows like sqrt(k) -- beyond 1e-5 of the
 // output at the LM head's k = 128256 in the training backward; the two
-// levels cut it to about sqrt(KSPAN) + sqrt(k / KSPAN). Every block reads
-// the same B columns for all g (the shared operand), so the G bands share
-// B through L2.
-// Strides are arguments: a B batch stride > 0 gives C[g] = A[g] · B[g]
-// and G = 1 gives the plain tiled product, for the other two Pallas
-// GEMM kernels later. Ragged edges are masked, so no shape must tile.
+// levels cut it to about sqrt(KSPAN) + sqrt(k / KSPAN). With a shared B
+// every block reads the same B columns for all g, so the G bands share B
+// through L2; with per-g B (the experts) each block streams its own. The
+// batch strides are arguments, so one body serves all three entries.
+// Ragged edges are masked, so no shape must tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -150,4 +170,37 @@ extern "C" int band_gemm_bf16(const void* A, const void* B, void* C, int G,
                               long long sCg, long long sCm, void* stream) {
   return launch<__nv_bfloat16>(A, B, C, G, M, N, K, sAg, sAm, sBg, sBk, sCg,
                                sCm, stream);
+}
+
+extern "C" int block_gemm_batched_f32(const void* A, const void* B, void* C,
+                                      int G, int M, int N, int K,
+                                      long long sAg, long long sAm,
+                                      long long sBg, long long sBk,
+                                      long long sCg, long long sCm,
+                                      void* stream) {
+  return launch<float>(A, B, C, G, M, N, K, sAg, sAm, sBg, sBk, sCg, sCm,
+                       stream);
+}
+
+extern "C" int block_gemm_batched_bf16(const void* A, const void* B, void* C,
+                                       int G, int M, int N, int K,
+                                       long long sAg, long long sAm,
+                                       long long sBg, long long sBk,
+                                       long long sCg, long long sCm,
+                                       void* stream) {
+  return launch<__nv_bfloat16>(A, B, C, G, M, N, K, sAg, sAm, sBg, sBk, sCg,
+                               sCm, stream);
+}
+
+extern "C" int block_gemm_f32(const void* A, const void* B, void* C, int M,
+                              int N, int K, long long sAm, long long sBk,
+                              long long sCm, void* stream) {
+  return launch<float>(A, B, C, 1, M, N, K, 0, sAm, 0, sBk, 0, sCm, stream);
+}
+
+extern "C" int block_gemm_bf16(const void* A, const void* B, void* C, int M,
+                               int N, int K, long long sAm, long long sBk,
+                               long long sCm, void* stream) {
+  return launch<__nv_bfloat16>(A, B, C, 1, M, N, K, 0, sAm, 0, sBk, 0, sCm,
+                               stream);
 }

@@ -2,7 +2,9 @@
 
 :func:`from_jax_params` takes the reference's params as a nested dict of
 **numpy** arrays (the caller applies ``np.asarray`` to each JAX leaf) and
-returns the port's params in the same layout; :func:`from_jax_opt_state`
+returns the port's params in the same layout (with ``dtype``, floating
+leaves are cast, except those the reference keeps in float32 whatever the
+param dtype is: the MoE router); :func:`from_jax_opt_state`
 carries an ``AdamState`` across the same way.  A numpy bfloat16 array
 (``dtype.name == "bfloat16"``, from ``ml_dtypes``) is reinterpreted through
 ``uint16`` bits, so the port never imports ``ml_dtypes``.
@@ -25,11 +27,19 @@ def _leaf(arr, device, dtype):
     return t.to(device)
 
 
+# leaves that keep their own dtype under ``from_jax_params(dtype=...)``
+KEEP_DTYPE = ("router",)
+
+
 def from_jax_params(tree, device, dtype=None):
     """Nested dict of numpy arrays -> the same nesting of tensors on
-    ``device`` (floating leaves cast to ``dtype`` when given)."""
+    ``device``.  With ``dtype``, floating leaves are cast to it, except a
+    leaf under a key of :data:`KEEP_DTYPE` (the MoE router, float32 in
+    the reference whatever ``param_dtype`` is)."""
     if isinstance(tree, dict):
-        return {k: from_jax_params(v, device, dtype) for k, v in tree.items()}
+        return {k: from_jax_params(v, device,
+                                   None if k in KEEP_DTYPE else dtype)
+                for k, v in tree.items()}
     return _leaf(tree, device, dtype)
 
 

@@ -2,10 +2,12 @@
 operand padding and staging, band bucketing, device-side Freivalds
 residuals, GQA grouping.
 
-Port of ``src/repro/kernels/ops.py`` (``PadCache`` through ``plan_gemm``,
-``mha_flash``, ``gqa_flash_decode``, ``gqa_flash_decode_paged`` and
-``wkv6``).  Operands and results stay on the operands' device; only the
-per-rectangle residual scalars come back to the host.
+Port of ``src/repro/kernels/ops.py`` (``block_gemm``, ``PadCache``
+through ``plan_gemm``, ``mha_flash``, ``gqa_flash_decode``,
+``gqa_flash_decode_paged`` and ``wkv6``), plus ``expert_matmul``, the MoE
+routed experts' products on the batched block GEMM.  Operands and results
+stay on the operands' device; only the per-rectangle residual scalars come
+back to the host.
 """
 from __future__ import annotations
 
@@ -33,6 +35,59 @@ def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
         raise ValueError(f"unsupported compute dtype {name!r}; "
                          f"expected one of {sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+def block_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B through the plain block GEMM, f32 out.  The reference pads
+    to its tiles and crops; the CUDA kernel masks ragged edges, so nothing
+    is padded here."""
+    return _bg.block_gemm(a, b)
+
+
+def _promote(a, b):
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a, b
+
+
+class _ExpertMatmul(torch.autograd.Function):
+    """C[g] = A[g] @ W[g] with dA[g] = dC[g] @ W[g]ᵀ and dW[g] = A[g]ᵀ @
+    dC[g], all three through the batched block GEMM (f32 sums, one cast to
+    the operands' dtype).  The transposed operands are contiguous copies
+    (the kernel reads unit inner strides): per backward one copy of W and
+    one of A, as large as the operands themselves, written and read once
+    more."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        with torch.profiler.record_function("moe.experts"):
+            return _bg.block_gemm_batched(a.contiguous(), w.contiguous()) \
+                .to(a.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype).contiguous()
+        da = dw = None
+        with torch.profiler.record_function("moe.experts"):
+            if ctx.needs_input_grad[0]:
+                da = _bg.block_gemm_batched(
+                    g, w.transpose(1, 2).contiguous()).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = _bg.block_gemm_batched(
+                    a.transpose(1, 2).contiguous(), g).to(w.dtype)
+        return da, dw
+
+
+def expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The routed experts' einsum ``ecd,edf->ecf``: a (E, C, d) capacity
+    buffers, w (E, d, f) expert weights.  Returns (E, C, f) in the
+    operands' (promoted) dtype, like the reference's einsum; differentiable
+    in both operands (:class:`_ExpertMatmul`)."""
+    a, w = _promote(a, w)
+    return _ExpertMatmul.apply(a, w)
 
 
 # ------------------------------------------------------- plan execution ----

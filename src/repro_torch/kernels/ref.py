@@ -13,6 +13,15 @@ def matmul_ref(a, b, out_dtype=None):
     return out.to(out_dtype or a.dtype)
 
 
+def bmm_ref(a, b, out_dtype=None):
+    """C[g] = A[g] @ B[g] of the operands' values, summed in f32."""
+    if a.dim() != 3 or b.dim() != 3:
+        raise ValueError(f"bmm_ref needs (G,m,k)·(G,k,n); got "
+                         f"{tuple(a.shape)}·{tuple(b.shape)}")
+    out = torch.bmm(a.float(), b.float())
+    return out.to(out_dtype or a.dtype)
+
+
 def attention_ref(q, k, v, *, causal=True, window=0):
     """Naive masked softmax attention.  q: (BH,Sq,D); k,v: (BH,Sk,D).
     Returns q's dtype."""

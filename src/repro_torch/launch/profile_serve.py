@@ -1,16 +1,21 @@
 """Where a fleet decode step's time goes on the card.
 
-Builds the full-width serving session of ``chip_smoke.py`` (llama3-8b at
-``--layers`` depth, bf16, 4 slots, 16-device fleet), runs one warm-up
-step, times ``--steps`` decode steps untraced, then traces as many with
-``torch.profiler`` and prints one JSON object: wall time per step (untraced
-and traced), device kernel time per step,
-the device's idle share, and the kernels that take the device time, each
-with its time and launches per step.
+Builds the full-width serving session of ``chip_smoke.py`` (``--arch``,
+llama3-8b or granite-moe-1b-a400m, at ``--layers`` depth, bf16, 4 slots,
+16-device fleet), runs one warm-up step, times ``--steps`` decode steps
+untraced, then traces as many with ``torch.profiler`` and prints one JSON
+object: wall time per step (untraced and traced), device kernel time per
+step, the device's idle share, the kernel time launched under the
+``fleet.fwd``, ``ops.stage_copy``, ``moe.experts`` and ``moe.dispatch``
+ranges (MoE: the expert products on the batched block GEMM, and routing,
+sort, scatter and combine), the batched block GEMM's launches per step,
+and the kernels that take the device time, each with its time and
+launches per step.
 
 Usage (on a machine with a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-      [--layers 4] [--steps 3] [--out chiprun_out/profile_serve.json]
+      [--arch granite-moe-1b-a400m] [--layers 4] [--steps 3] \
+      [--out profile_serve.json]
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import argparse
 import dataclasses
 import json
 import time
+
+RANGES = ("fleet.fwd", "ops.stage_copy", "moe.experts", "moe.dispatch")
 
 
 def _device_us(evt) -> float:
@@ -30,6 +37,8 @@ def _device_us(evt) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b",
+                    choices=("llama3-8b", "granite-moe-1b-a400m"))
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--slots", type=int, default=4)
@@ -47,8 +56,9 @@ def main(argv=None):
     from repro_torch.configs.base import get_config
 
     dev = resolve_device("cuda")
-    cfg = dataclasses.replace(get_config("llama3-8b"),
-                              n_layers=args.layers)
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.launch.profile_train import _range_kernel_us
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
     rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
                             device=dev)
     n_gen = 2 * args.steps + 1
@@ -67,6 +77,7 @@ def main(argv=None):
     torch.cuda.synchronize(dev)
     wall_untraced = time.perf_counter() - t0
 
+    n_b2 = bg.batched_launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -74,6 +85,7 @@ def main(argv=None):
             sess.step()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+    n_b2 = bg.batched_launches - n_b2
 
     kernels = {}
     for evt in prof.key_averages():
@@ -100,6 +112,10 @@ def main(argv=None):
         "fleet_exec_s_per_step": sum(r.exec_time for r in recs)
         / args.steps,
         "gemms_per_step": len(recs) // args.steps,
+        "range_kernel_ms_per_step": {
+            k: v / 1e3 / args.steps
+            for k, v in _range_kernel_us(prof, RANGES).items()},
+        "block_gemm_batched_launches_per_step": n_b2 / args.steps,
         "top_kernels": [
             {"name": name[:120], "ms_per_step": us / 1e3 / args.steps,
              "launches_per_step": cnt / args.steps,

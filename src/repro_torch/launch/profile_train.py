@@ -1,28 +1,33 @@
 """Where a fleet training step's time goes on the card.
 
 Builds the full-width training session of ``chip_smoke.py`` (``--arch``,
-llama3-8b or rwkv6-7b, at ``--layers`` depth, bf16 params and policy,
-batch 8 x 128, 16-device fleet), runs one warm-up step (cold plan solves),
-times ``--steps`` steps untraced, traces as many with ``torch.profiler``,
-times every band GEMM and WKV launch of as many more with CUDA events, and
-prints one JSON object: wall time per step (untraced and traced), the
-fleet executors' host time by GEMM kind, the fleet GEMMs' bound on the
-card, device kernel time per step and the device's idle share, the kernel
-time launched under each profiler range of the step (``fleet.fwd``,
+llama3-8b, rwkv6-7b or granite-moe-1b-a400m, at ``--layers`` depth, bf16
+params and policy, batch 8 x 128, 16-device fleet), runs one warm-up step
+(cold plan solves), times ``--steps`` steps untraced, traces as many with
+``torch.profiler``, times every band GEMM, WKV and batched block GEMM
+(MoE experts) launch of as many more with CUDA events, and prints one
+JSON object: wall time per step (untraced and traced), the fleet
+executors' host time by GEMM kind, the fleet GEMMs' bound on the card,
+device kernel time per step and the device's idle share, the kernel time
+launched under each profiler range of the step (``fleet.fwd``,
 ``fleet.dA``, ``fleet.dW``, ``ops.stage_copy`` for the padded and
-transposed operand copies, ``ps.adam``, and for RWKV
-``rwkv.wkv_backward``, the WKV backward's torch recompute) -- the sum of
-the kernels launched inside the range, not the range's span on the device
-timeline -- the band GEMM's time and launches per step by fleet GEMM
-kind, the WKV kernel's time and launches per step (CUDA events, and its
-own entry in the trace), and the kernels that take the device time, each
-with its time and launches per step.  The port's kernels are launched
-through ctypes, which the profiler ties to no range: they are timed by
-CUDA events and read by kernel name.
+transposed operand copies, ``ps.adam``, for RWKV ``rwkv.wkv_backward``,
+the WKV backward's torch recompute, and for MoE ``moe.experts``, the
+expert products' forward and backward with their transposed copies, and
+``moe.dispatch``, routing, sort, scatter and combine in the forward) --
+the sum of the kernels launched inside the range, not the range's span on
+the device timeline -- the band GEMM's time and launches per step by
+fleet GEMM kind, the WKV kernel's and the batched block GEMM's time and
+launches per step (CUDA events, and their own entries in the trace), and
+the kernels that take the device time, each with its time and launches
+per step.  The port's kernels are launched through ctypes, which the
+profiler ties to no range: they are timed by CUDA events and read by
+kernel name.
 
 Usage (on a machine with a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-      [--arch rwkv6-7b] [--layers 4] [--steps 2] [--out profile_train.json]
+      [--arch rwkv6-7b|granite-moe-1b-a400m] [--layers 4] [--steps 2] \\
+      [--out profile_train.json]
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ import json
 import time
 
 RANGES = ("fleet.fwd", "fleet.dA", "fleet.dW", "ops.stage_copy", "ps.adam",
-          "rwkv.wkv_backward")
+          "rwkv.wkv_backward", "moe.experts", "moe.dispatch")
+ARCHS = ("llama3-8b", "rwkv6-7b", "granite-moe-1b-a400m")
 # one H100 SXM at 700 W (NVIDIA data sheet): memory rate, dense bf16 rate
 PEAK_BW, PEAK_BF16 = 3.35e12, 989e12
 
@@ -54,20 +60,20 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _range_kernel_us(prof) -> dict:
+def _range_kernel_us(prof, ranges=RANGES) -> dict:
     """Kernel time by enclosing profiler range: each kernel is attached to
     the innermost host event open when it was launched (a torch op, or
     the range itself for the port's ctypes-launched kernels); count it
     there and in every enclosing range.  A range's own span on the device
     timeline comes back as a "kernel" of the range's name, and is not
     counted."""
-    out = dict.fromkeys(RANGES, 0.0)
+    out = dict.fromkeys(ranges, 0.0)
     for evt in prof.events():
         us = sum(k.duration for k in getattr(evt, "kernels", [])
                  if k.name != evt.name)
         node, seen = evt, set()
         while us and node is not None:
-            if node.name in RANGES and node.name not in seen:
+            if node.name in ranges and node.name not in seen:
                 seen.add(node.name)
                 out[node.name] += us
             node = node.cpu_parent
@@ -108,11 +114,10 @@ def _band_gemm_events(torch):
 
 
 @contextlib.contextmanager
-def _wkv_events(torch):
-    """For the extent of the block, time every WKV kernel launch with CUDA
-    events; yields the list of ``(start, end)``."""
-    from repro_torch.kernels import wkv6 as wkv
-    launch, events = wkv.wkv6, []
+def _launch_events(torch, module, name):
+    """For the extent of the block, time every call of ``module.name`` (a
+    kernel wrapper) with CUDA events; yields the list of ``(start, end)``."""
+    launch, events = getattr(module, name), []
 
     def timed_launch(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -123,17 +128,16 @@ def _wkv_events(torch):
         events.append((start, end))
         return out
 
-    wkv.wkv6 = timed_launch
+    setattr(module, name, timed_launch)
     try:
         yield events
     finally:
-        wkv.wkv6 = launch
+        setattr(module, name, launch)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b",
-                    choices=("llama3-8b", "rwkv6-7b"))
+    ap.add_argument("--arch", default="llama3-8b", choices=ARCHS)
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--batch", type=int, default=8)
@@ -165,7 +169,7 @@ def main(argv=None):
     rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
                             device=dev)
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)  # RWKV: PS-local GEMMs
+        warnings.simplefilter("ignore", UserWarning)  # PS-local GEMMs
         sess = rt.train_session(opt_cfg, backend="torch",
                                 dtype_policy="bf16", q_chunk=64, k_chunk=64,
                                 loss_chunk=64)
@@ -195,7 +199,11 @@ def main(argv=None):
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
 
-    with _band_gemm_events(torch) as events, _wkv_events(torch) as wkv_ev:
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import wkv6 as wkv
+    with _band_gemm_events(torch) as events, \
+            _launch_events(torch, wkv, "wkv6") as wkv_ev, \
+            _launch_events(torch, bg, "block_gemm_batched") as b2_ev:
         timed = run(batches[1 + 2 * args.steps:])
     torch.cuda.synchronize(dev)
     band_ms = {}
@@ -248,6 +256,9 @@ def main(argv=None):
         "wkv_kernel_ms_per_step_traced": sum(
             us for name, (us, _) in kernels.items() if "wkv6_kernel" in name)
         / 1e3 / n,
+        "block_gemm_batched_ms_per_step": sum(
+            s.elapsed_time(e) for s, e in b2_ev) / n,
+        "block_gemm_batched_launches_per_step": len(b2_ev) / n,
         "losses": [r.loss for r in untraced + traced + timed],
         "top_kernels": [
             {"name": name[:120], "ms_per_step": us / 1e3 / n,

@@ -14,6 +14,8 @@ Usage:
       --batch 4 --prompt-len 16 --gen 32 [--kv-int8] [--edge-plan 16]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --no-reduced --layers 4 --batch 4 --prompt-len 16 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-1b-a400m --no-reduced --layers 4 --edge-plan 16
   (``--no-reduced --layers 4`` runs full width at 4 layers;
   ``--device cpu`` runs the plain CPU path.)
 """

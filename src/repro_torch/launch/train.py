@@ -18,9 +18,14 @@ Usage (from the repository root)::
       --d-model 64 --vocab 256 --steps 2 --batch 2 --seq 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
       --layers 4 --backend fleet --steps 3 --fail-step 1 --fail-ids 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-1b-a400m --layers 4 --backend fleet --steps 3
 
 For RWKV-6, as in the reference, only the LM head's GEMMs reach the fleet;
-the time mix (the WKV kernel) and the channel mix run on the PS.
+the time mix (the WKV kernel) and the channel mix run on the PS.  For MoE
+the router's GEMMs reach the fleet beside the attention projections and
+the LM head; the routed experts run on the PS, on the batched block GEMM
+kernel.
 """
 from __future__ import annotations
 

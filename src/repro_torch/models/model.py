@@ -1,5 +1,5 @@
 """Decoder-only LM in PyTorch (port of ``src/repro/models/model.py``, the
-dense GQA family and the RWKV-6 family).  Parameters keep the reference's
+dense GQA, MoE and RWKV-6 families).  Parameters keep the reference's
 layout, with the layers stacked on a leading axis, so
 ``interop.from_jax_params`` maps the reference's params one to one.  The
 layer loop is a Python loop.
@@ -7,7 +7,7 @@ layer loop is a Python loop.
 Public API
 ----------
 init_params(cfg, generator)              -> params dict
-forward(cfg, params, batch, ...)         -> (final hidden, kv)
+forward(cfg, params, batch, ...)         -> (final hidden, aux, kv)
 loss_fn(cfg, params, batch, ...)         -> (loss, metrics)
 value_and_grad(cfg, params, batch, ...)  -> ((loss, metrics), grads)
 prefill(cfg, params, batch)              -> (last_logits, cache)
@@ -21,9 +21,10 @@ import torch
 from repro_torch import tree as T
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 
-_LATER = (("moe", "MoE"), ("mla", "MLA"), ("ssm", "SSM"),
+_LATER = (("mla", "MLA"), ("ssm", "SSM"),
           ("hybrid_parallel", "hybrid"), ("enc_dec", "encoder-decoder"),
           ("attn_free", "attention-free"), ("m_rope", "M-RoPE"),
           ("n_meta_tokens", "Hymba meta-token"))
@@ -31,13 +32,14 @@ _LATER = (("moe", "MoE"), ("mla", "MLA"), ("ssm", "SSM"),
 
 def require_ported(cfg) -> None:
     """Raise for families the port does not cover yet: it runs the dense
-    GQA family and RWKV-6 (attention-free by design)."""
+    GQA family, MoE (GQA attention, routed experts) and RWKV-6
+    (attention-free by design)."""
     for flag, name in _LATER:
         if getattr(cfg, flag) and not (cfg.rwkv and flag == "attn_free"):
             raise NotImplementedError(
                 f"arch {cfg.name!r}: the {name} family comes with a later "
-                "slice of the port; the port runs the dense GQA and RWKV-6 "
-                "families")
+                "slice of the port; the port runs the dense GQA, MoE and "
+                "RWKV-6 families")
     if cfg.modality != "text":
         raise NotImplementedError(f"arch {cfg.name!r}: {cfg.modality} "
                                   "inputs come with a later slice")
@@ -58,12 +60,16 @@ def init_layer(cfg, gen, lead=()):
             "ln2": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
             "channel_mix": R.init_channel_mix(cfg, gen, lead),
         }
-    return {
+    p = {
         "ln1": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
         "attn": A.init_attention(cfg, gen, lead),
         "ln2": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
-        "mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, lead),
     }
+    if cfg.moe:
+        p["moe"] = MOE.init_moe(cfg, gen, lead)
+    else:
+        p["mlp"] = L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, lead)
+    return p
 
 
 def init_params(cfg, generator: torch.Generator):
@@ -91,9 +97,11 @@ def layer_params(params, i: int):
 
 def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
                   k_chunk=512, causal=True):
-    """One decoder layer over a full sequence.  Returns (x, (k, v)), or for
-    RWKV (x, (s_last, tm_last, cm_last)): the layer's final WKV state and
-    the last normed inputs of its two token shifts."""
+    """One decoder layer over a full sequence.  Returns (x, aux, (k, v)),
+    or for RWKV (x, aux, (s_last, tm_last, cm_last)): the layer's final WKV
+    state and the last normed inputs of its two token shifts.  ``aux`` is
+    the MoE load-balancing loss (f32 zero for the other families)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.rwkv:
         B = x.shape[0]
         H = cfg.d_model // cfg.rwkv_head_dim
@@ -109,15 +117,17 @@ def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
         x = x + tm
         h2 = L.rmsnorm(p["ln2"], x)
         cm, cm_last = R.channel_mix(cfg, p["channel_mix"], h2, zt)
-        return x + cm, (s_last, tm_last, cm_last)
+        return x + cm, aux, (s_last, tm_last, cm_last)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     ao, kv = A.attention_block(cfg, p["attn"], h, positions, causal=causal,
                                window=window, q_chunk=q_chunk,
                                k_chunk=k_chunk)
     x = x + ao
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    x = x + L.swiglu(p["mlp"], h2)
-    return x, kv
+    if cfg.moe:
+        mo, a = MOE.moe_block(cfg, p["moe"], h2)
+        return x + mo, aux + a, kv
+    return x + L.swiglu(p["mlp"], h2), aux, kv
 
 
 def fuse_inputs(cfg, params, batch):
@@ -132,21 +142,32 @@ def fuse_inputs(cfg, params, batch):
 
 def forward(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
             collect_kv=False):
-    """Full forward to the final hidden states.  Returns (x, kv) with the
-    layers' ``(k, v)`` -- for RWKV ``(wkv_state, tm_prev, cm_prev)`` --
-    stacked over layers when ``collect_kv``."""
+    """Full forward to the final hidden states.  Returns (x, aux, kv): the
+    layers' summed MoE load-balancing loss, and the layers' ``(k, v)`` --
+    for RWKV ``(wkv_state, tm_prev, cm_prev)`` -- stacked over layers when
+    ``collect_kv``."""
     x, positions = fuse_inputs(cfg, params, batch)
     per_layer = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, kv = layer_forward(
+        x, a, kv = layer_forward(
             cfg, layer_params(params, i), x, positions, window=window,
             q_chunk=q_chunk, k_chunk=k_chunk)
+        aux = aux + a
         if collect_kv:
             per_layer.append(kv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     kv = tuple(torch.stack(t) for t in zip(*per_layer)) if collect_kv \
         else ()
-    return x, kv
+    return x, aux, kv
+
+
+def _head(params):
+    """The LM head's params; ``{}`` under tied embeddings, where the
+    reference's empty ``head`` dict holds no leaf, so a tree rebuilt from
+    leaves (``tree.unflatten``: gradients, Adam's update) has no key for
+    it."""
+    return params.get("head", {})
 
 
 def _vocab_mask(cfg, device):
@@ -161,10 +182,11 @@ def loss_fn(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
     """Mean cross-entropy over valid labels (labels < 0 are masked),
     computed over ``S // loss_chunk`` sequence chunks one after another so
     the (B, S, V) logits never exist at once.  Returns
-    ``(loss + aux, {"loss", "aux_loss", "tokens"})``; neither ported family
-    has an auxiliary loss."""
-    x, _ = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
-                   k_chunk=k_chunk)
+    ``(loss + aux, {"loss", "aux_loss", "tokens"})``, ``aux`` the MoE
+    load-balancing loss summed over layers (zero for the dense and RWKV
+    families)."""
+    x, aux, _ = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
+                        k_chunk=k_chunk)
     labels = batch["labels"].long()
     B, S = labels.shape
     c = loss_chunk if (S % loss_chunk == 0 and S >= loss_chunk) else S
@@ -175,7 +197,7 @@ def loss_fn(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
     tot = torch.zeros((), device=x.device)
     cnt = torch.zeros((), device=x.device)
     for j in range(nc):
-        logits = L.lm_logits(params["head"], params["embed"], xr[j], cfg)
+        logits = L.lm_logits(_head(params), params["embed"], xr[j], cfg)
         logits = logits.float() + vmask
         lse = torch.logsumexp(logits, dim=-1)
         lab = torch.clamp(lr[j], min=0)
@@ -185,7 +207,6 @@ def loss_fn(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
         cnt = cnt + torch.sum(w)
         del logits, lse, picked
     loss = tot / torch.clamp(cnt, min=1.0)
-    aux = torch.zeros((), device=x.device)
     return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": cnt}
 
 
@@ -283,9 +304,14 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
         news.append({"k": nk, "v": nv})           # (B,1,K,hd) new entries
         x = x + ao
         h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.swiglu(lp["mlp"], h2)
+        if cfg.moe:
+            # the step's B tokens route together: C = max(ceil(B k cf / E),
+            # 4) slots per expert
+            x = x + MOE.moe_block(cfg, lp["moe"], h2)[0]
+        else:
+            x = x + L.swiglu(lp["mlp"], h2)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.lm_logits(params["head"], params["embed"], x, cfg)
+    logits = L.lm_logits(_head(params), params["embed"], x, cfg)
     logits = logits.float() + _vocab_mask(cfg, x.device)
 
     new_cache = dict(cache)
@@ -319,7 +345,7 @@ def _rwkv_decode_step(cfg, params, cache, tokens):
         x = x + cm
         news.append((s_last, hq[:, -1], h2[:, -1]))
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.lm_logits(params["head"], params["embed"], x, cfg)
+    logits = L.lm_logits(_head(params), params["embed"], x, cfg)
     logits = logits.float() + _vocab_mask(cfg, x.device)
     new_cache = dict(cache)
     # recurrent states are replaced wholesale (they are small)
@@ -332,9 +358,9 @@ def _rwkv_decode_step(cfg, params, cache, tokens):
 def prefill(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512):
     """Forward over a full prompt: last-position logits and the filled
     decode cache (RWKV: the final recurrent states)."""
-    x, kv = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
-                    k_chunk=k_chunk, collect_kv=True)
-    logits = L.lm_logits(params["head"], params["embed"], x[:, -1:], cfg)
+    x, _, kv = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
+                       k_chunk=k_chunk, collect_kv=True)
+    logits = L.lm_logits(_head(params), params["embed"], x[:, -1:], cfg)
     logits = logits.float() + _vocab_mask(cfg, x.device)
     B, S = batch["tokens"].shape
     cache = init_cache(cfg, B, S, device=x.device)

@@ -76,6 +76,137 @@ def test_band_gemm_kernel_on_card(cuda, dtype):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+# ------------------------------------------------- batched and plain GEMM --
+
+@pytest.mark.parametrize("G,m,k,n", [(1, 128, 128, 128), (3, 128, 256, 128),
+                                     (2, 64, 128, 192), (4, 40, 96, 72),
+                                     (3, 5, 130, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_gemm_batched_plain_matches_pallas(G, m, k, n, dtype, rng):
+    """``block_gemm_batched`` (here its plain version) against the Pallas
+    kernel in interpret mode, at the reference test's shapes and at ragged
+    ones (the Pallas kernel gets them zero-padded to its 64-wide tiles and
+    cropped): both sides sum exact products of the same values in f32, so
+    they agree to summation order, 1e-5 of the largest output."""
+    a = rng.standard_normal((G, m, k)).astype(np.float32)
+    b = rng.standard_normal((G, k, n)).astype(np.float32)
+    pad = [(-x) % 64 for x in (m, k, n)]
+    ap = np.pad(a, ((0, 0), (0, pad[0]), (0, pad[1])))
+    bp = np.pad(b, ((0, 0), (0, pad[1]), (0, pad[2])))
+    want = np.asarray(jbg.block_gemm_batched(
+        jnp.asarray(ap, dtype), jnp.asarray(bp, dtype), bm=64, bn=64, bk=64,
+        out_dtype=jnp.float32, interpret=True))[:, :m, :n]
+    got = bg.block_gemm_batched(torch.from_numpy(a).to(TORCH_DT[dtype]),
+                                torch.from_numpy(b).to(TORCH_DT[dtype]))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (G, m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (64, 192, 128),
+                                   (100, 70, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_gemm_plain_matches_pallas(m, k, n, dtype, rng):
+    """``block_gemm`` against the Pallas ``block_gemm`` in interpret mode
+    (zero-padded to its tiles, cropped), 1e-5 of the largest output."""
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    pad = [(-x) % 64 for x in (m, k, n)]
+    ap = np.pad(a, ((0, pad[0]), (0, pad[1])))
+    bp = np.pad(b, ((0, pad[1]), (0, pad[2])))
+    want = np.asarray(jbg.block_gemm(
+        jnp.asarray(ap, dtype), jnp.asarray(bp, dtype), bm=64, bn=64, bk=64,
+        out_dtype=jnp.float32, interpret=True))[:m, :n]
+    got = bg.block_gemm(torch.from_numpy(a).to(TORCH_DT[dtype]),
+                        torch.from_numpy(b).to(TORCH_DT[dtype]))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 512, 512), (200, 300, 170)])
+def test_ops_block_gemm_matches_reference(m, k, n, rng):
+    """``ops.block_gemm`` against ``repro.kernels.ops.block_gemm`` (the
+    kernels benchmark's entry, which pads to 128 and crops), f32."""
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    want = np.asarray(jops.block_gemm(jnp.asarray(a), jnp.asarray(b)))
+    got = ops.block_gemm(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_expert_matmul_grads_match_bmm_autograd(dtype, rng):
+    """``ops.expert_matmul`` (forward, dA and dW on the batched block GEMM)
+    against autograd through ``torch.bmm`` on the same operands: the
+    operands' dtype out; 1e-5 of the largest value in f32, one bf16 unit
+    in the last place (2^-7) of the largest value in bf16, where both
+    sides round each result to bf16 once after f32 sums."""
+    dt = TORCH_DT[dtype]
+    a0 = torch.from_numpy(rng.standard_normal((4, 10, 48))
+                          .astype(np.float32)).to(dt)
+    w0 = torch.from_numpy(rng.standard_normal((4, 48, 24))
+                          .astype(np.float32)).to(dt)
+    gy = torch.from_numpy(rng.standard_normal((4, 10, 24))
+                          .astype(np.float32)).to(dt)
+    outs = []
+    for fn in (ops.expert_matmul,
+               lambda x, y: torch.bmm(x.float(), y.float()).to(dt)):
+        a, w = a0.clone().requires_grad_(), w0.clone().requires_grad_()
+        y = fn(a, w)
+        assert y.dtype == dt
+        y.backward(gy)
+        outs.append((y.detach(), a.grad, w.grad))
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    for got, want in zip(*outs):
+        assert got.dtype == want.dtype == dt
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max())
+
+
+def test_batched_and_plain_wrappers_never_fall_back():
+    """Only CPU tensors take the plain versions: any other device launches
+    the kernel or raises, as do mismatched shapes."""
+    with pytest.raises(ValueError):
+        bg.block_gemm_batched(torch.empty((2, 8, 8), device="meta"),
+                              torch.empty((2, 8, 8), device="meta"))
+    with pytest.raises(ValueError):
+        bg.block_gemm(torch.empty((8, 8), device="meta"),
+                      torch.empty((8, 8), device="meta"))
+    with pytest.raises(ValueError):
+        bg.block_gemm_batched(torch.zeros(2, 8, 8), torch.zeros(3, 8, 8))
+    with pytest.raises(ValueError):
+        bg.block_gemm(torch.zeros(8, 8), torch.zeros(9, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,m,k,n", [(32, 4, 1024, 512), (5, 100, 333, 77)])
+def test_block_gemm_batched_kernel_on_card(cuda, G, m, k, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((G, m, k), generator=gen, device=cuda).to(TORCH_DT[dtype])
+    b = torch.randn((G, k, n), generator=gen, device=cuda).to(TORCH_DT[dtype])
+    n0 = bg.batched_launches
+    got = bg.block_gemm_batched(a, b)
+    want = bg.block_gemm_batched_plain(a, b)
+    assert bg.batched_launches == n0 + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_gemm_kernel_on_card(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((512, 512), generator=gen, device=cuda).to(TORCH_DT[dtype])
+    b = torch.randn((512, 300), generator=gen, device=cuda).to(TORCH_DT[dtype])
+    n0 = bg.block_gemm_launches
+    got = ops.block_gemm(a, b)
+    want = bg.block_gemm_plain(a, b)
+    assert bg.block_gemm_launches == n0 + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 # ------------------------------------------------------------- paged decode --
 
 def _paged_inputs(rng, page, H, K, D, lengths):

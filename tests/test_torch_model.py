@@ -113,6 +113,13 @@ def test_qk_norm_and_bias_families_match_reference(rng):
                                   "hymba-1.5b", "seamless-m4t-medium",
                                   "qwen2-vl-72b"])
 def test_later_families_raise(arch):
+    """Families the port does not cover yet raise at init; the MoE family
+    (granite-moe-1b-a400m), ported since, initialises instead (its parity
+    with the reference: tests/test_torch_moe.py)."""
     cfg = get_config(arch).reduced()
+    if arch == "granite-moe-1b-a400m":
+        params = M.init_params(cfg, torch.Generator().manual_seed(0))
+        assert "moe" in params["layers"] and "mlp" not in params["layers"]
+        return
     with pytest.raises(NotImplementedError):
         M.init_params(cfg, torch.Generator().manual_seed(0))

@@ -1,0 +1,444 @@
+"""The port's MoE family against the reference on
+``granite-moe-1b-a400m.reduced()`` (f32: 2 layers, d 256, 4 experts, top-2,
+expert d_ff 64), fed the same numpy inputs: ``moe_block`` with and
+without capacity drops and its gradients, a shared expert, the init
+layout, ``loss_fn`` with its aux loss and its gradients, ``prefill`` and
+``decode_step``, the PS-centric fleet step over three steps with a device
+failure, fleet serving, and the drivers.  Both sides compute in f32 and
+sum in different orders: 1e-5 of the largest value for forward values,
+1e-4 relative for gradients and the training state (the reference's
+bars, ``tests/test_train_loop.py``).  Routing is discrete: where the
+probabilities agree to f32 rounding, the same (token, expert) choices and
+the same capacity drops follow."""
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import CleaveRuntime
+from repro.api import Fleet as JFleet
+from repro.configs.base import get_config as jget_config
+from repro.data.pipeline import DataConfig as JDataConfig
+from repro.data.pipeline import SyntheticLM as JSyntheticLM
+from repro.models import model as JM
+from repro.models import moe as JMOE
+from repro.optim import adam as jadam
+from repro_torch import tree as T
+from repro_torch.api import Fleet, TorchCleaveRuntime
+from repro_torch.configs.base import get_config
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.interop import from_jax_opt_state, from_jax_params
+from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
+from repro_torch.optim import adam
+
+ARCH = "granite-moe-1b-a400m"
+B, S = 2, 32
+CHUNKS = dict(loss_chunk=16)
+OPT = dict(lr=3e-4, warmup_steps=2, total_steps=20)
+REL_TOL = 1e-4
+N_STEPS, FAIL_STEP, FAIL_IDS = 3, 1, (3,)
+# 12 forward fleet GEMMs per step (q, k, v, o and the router in 2 layers,
+# the LM head over 2 loss chunks): GEMM 14 is in the backward
+FAIL_AT = 14
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _worst_rel(want, got):
+    """Per leaf, max |a - b| over max |a| (the reference's measure)."""
+    return max(float(np.abs(np.asarray(a, np.float32) - b.float().numpy())
+                     .max() / (np.abs(np.asarray(a, np.float32)).max()
+                               + 1e-12))
+               for a, b in zip(jax.tree.leaves(want), T.leaves(got)))
+
+
+def _l2_rel(want, got):
+    """Per leaf, the L2 norm of the difference over the leaf's L2 norm."""
+    return max(float(np.linalg.norm(np.asarray(a, np.float32)
+                                    - b.float().numpy())
+                     / (np.linalg.norm(np.asarray(a, np.float32)) + 1e-12))
+               for a, b in zip(jax.tree.leaves(want), T.leaves(got)))
+
+
+def _close(got, want, tol=1e-5):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.detach().float().numpy(), want, rtol=0,
+                               atol=tol * max(np.abs(want).max(), 1.0))
+
+
+def _cfgs(**over):
+    return (dataclasses.replace(jget_config(ARCH).reduced(), **over),
+            dataclasses.replace(get_config(ARCH).reduced(), **over))
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's fleet run (numpy executor) over ``N_STEPS`` steps,
+    devices ``FAIL_IDS`` failing at GEMM ``FAIL_AT`` of step ``FAIL_STEP``;
+    its initial and final states as numpy trees and its step reports."""
+    jcfg = jget_config(ARCH).reduced()
+    jopt = jadam.AdamConfig(**OPT)
+    params = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    opt = jadam.init(params, jopt)
+    init = (_np_tree(params), _np_tree(opt))
+    data = JSyntheticLM(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=S,
+                                    global_batch=B, seed=0))
+    rt = CleaveRuntime(arch=jcfg, fleet=JFleet.sample(8, seed=0))
+    with pytest.warns(UserWarning, match="PS-locally"):
+        sess = rt.train_session(jopt, **CHUNKS)
+    steps, aux = [], []
+    for step in range(N_STEPS):
+        batch = {k: jnp.asarray(v) for k, v in data.batch(step).items()}
+        params, opt, met = sess.step(
+            params, opt, batch,
+            fail_ids=FAIL_IDS if step == FAIL_STEP else (),
+            fail_at_gemm=FAIL_AT)
+        steps.append(met["fleet"])
+        aux.append(float(met["aux_loss"]))
+    return {"jcfg": jcfg, "init": init, "steps": steps, "aux": aux,
+            "final": (_np_tree(params), _np_tree(opt))}
+
+
+def _layer0_moe(jcfg, seed=2):
+    jp = JMOE.init_moe(jcfg, jax.random.PRNGKey(seed))
+    return jp, from_jax_params(_np_tree(jp), "cpu")
+
+
+def _expert_loads(jcfg, jp, x):
+    """Assignments routed to each expert (the reference's router)."""
+    T_ = x.shape[0] * x.shape[1]
+    logits = x.reshape(T_, -1) @ np.asarray(jp["router"])
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+    top_e = np.asarray(jax.lax.top_k(jnp.asarray(probs), jcfg.moe_top_k)[1])
+    return np.bincount(top_e.reshape(-1), minlength=jcfg.n_experts)
+
+
+def _skewed_x(rng, jp, d):
+    """Tokens shifted one unit along the router's expert-0 column, so that
+    expert 0 draws more assignments than the others (51 of 128 here, past
+    the published capacity of 40)."""
+    r0 = np.asarray(jp["router"])[:, 0]
+    x = rng.standard_normal((B, S, d)) + r0 / np.linalg.norm(r0)
+    return x.astype(np.float32)
+
+
+# -------------------------------------------------------------- moe_block --
+
+@pytest.mark.parametrize("cf", [1.25, 32.0])
+def test_moe_block_matches_reference(cf, rng):
+    """Output and aux loss at the published capacity factor, where C = 40
+    slots per expert hold fewer than the busiest expert's assignments (so
+    assignments are dropped), and at 32, where nothing is dropped."""
+    jcfg, cfg = _cfgs(capacity_factor=cf)
+    jp, p = _layer0_moe(jcfg)
+    x = _skewed_x(rng, jp, cfg.d_model)
+    C = MOE.capacity(cfg, B * S)
+    assert C == JMOE.capacity(jcfg, B * S) == (40 if cf == 1.25 else 1024)
+    dropped = _expert_loads(jcfg, jp, x).max() > C
+    assert dropped == (cf == 1.25)
+    jo, ja = JMOE.moe_block(jcfg, jp, jnp.asarray(x))
+    out, aux = MOE.moe_block(cfg, p, torch.from_numpy(x))
+    assert out.dtype == torch.float32 and aux.dtype == torch.float32
+    _close(out, jo)
+    assert abs(float(aux) - float(ja)) <= 1e-5 * abs(float(ja))
+
+
+@pytest.mark.parametrize("cf", [1.25, 32.0])
+def test_moe_block_grads_match_reference(cf, rng):
+    """Gradients of a random projection of the output plus the aux loss,
+    with respect to x, the router and the three expert weights, against
+    ``jax.grad``: 1e-4 relative.  With drops, a dropped assignment's token
+    gets no gradient through it, on both sides."""
+    jcfg, cfg = _cfgs(capacity_factor=cf)
+    jp, p = _layer0_moe(jcfg)
+    x = _skewed_x(rng, jp, cfg.d_model)
+    gy = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    names = ("router", "w_gate", "w_up", "w_down")
+
+    def jloss(x_, *ws):
+        out, aux = JMOE.moe_block(jcfg, dict(zip(names, ws)), x_)
+        return jnp.sum(out * gy) + 10.0 * aux
+
+    jg = jax.grad(jloss, argnums=tuple(range(5)))(
+        jnp.asarray(x), *(jp[n] for n in names))
+    leaves = [torch.from_numpy(x).requires_grad_()] + \
+        [p[n].clone().requires_grad_() for n in names]
+    out, aux = MOE.moe_block(cfg, dict(zip(names, leaves[1:])), leaves[0])
+    ((out * torch.from_numpy(gy)).sum() + 10.0 * aux).backward()
+    for want, t in zip(jg, leaves):
+        want = np.asarray(want)
+        err = np.abs(t.grad.numpy() - want).max() / np.abs(want).max()
+        assert err <= REL_TOL, err
+
+
+def test_moe_block_shared_expert_matches_reference(rng):
+    """``n_shared_experts=1``: the shared SwiGLU beside the routed experts
+    (its GEMMs go through ``pdot``), init layout and output."""
+    jcfg, cfg = _cfgs(n_shared_experts=1)
+    jp, p = _layer0_moe(jcfg, seed=3)
+    assert set(p) == {"router", "w_gate", "w_up", "w_down", "shared"}
+    assert tuple(p["shared"]["w_gate"].shape) == (cfg.d_model, cfg.moe_d_ff)
+    ours = MOE.init_moe(cfg, torch.Generator().manual_seed(0))
+    for k in ("w_gate", "w_up", "w_down"):
+        assert ours["shared"][k].shape == p["shared"][k].shape
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    jo, ja = JMOE.moe_block(jcfg, jp, jnp.asarray(x))
+    out, aux = MOE.moe_block(cfg, p, torch.from_numpy(x))
+    _close(out, jo)
+    assert abs(float(aux) - float(ja)) <= 1e-5 * abs(float(ja))
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_init_params_layout_matches_reference(param_dtype):
+    """``init_params`` draws the reference's MoE tree: same keys, shapes and
+    dtypes, stacked over layers (router (L, d, E) in float32 whatever the
+    param dtype, w_gate and w_up (L, E, d, ff), w_down (L, E, ff, d)), no
+    ``mlp``, same init scales; ``from_jax_params`` carries it over leaf for
+    leaf and, given a dtype, keeps the router in float32."""
+    jcfg, cfg = _cfgs(param_dtype=param_dtype)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    ours = M.init_params(cfg, torch.Generator().manual_seed(0))
+    carried = from_jax_params(_np_tree(jparams), "cpu")
+    flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    assert len(flat_j) == len(T.leaves(ours)) == len(T.leaves(carried))
+    for path, leaf in flat_j:
+        node, got = ours, carried
+        for q in path:
+            node, got = node[q.key], got[q.key]
+        assert tuple(node.shape) == tuple(leaf.shape), path
+        assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(leaf, np.float32))
+        want_std = float(np.std(np.asarray(leaf, np.float32)))
+        assert abs(float(node.float().std()) - want_std) \
+            <= 0.1 * want_std + 1e-6, path
+    L_, d, E, ff = cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    moe = ours["layers"]["moe"]
+    assert "mlp" not in ours["layers"]
+    assert tuple(moe["router"].shape) == (L_, d, E)
+    assert moe["router"].dtype == torch.float32
+    assert tuple(moe["w_gate"].shape) == tuple(moe["w_up"].shape) \
+        == (L_, E, d, ff)
+    assert tuple(moe["w_down"].shape) == (L_, E, ff, d)
+    assert moe["w_up"].dtype == getattr(torch, param_dtype)
+    cast = from_jax_params(_np_tree(jparams), "cpu", dtype=torch.bfloat16)
+    assert cast["layers"]["moe"]["router"].dtype == torch.float32
+    assert cast["layers"]["moe"]["w_down"].dtype == torch.bfloat16
+    assert cast["layers"]["attn"]["wq"].dtype == torch.bfloat16
+
+
+# ----------------------------------------------------------- model level --
+
+def test_loss_fn_value_and_grads_match_reference(ref):
+    """``loss_fn`` (cross-entropy plus the layers' aux loss) and its
+    parameter gradients against ``jax.value_and_grad`` of the reference's
+    unrolled ``loss_fn``: 1e-5 on the loss and the aux loss, 1e-4 relative
+    per gradient leaf (router and experts included)."""
+    jcfg = ref["jcfg"]
+    cfg = get_config(ARCH).reduced()
+    raw = JSyntheticLM(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=S,
+                                   global_batch=B, seed=0)).batch(0)
+    raw["labels"][0, :5] = -1
+    (jloss, jmet), jgrads = jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, {k: jnp.asarray(v)
+                                       for k, v in raw.items()},
+                             scan_layers=False, **CHUNKS),
+        has_aux=True)(jax.tree.map(jnp.asarray, ref["init"][0]))
+    (loss, met), grads = M.value_and_grad(
+        cfg, from_jax_params(ref["init"][0], "cpu"),
+        {k: torch.as_tensor(v) for k, v in raw.items()}, **CHUNKS)
+    assert float(jmet["aux_loss"]) > 0
+    assert abs(float(met["aux_loss"]) - float(jmet["aux_loss"])) \
+        <= 1e-5 * float(jmet["aux_loss"])
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    assert float(met["tokens"]) == float(jmet["tokens"]) == B * S - 5
+    assert _worst_rel(jgrads, grads) <= REL_TOL
+
+
+@pytest.mark.parametrize("P", [7, 20])
+def test_prefill_and_decode_match_reference(ref, P, rng):
+    """Prefill of a P-token prompt and two decode steps on its cache (each
+    side routes the same tokens together, at the published capacity
+    factor): logits and the K/V cache within 1e-5 of their largest
+    value."""
+    jcfg = ref["jcfg"]
+    cfg = get_config(ARCH).reduced()
+    jp = jax.tree.map(jnp.asarray, ref["init"][0])
+    p = from_jax_params(ref["init"][0], "cpu")
+    toks = rng.integers(0, cfg.vocab_size, (2, P + 2)).astype(np.int32)
+    jlg, jc = JM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :P])})
+    lg, c = M.prefill(cfg, p, {"tokens": torch.from_numpy(toks[:, :P])})
+    _close(lg, jlg)
+    assert int(c["pos"]) == int(jc["pos"]) == P
+    for t in (P, P + 1):
+        for nm in ("k", "v"):
+            _close(c[nm], jc[nm])
+        # the cache holds P slots: both sides write slot pos % P (a ring)
+        jlg, jc = JM.decode_step(jcfg, jp, jc, jnp.asarray(toks[:, t:t + 1]))
+        lg, c = M.decode_step(cfg, p, c, torch.from_numpy(toks[:, t:t + 1]))
+        _close(lg, jlg)
+    assert int(c["pos"]) == P + 2
+
+
+def test_decode_token_by_token_equals_prefill(ref, rng):
+    """Token-by-token decoding reaches one prefill's last logits and cache
+    when nothing is dropped (capacity factor 32, as the reference's decode
+    tests use): a prefill routes all B·P tokens together, a decode step B
+    at a time, and only without drops do the two compositions agree."""
+    cfg = dataclasses.replace(get_config(ARCH).reduced(),
+                              capacity_factor=32.0)
+    p = from_jax_params(ref["init"][0], "cpu")
+    toks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int64))
+    lg, c = M.prefill(cfg, p, {"tokens": toks})
+    cache = M.init_cache(cfg, 2, 12, device="cpu")
+    for t in range(12):
+        lg1, cache = M.decode_step(cfg, p, cache, toks[:, t:t + 1])
+    _close(lg1, lg.numpy())
+    for nm in ("k", "v"):
+        _close(cache[nm], c[nm].numpy())
+
+
+def test_deepseek_still_raises_for_mla():
+    """The MoE family is ported; MLA is not, so deepseek-v2-236b (MoE and
+    MLA) still raises, naming MLA."""
+    with pytest.raises(NotImplementedError, match="MLA"):
+        M.require_ported(get_config("deepseek-v2-236b"))
+    M.require_ported(get_config(ARCH))
+
+
+# ------------------------------------------------------------- fleet step --
+
+def _fleet_run(ref, **session):
+    cfg = get_config(ARCH).reduced()
+    params = from_jax_params(ref["init"][0], "cpu")
+    opt = from_jax_opt_state(ref["init"][1], "cpu")
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
+                            device="cpu")
+    with pytest.warns(UserWarning, match="PS-locally"):
+        sess = rt.train_session(adam.AdamConfig(**OPT), **CHUNKS, **session)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0))
+    reports, aux = [], []
+    for step in range(N_STEPS):
+        batch = {k: torch.as_tensor(v) for k, v in data.batch(step).items()}
+        params, opt, met = sess.step(
+            params, opt, batch,
+            fail_ids=FAIL_IDS if step == FAIL_STEP else (),
+            fail_at_gemm=FAIL_AT)
+        reports.append(met["fleet"])
+        aux.append(float(met["aux_loss"]))
+    return cfg, rt, params, opt, reports, aux
+
+
+def test_fleet_step_matches_reference(ref):
+    """Three fleet steps, devices failing at GEMM 14 (in the backward) of
+    step 1: loss (with the aux loss), aux loss, grad_norm and both moments
+    within 1e-4 (max-relative per leaf) of the reference's fleet run
+    (numpy executor), params within 1e-4 in L2 per leaf, the same GEMM,
+    task and recovery counts (36 fleet GEMMs a step), every step verified.
+    The router's forward, dA and dW run on the fleet at the reference's
+    shapes; the experts stay on the PS.  Params are held in L2 for the
+    reason ``tests/test_torch_rwkv.py`` gives (AdamW moves an element whose
+    gradient lies within f32 rounding of zero by about lr either way); the
+    same run under the bf16 policy must fail that bound."""
+    cfg, rt, params, opt, reports, aux = _fleet_run(ref)
+    d, E, T_ = cfg.d_model, cfg.n_experts, B * S
+    for got, want, a, ja in zip(reports, ref["steps"], aux, ref["aux"]):
+        assert abs(got.loss - want.loss) <= REL_TOL * abs(want.loss)
+        assert abs(a - ja) <= REL_TOL * abs(ja)
+        assert abs(got.grad_norm - want.grad_norm) \
+            <= REL_TOL * abs(want.grad_norm)
+        assert got.n_gemms == want.n_gemms == 36
+        assert (got.n_tasks, got.n_recovered) \
+            == (want.n_tasks, want.n_recovered)
+        assert got.verified and all(r.verified for r in got.records)
+        assert got.failed_ids == want.failed_ids
+        assert got.predicted_makespan == pytest.approx(
+            want.predicted_makespan, rel=1e-9)
+        shapes = [(r.kind, r.m, r.n, r.q) for r in got.records]
+        assert shapes == [(r.kind, r.m, r.n, r.q) for r in want.records]
+        for kind, mnq in (("fwd", (T_, d, E)), ("dA", (T_, E, d)),
+                          ("dW", (d, T_, E))):
+            assert shapes.count((kind,) + mnq) == cfg.n_layers, kind
+    assert ref["steps"][FAIL_STEP].n_recovered > 0
+    assert FAIL_IDS[0] not in rt.fleet.ids()
+    jparams, jopt = ref["final"]
+    assert _l2_rel(jparams, params) <= REL_TOL
+    assert _worst_rel(jopt.mu, opt.mu) <= REL_TOL
+    assert _worst_rel(jopt.nu, opt.nu) <= REL_TOL
+    assert params["layers"]["moe"]["router"].dtype == torch.float32
+    control = _fleet_run(ref, dtype_policy="bf16")[2]
+    assert _l2_rel(jparams, control) > REL_TOL
+
+
+# --------------------------------------------------------- serving, drivers --
+
+def test_serve_session_matches_reference_with_failure(ref):
+    """Fleet serving of the MoE model against the reference's session on
+    the same params: paged pools, device 2 failing at step 1 and the paged
+    read checked every step.  Each side's prefill routes one prompt and
+    each decode step the same batch, so the published capacity factor
+    holds: greedy tokens and every step's GEMM, task and recovery counts
+    must be identical."""
+    jcfg = ref["jcfg"]
+    cfg = get_config(ARCH).reduced()
+    kw = dict(slots=3, page_size=4, max_len=16, check_paged_read=True)
+    jrt = CleaveRuntime(arch=jcfg, fleet=JFleet.sample(8, seed=0))
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
+                            device="cpu")
+    js = jrt.serve_session(jax.tree.map(jnp.asarray, ref["init"][0]), **kw)
+    ts = rt.serve_session(from_jax_params(ref["init"][0], "cpu"), **kw)
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        prompt = rng.integers(0, cfg.vocab_size, 5).astype(np.int32)
+        js.submit(prompt, max_new=4)
+        ts.submit(prompt, max_new=4)
+    jrep = js.run(fail_ids=[2], fail_at_step=1)
+    trep = ts.run(fail_ids=[2], fail_at_step=1)
+    assert {r.rid: r.tokens for r in ts.batcher.finished} \
+        == {r.rid: r.tokens for r in js.batcher.finished}
+    assert [(s.n_gemms, s.n_tasks, s.n_recovered, s.verified)
+            for s in ts.step_reports] \
+        == [(s.n_gemms, s.n_tasks, s.n_recovered, s.verified)
+            for s in js.step_reports]
+    assert trep.failed_ids == jrep.failed_ids == (2,)
+    assert trep.n_recovered == jrep.n_recovered > 0
+    assert ts.paged_read_checks == trep.n_steps > 0
+
+
+@pytest.mark.parametrize("backend", ["torch", "fleet"])
+def test_train_driver_runs_moe_on_cpu(backend, tmp_path):
+    from repro_torch.launch import train
+    out = tmp_path / "metrics.json"
+    argv = ["--arch", ARCH, "--reduced", "--layers", "1", "--steps", "2",
+            "--batch", "2", "--seq", "16", "--device", "cpu", "--backend",
+            backend, "--metrics-out", str(out)]
+    if backend == "fleet":
+        argv += ["--fail-step", "1", "--fail-ids", "3", "--fleet-devices",
+                 "8"]
+    assert train.main(argv) == 0
+    rows = json.loads(out.read_text())
+    assert len(rows) == 2 and all(np.isfinite(r["loss"]) for r in rows)
+    if backend == "fleet":
+        assert all(r["fleet_verified"] for r in rows)
+        assert rows[1]["fleet_recovered"] > 0
+
+
+def test_serve_driver_runs_moe_on_cpu(capsys):
+    """``launch/serve.py --arch granite-moe-1b-a400m`` prefills and decodes
+    on the monolithic path, then serves the same prompts through the fleet
+    session (``--edge-plan``)."""
+    from repro_torch.launch import serve
+    argv = ["--arch", ARCH, "--device", "cpu", "--batch", "2",
+            "--prompt-len", "5", "--gen", "4", "--edge-plan", "8"]
+    assert serve.main(argv) == 0
+    out = capsys.readouterr().out
+    assert f"arch={ARCH}" in out and "edge serve executed" in out
