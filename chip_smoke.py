@@ -10,10 +10,13 @@ Phases, each printing JSON lines; any failed check exits non-zero:
 1. build   -- compile every CUDA kernel from ``src/repro_torch/csrc``
               (one ``nvcc`` per source, all started together).
 2. gemm    -- the band GEMM kernel against its plain version at the decode
-              shapes of llama3-8b and at bucket shapes of its forward, dA
-              and dW training GEMMs (bf16, and IEEE f32 with TF32 off); the
-              decode shapes timed beside the plain version, one
-              ``torch.matmul`` and their bound.
+              shapes of llama3-8b, at bucket shapes of its forward, dA
+              and dW training GEMMs, and off the tile grid and off TMA's
+              8-element alignment (bf16 on the wgmma/TMA body, and IEEE f32
+              with TF32 off on the FMA body; each bf16 call counted on the
+              wgmma body, with its aligned copies); two launches of each
+              split-K shape bitwise equal; the decode shapes timed beside
+              the plain version, one ``torch.matmul`` and their bound.
 3. paged   -- the paged decode kernel against its plain version (shuffled
               page tables, ragged lengths, a length-0 request), timed.
 4. flash   -- the flash-attention kernel against its plain version at the
@@ -73,7 +76,8 @@ Phases, each printing JSON lines; any failed check exits non-zero:
 13. bgemm  -- the batched block GEMM (the MoE experts' products) against
               its plain version, f32 and bf16, at every shape of a
               full-width granite-moe-1b-a400m training step (forward, dA,
-              dW) and decode step, and the plain block GEMM at the kernels
+              dW) and decode step, at two ragged G > 1 shapes (one off
+              TMA's alignment), and the plain block GEMM at the kernels
               benchmark's 512^3; each timed beside its plain version, one
               ``torch.bmm`` / ``torch.matmul`` and its bound, and the
               training and decode steps' launch sets summed.
@@ -94,9 +98,20 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               ``decode_step``; batched block GEMM launches counted around
               both, each held against the plain version.
 
+In ``full``, ``train_full``, ``rwkv_full`` and ``moe_full`` every bf16
+launch of the block GEMMs must have run the wgmma/TMA body
+(``block_gemm.tc_launches``) with no aligned copy.
+
 Then a ``kernels`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the result line.  ``--phases`` runs a
 subset (for bring-up); the result line needs all of them.
+
+One more phase runs only when named (``--phases build,split``): the
+band GEMM's bf16 body at each split count of the contraction, for the
+decode products of llama3-8b and granite-moe-1b-a400m, the LM head's
+training dA and a product that fills the card, each split held against
+the unsplit result and timed with the host's gaps hidden, beside the
+split rule's own count (``block_gemm.split_plan``) and ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -117,12 +132,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
           "full", "train_reduced", "train_full", "rwkv_reduced", "rwkv_full",
           "bgemm", "moe_reduced", "moe_full")
+EXTRA_PHASES = ("split",)        # run only when named
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # FLOP/s, f32 off-core
 # train_reduced: per-leaf relative L2 distance of the fleet's params from
 # the monolithic step's after 3 steps (f32 policy)
 TRAIN_PARAMS_L2_LIMIT = 2e-5
+# clock cycles of sleep per timed call that cover the host's enqueue of it
+# (about 0.3 ms at the H100's clock; a wrapper call takes under 0.1 ms)
+HOST_COVER_CYCLES = 600_000
 
 
 def emit(obj) -> None:
@@ -136,9 +155,14 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
                                  else "operations")
 
 
-def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
+def time_ms(fn, iters: int = 10, reps: int = 5,
+            hide_host: bool = False) -> float:
     """Median over ``reps`` of the mean device time of ``iters`` calls,
-    after warm-up (CUDA events)."""
+    after warm-up (CUDA events).  The events bracket the host's gaps
+    between calls too, which a call of a few microseconds of device work
+    can exceed; with ``hide_host`` a sleep kernel ahead of the start event
+    keeps the card busy while the host enqueues the calls, so the events
+    bracket the calls' device time alone."""
     import torch
     for _ in range(2):
         fn()
@@ -147,6 +171,8 @@ def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
     for _ in range(reps):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(HOST_COVER_CYCLES * iters)
         s.record()
         for _ in range(iters):
             fn()
@@ -170,17 +196,24 @@ def band_gemm_audit(verify: bool, entry: str = "block_gemm_batched_shared"):
     result against the plain version on the same operands (relative
     1e-5 of the largest output: both sides sum exact products in f32, in
     another order).  The plain calls launch no kernel, so they add
-    nothing to the launch count."""
+    nothing to the launch count.  ``by_dtype`` counts the launches by
+    operand type; ``by_body`` counts them by the body each launched, from
+    the wrapper's per-body counters around each call."""
     import torch
     from repro_torch.kernels import block_gemm as bg
     real, plain = getattr(bg, entry), getattr(bg, entry + "_plain")
     audit = {"shapes": [], "checked": 0, "max_abs_err": 0.0,
-             "max_rel_err": 0.0}
+             "max_rel_err": 0.0, "by_dtype": collections.Counter(),
+             "by_body": collections.Counter()}
 
     def audited(a, b):
+        n_tc, n_fma = bg.tc_launches, bg.fma_launches
         c = real(a, b)
-        audit["shapes"].append((tuple(a.shape), tuple(b.shape),
-                                str(a.dtype).rsplit(".", 1)[-1]))
+        audit["by_body"]["wgmma_bf16"] += bg.tc_launches - n_tc
+        audit["by_body"]["fma_f32"] += bg.fma_launches - n_fma
+        dt = str(a.dtype).rsplit(".", 1)[-1]
+        audit["shapes"].append((tuple(a.shape), tuple(b.shape), dt))
+        audit["by_dtype"][dt] += 1
         if verify:
             want = plain(a, b)
             err = float((c - want).abs().max())
@@ -211,7 +244,8 @@ def time_band_gemm_set(shapes, entry: str = "block_gemm_batched_shared"):
     """Device time of a recorded set of block GEMM launches (``entry`` as in
     :func:`band_gemm_audit`): each distinct (A, B, type) timed once on
     fresh operands of its shape (kernel, plain version, one
-    ``torch.matmul``, which is a batched product for a 3-d B) and weighted
+    ``torch.matmul``, which is a batched product for a 3-d B; kernel and
+    library also with the host's gaps hidden, ``device_ms``) and weighted
     by its count, beside the set's bound."""
     import torch
     from repro_torch.kernels import block_gemm as bg
@@ -219,8 +253,8 @@ def time_band_gemm_set(shapes, entry: str = "block_gemm_batched_shared"):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     tot = {"launches": len(shapes), "distinct": 0, "ms": 0.0,
-           "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
-           "ops_ms": 0.0}
+           "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
+           "library_device_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
     for (ash, bsh, dt), n in collections.Counter(shapes).items():
         dtype = getattr(torch, dt)
         G, m, k = ash
@@ -232,6 +266,10 @@ def time_band_gemm_set(shapes, entry: str = "block_gemm_batched_shared"):
         tot["plain_ms"] += n * time_ms(lambda: plain(a, b), iters=3, reps=3)
         tot["library_ms"] += n * time_ms(lambda: torch.matmul(a, b),
                                          iters=3, reps=3)
+        tot["device_ms"] += n * time_ms(lambda: kernel(a, b), iters=3,
+                                        reps=3, hide_host=True)
+        tot["library_device_ms"] += n * time_ms(
+            lambda: torch.matmul(a, b), iters=3, reps=3, hide_host=True)
         esz = a.element_size()
         tot["bytes_ms"] += n * (esz * (a.numel() + b.numel())
                                 + 4 * G * m * q) / PEAK_BW * 1e3
@@ -241,6 +279,40 @@ def time_band_gemm_set(shapes, entry: str = "block_gemm_batched_shared"):
     tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                        else "operations")
     return tot
+
+
+def reset_body_counts():
+    """Zero the block GEMMs' per-body counters (``tc_launches`` of the bf16
+    wgmma/TMA body, ``fma_launches`` of the f32 FMA body,
+    ``split_launches``, ``aligned_copies``)."""
+    from repro_torch.kernels import block_gemm as bg
+    bg.tc_launches = bg.fma_launches = bg.split_launches = 0
+    bg.aligned_copies = 0
+
+
+def body_counts(*audits):
+    """The launches the audits counted by body."""
+    return {body: sum(a["by_body"][body] for a in audits)
+            for body in ("wgmma_bf16", "fma_f32")}
+
+
+def check_bf16_body(what: str, *audits):
+    """Every bf16 launch the audits recorded went through the wgmma/TMA
+    body and every f32 one through the FMA body, the audits saw every
+    launch of either body since :func:`reset_body_counts`, and none needed
+    an aligned copy; returns the body counts."""
+    from repro_torch.kernels import block_gemm as bg
+    bf16 = sum(a["by_dtype"]["bfloat16"] for a in audits)
+    f32 = sum(a["by_dtype"]["float32"] for a in audits)
+    counts = {**body_counts(*audits), "split_k": bg.split_launches,
+              "aligned_copies": bg.aligned_copies}
+    check(counts["wgmma_bf16"] == bf16 == bg.tc_launches
+          and counts["fma_f32"] == f32 == bg.fma_launches
+          and bg.aligned_copies == 0,
+          f"{what}: {bf16} bf16 and {f32} f32 block GEMM launches, body "
+          f"counts {counts}, counters {bg.tc_launches} wgmma, "
+          f"{bg.fma_launches} FMA")
+    return counts
 
 
 # ------------------------------------------------------------------ phases --
@@ -277,10 +349,14 @@ def phase_gemm(cfg):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, step = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                      "device_ms": 0.0, "library_device_ms": 0.0,
                       "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                      "max_abs_err": 0.0}
+                      "max_abs_err": 0.0, "split_k_bitwise_repeats": 0}
     cases = [(1, 128, k, q, c) for k, q, c in decode_gemm_shapes(cfg)]
-    cases += [(3, 128, 4096, 4096, 0), (3, 100, 1000, 777, 0)]
+    # off the 128 tile grid; the last three also off TMA's 8-element
+    # alignment (n 777 and 5: B is copied; k 999: A is)
+    cases += [(3, 128, 4096, 4096, 0), (3, 100, 1000, 777, 0),
+              (2, 100, 999, 130, 0), (1, 37, 77, 5, 0)]
     # buckets the 16-device plans give the training GEMMs at batch 8 x 128
     # (G bands of padded height m): forward, dA (the LM head's contracts
     # over the 128256-word vocabulary), and dW contracting over the 1024
@@ -295,6 +371,8 @@ def phase_gemm(cfg):
         for name, dt in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
             a, b = a32.to(dt), b32.to(dt)
+            n_tc, n_fma, n_cp = (bg.tc_launches, bg.fma_launches,
+                                 bg.aligned_copies)
             got = bg.block_gemm_batched_shared(a, b)
             want = bg.block_gemm_batched_shared_plain(a, b)
             torch.cuda.synchronize()
@@ -304,6 +382,29 @@ def phase_gemm(cfg):
             check(rel <= 1e-5, f"band GEMM {name} {row}: rel err {rel:.3g}")
             row[f"{name}_max_abs_err"] = err
             row[f"{name}_rel_err"] = rel
+            # the type alone picks the body; a misaligned bf16 operand is
+            # copied once and the call still runs the wgmma/TMA body
+            bf16 = dt == torch.bfloat16
+            copies = sum(not bg.tma_ready(x) for x in (a, b)) if bf16 else 0
+            check(bg.tc_launches - n_tc == bf16
+                  and bg.fma_launches - n_fma == (not bf16)
+                  and bg.aligned_copies - n_cp == copies,
+                  f"band GEMM {name} {row}: {bg.tc_launches - n_tc} "
+                  f"wgmma and {bg.fma_launches - n_fma} FMA launches, "
+                  f"{bg.aligned_copies - n_cp} aligned copies (want "
+                  f"{copies})")
+            if bf16:
+                row["aligned_copies"] = copies
+                row["split_k_slices"] = len(bg.split_plan(G, m, q, k)) - 1
+                if row["split_k_slices"] > 1:
+                    # no atomics: a second launch gives the same bits
+                    again = bg.block_gemm_batched_shared(a, b)
+                    row["split_k_bitwise_repeat"] = bool(
+                        torch.equal(got, again))
+                    check(row["split_k_bitwise_repeat"],
+                          f"band GEMM split-K {row}: two launches differ")
+                    step["split_k_bitwise_repeats"] += 1
+                    del again
         if per_step or G == 3 and m == 128:
             a, b = a32.bfloat16(), b32.bfloat16()
             row["kernel_ms"] = time_ms(
@@ -311,13 +412,20 @@ def phase_gemm(cfg):
             row["plain_ms"] = time_ms(
                 lambda: bg.block_gemm_batched_shared_plain(a, b))
             row["library_ms"] = time_ms(lambda: torch.matmul(a, b))
+            row["device_ms"] = time_ms(
+                lambda: bg.block_gemm_batched_shared(a, b), hide_host=True)
+            row["library_device_ms"] = time_ms(lambda: torch.matmul(a, b),
+                                               hide_host=True)
             nbytes = 2 * (G * m * k + k * q) + 4 * G * m * q
             row["bound_ms"], row["bound_by"] = bound_ms(
                 nbytes, 2.0 * G * m * k * q, "bfloat16")
             if per_step:
                 for key, src in (("ms", "kernel_ms"),
                                  ("plain_ms", "plain_ms"),
-                                 ("library_ms", "library_ms")):
+                                 ("library_ms", "library_ms"),
+                                 ("device_ms", "device_ms"),
+                                 ("library_device_ms",
+                                  "library_device_ms")):
                     step[key] += per_step * row[src]
                 step["bytes_ms"] += per_step * nbytes / PEAK_BW * 1e3
                 step["ops_ms"] += per_step * (2.0 * G * m * k * q
@@ -739,10 +847,12 @@ def phase_full(cfg):
     dec.launches = 0
     dec.flash_decode_launches = 0
     fa.launches = 0
+    reset_body_counts()
     t0 = time.perf_counter()
-    first = sess.step()
-    first_logits = sess.last_logits.clone()
-    rep = sess.run(fail_ids=[3], fail_at_step=1)   # the session's step 2
+    with band_gemm_audit(verify=False) as audit:
+        first = sess.step()
+        first_logits = sess.last_logits.clone()
+        rep = sess.run(fail_ids=[3], fail_at_step=1)   # the session's step 2
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     # the prefills of the four admissions run the flash kernel, one
@@ -751,6 +861,7 @@ def phase_full(cfg):
     launches = {"band_gemm": bg.launches, "paged_decode": dec.launches,
                 "flash_attention": fa.launches,
                 "flash_decode": dec.flash_decode_launches}
+    bodies = check_bf16_body("full width", audit)
 
     # the first step against the port's monolithic decode on the same
     # inputs: per-request prefill of prompt[:-1] into an f32 cache (the
@@ -796,7 +907,7 @@ def phase_full(cfg):
         "paged_read_checks": sess.paged_read_checks,
         "first_step_logits_rel_l2": rel_l2,
         "first_step_argmax_equal": argmax_eq,
-        "launches": launches,
+        "launches": launches, "band_gemm_bodies": bodies,
     }
     emit(row)
     check(row["all_verified"], "full width: a step failed verification")
@@ -832,7 +943,7 @@ def phase_full(cfg):
           "corrected_rel_err": err, "exec_time_s": st.exec_time})
     check(not st.verified, "poisoned GEMM passed verification")
     check(err <= 1e-5, f"poisoned GEMM not corrected: rel err {err}")
-    return launches
+    return dict(launches, band_gemm_bodies=bodies)
 
 
 def _worst_rel(a, b, norm=None) -> float:
@@ -973,6 +1084,7 @@ def phase_train_full(cfg):
                             **chunks)
     bg.launches = 0
     fa.launches = 0
+    reset_body_counts()
     rows, reports, audits = [], [], []
     for step, batch in enumerate(batches):
         n_bg, n_fa = bg.launches, fa.launches
@@ -1008,7 +1120,8 @@ def phase_train_full(cfg):
             "predicted_makespan_s": rep.predicted_makespan})
         emit({"phase": "train_full_step", **rows[-1]})
     torch.cuda.synchronize()
-    launches = {"band_gemm": bg.launches, "flash_attention": fa.launches}
+    launches = {"band_gemm": bg.launches, "flash_attention": fa.launches,
+                "band_gemm_bodies": check_bf16_body("train_full", *audits)}
     first = reports[0]
     loss_rel = abs(first.loss - float(loss_m)) / abs(float(loss_m))
     gnorm_rel = abs(first.grad_norm - gnorm_m) / abs(gnorm_m)
@@ -1222,24 +1335,28 @@ def phase_rwkv_full(cfg):
     rows = []
     wkv.launches = 0
     bg.launches = 0
+    reset_body_counts()
     torch.cuda.reset_peak_memory_stats()
-    for step, batch in enumerate(batches):
-        n_w, n_b = wkv.launches, bg.launches
-        params, opt, met = sess.step(
-            params, opt, batch, fail_ids=[3] if step == 1 else (),
-            fail_at_gemm=3)
-        rep = met["fleet"]
-        rows.append({
-            "step": step, "loss": rep.loss, "grad_norm": rep.grad_norm,
-            "wall_s": rep.wall_time, "fleet_exec_s": rep.fleet_exec_time,
-            "n_gemms": rep.n_gemms, "n_tasks": rep.n_tasks,
-            "n_recovered": rep.n_recovered,
-            "failed_ids": list(rep.failed_ids), "verified": rep.verified,
-            "wkv_launches": wkv.launches - n_w,
-            "band_gemm_launches": bg.launches - n_b})
-        emit({"phase": "rwkv_full_step", **rows[-1]})
+    with band_gemm_audit(verify=False) as b1_audit:
+        for step, batch in enumerate(batches):
+            n_w, n_b = wkv.launches, bg.launches
+            params, opt, met = sess.step(
+                params, opt, batch, fail_ids=[3] if step == 1 else (),
+                fail_at_gemm=3)
+            rep = met["fleet"]
+            rows.append({
+                "step": step, "loss": rep.loss, "grad_norm": rep.grad_norm,
+                "wall_s": rep.wall_time, "fleet_exec_s": rep.fleet_exec_time,
+                "n_gemms": rep.n_gemms, "n_tasks": rep.n_tasks,
+                "n_recovered": rep.n_recovered,
+                "failed_ids": list(rep.failed_ids), "verified": rep.verified,
+                "wkv_launches": wkv.launches - n_w,
+                "band_gemm_launches": bg.launches - n_b})
+            emit({"phase": "rwkv_full_step", **rows[-1]})
     torch.cuda.synchronize()
-    train_launches = {"wkv6": wkv.launches, "band_gemm": bg.launches}
+    train_launches = {"wkv6": wkv.launches, "band_gemm": bg.launches,
+                      "band_gemm_bodies": check_bf16_body("rwkv_full",
+                                                          b1_audit)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del opt, met, batches
 
@@ -1314,11 +1431,13 @@ def moe_expert_shapes(cfg, n_tokens: int, backward: bool):
 def _set_sum(counts, rows, n_layers):
     """Per-launch times of ``rows`` summed over a step's launch set."""
     tot = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0}
+           "device_ms": 0.0, "library_device_ms": 0.0, "bytes_ms": 0.0,
+           "ops_ms": 0.0, "max_abs_err": 0.0}
     for shape, n in counts.items():
         row, n = rows[shape], n * n_layers
         tot["launches"] += n
-        for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "device_ms",
+                    "library_device_ms", "bytes_ms", "ops_ms"):
             tot[key] += n * row[key]
         tot["max_abs_err"] = max(tot["max_abs_err"],
                                  row["bfloat16_max_abs_err"])
@@ -1349,6 +1468,8 @@ def phase_bgemm(cfg):
         for name, dt in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
             a, b = a32.to(dt), b32.to(dt)
+            n_tc, n_fma, n_cp = (bg.tc_launches, bg.fma_launches,
+                                 bg.aligned_copies)
             got = bg.block_gemm_batched(a, b)
             want = bg.block_gemm_batched_plain(a, b)
             torch.cuda.synchronize()
@@ -1358,6 +1479,13 @@ def phase_bgemm(cfg):
             # both sides, in another order, and an f32 output, so the band
             # GEMM's bar holds for bf16 operands too
             check(rel <= 1e-5, f"bgemm {name} {ash}x{bsh}: rel err {rel:.3g}")
+            bf16 = dt == torch.bfloat16
+            check(bg.tc_launches - n_tc == bf16
+                  and bg.fma_launches - n_fma == (not bf16)
+                  and bg.aligned_copies == n_cp,
+                  f"bgemm {name} {ash}x{bsh}: {bg.tc_launches - n_tc} "
+                  f"wgmma and {bg.fma_launches - n_fma} FMA launches, "
+                  f"{bg.aligned_copies - n_cp} aligned copies")
             row[f"{name}_max_abs_err"] = err
             row[f"{name}_rel_err"] = rel
         # timed in bf16, the full-width path's type
@@ -1365,6 +1493,10 @@ def phase_bgemm(cfg):
         row["ms"] = time_ms(lambda: bg.block_gemm_batched(a, b))
         row["plain_ms"] = time_ms(lambda: bg.block_gemm_batched_plain(a, b))
         row["library_ms"] = time_ms(lambda: torch.bmm(a, b))
+        row["device_ms"] = time_ms(lambda: bg.block_gemm_batched(a, b),
+                                   hide_host=True)
+        row["library_device_ms"] = time_ms(lambda: torch.bmm(a, b),
+                                           hide_host=True)
         G, m, k = ash
         n = bsh[2]
         nbytes = 2 * (G * m * k + G * k * n) + 4 * G * m * n
@@ -1377,6 +1509,37 @@ def phase_bgemm(cfg):
         rows[(ash, bsh)] = row
         emit({"phase": "bgemm", **row})
         del a32, b32, a, b
+    # G > 1 off the tile grid (m 100 and 37, k 336 and 333); the second
+    # also off TMA's 8-element alignment (k 333, n 77: both bf16 operands
+    # are copied), checked, not timed
+    for ash, bsh in (((6, 100, 336), (6, 336, 200)),
+                     ((5, 37, 333), (5, 333, 77))):
+        a32 = torch.randn(ash, generator=gen, device=dev)
+        b32 = torch.randn(bsh, generator=gen, device=dev) / ash[2] ** 0.5
+        row = {"case": "ragged", "A": list(ash), "B": list(bsh)}
+        for name, dt in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+            a, b = a32.to(dt), b32.to(dt)
+            n_tc, n_fma, n_cp = (bg.tc_launches, bg.fma_launches,
+                                 bg.aligned_copies)
+            got = bg.block_gemm_batched(a, b)
+            want = bg.block_gemm_batched_plain(a, b)
+            torch.cuda.synchronize()
+            rel = float((got - want).abs().max() / want.abs().max())
+            bf16 = dt == torch.bfloat16
+            copies = sum(not bg.tma_ready(x) for x in (a, b)) if bf16 else 0
+            check(rel <= 1e-5 and bg.tc_launches - n_tc == bf16
+                  and bg.fma_launches - n_fma == (not bf16)
+                  and bg.aligned_copies - n_cp == copies,
+                  f"bgemm {name} {ash}x{bsh}: rel err {rel:.3g}, "
+                  f"{bg.tc_launches - n_tc} wgmma and "
+                  f"{bg.fma_launches - n_fma} FMA launches, "
+                  f"{bg.aligned_copies - n_cp} aligned copies")
+            row[f"{name}_rel_err"] = rel
+            row[f"{name}_aligned_copies"] = copies
+        emit({"phase": "bgemm", **row})
+        del a32, b32, a, b
+
     out = {"train_step": _set_sum(train, rows, cfg.n_layers),
            "decode_step": _set_sum(decode, rows, cfg.n_layers),
            "train_shapes": train}
@@ -1388,21 +1551,32 @@ def phase_bgemm(cfg):
     a = torch.randn((512, 512), generator=gen, device=dev)
     b = torch.randn((512, 512), generator=gen, device=dev)
     bg.block_gemm_launches = 0
+    reset_body_counts()
     got = ops.block_gemm(a, b)
     torch.cuda.synchronize()
     launches = bg.block_gemm_launches
+    bodies = {"wgmma_bf16": bg.tc_launches, "fma_f32": bg.fma_launches}
     want = bg.block_gemm_plain(a, b)
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
-    check(launches == 1 and rel <= 1e-5,
-          f"block_gemm 512^3 f32: {launches} launches, rel err {rel:.3g}")
+    check(launches == 1 and bodies == {"wgmma_bf16": 0, "fma_f32": 1}
+          and rel <= 1e-5, f"block_gemm 512^3 f32: {launches} launches, "
+          f"bodies {bodies}, rel err {rel:.3g}")
+    # and once in bf16, the wgmma/TMA body, with no aligned copy
     ab, bb = a.bfloat16(), b.bfloat16()
-    rel16 = float((bg.block_gemm(ab, bb) - bg.block_gemm_plain(ab, bb))
-                  .abs().max() / bg.block_gemm_plain(ab, bb).abs().max())
-    check(rel16 <= 1e-5, f"block_gemm 512^3 bf16: rel err {rel16:.3g}")
+    reset_body_counts()
+    got16 = bg.block_gemm(ab, bb)
+    bodies16 = {"wgmma_bf16": bg.tc_launches, "fma_f32": bg.fma_launches}
+    want16 = bg.block_gemm_plain(ab, bb)
+    rel16 = float((got16 - want16).abs().max() / want16.abs().max())
+    check(bodies16 == {"wgmma_bf16": 1, "fma_f32": 0}
+          and bg.aligned_copies == 0 and rel16 <= 1e-5,
+          f"block_gemm 512^3 bf16: bodies {bodies16}, "
+          f"{bg.aligned_copies} aligned copies, rel err {rel16:.3g}")
     row = {"m": 512, "k": 512, "n": 512, "dtype": "float32",
            "launches": launches, "max_abs_err": err, "rel_err": rel,
            "bfloat16_rel_err": rel16,
+           "launches_by_body": {b: bodies[b] + bodies16[b] for b in bodies},
            "ms": time_ms(lambda: ops.block_gemm(a, b), iters=20),
            "plain_ms": time_ms(lambda: bg.block_gemm_plain(a, b), iters=20),
            "library_ms": time_ms(lambda: torch.matmul(a, b), iters=20)}
@@ -1411,6 +1585,52 @@ def phase_bgemm(cfg):
     emit({"phase": "bgemm", "case": "block_gemm", **row})
     out["block_gemm"] = row
     return out
+
+
+# (G, m, k, n, per-g B): llama3-8b decode q/o, k/v, gate/up, down and a
+# 3-band q; the LM head's training dA; granite's expert decode products;
+# llama's training forward (a full grid)
+SPLIT_SHAPES = ((1, 128, 4096, 4096, False), (1, 128, 4096, 1024, False),
+                (1, 128, 4096, 14336, False), (1, 128, 14336, 4096, False),
+                (3, 128, 4096, 4096, False), (1, 512, 128256, 4096, False),
+                (32, 4, 1024, 512, True), (32, 4, 512, 1024, True),
+                (1, 1024, 4096, 14336, False))
+SPLIT_COUNTS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 16)
+
+
+def phase_split():
+    """Device time of the bf16 body at each split count of the
+    contraction (at most one slice per KSPAN span), beside the rule's own
+    count and one ``torch.matmul``; every split held against the unsplit
+    result (1e-5 relative)."""
+    import torch
+    from repro_torch.kernels import block_gemm as bg
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for G, m, k, n, per_g in SPLIT_SHAPES:
+        a = torch.randn((G, m, k), generator=gen, device=dev).bfloat16()
+        b = (torch.randn((G, k, n) if per_g else (k, n), generator=gen,
+                         device=dev) / k ** 0.5).bfloat16()
+        entry, fn = (("block_gemm_batched", bg.block_gemm_batched) if per_g
+                     else ("band_gemm", bg.block_gemm_batched_shared))
+        c = torch.empty((G, m, n), dtype=torch.float32, device=dev)
+        row = {"G": G, "m": m, "k": k, "n": n, "per_g_b": per_g,
+               "tiles": G * -(-m // bg.TILE) * -(-n // bg.TILE),
+               "rule_slices": len(bg.split_plan(G, m, n, k)) - 1,
+               "ms_by_slices": {}}
+        want = torch.empty_like(c)
+        bg._launch(entry, a, b, want, slices=1)
+        for S in (x for x in SPLIT_COUNTS if x <= -(-k // bg.KSPAN)):
+            bg._launch(entry, a, b, c, slices=S)
+            rel = float((c - want).abs().max() / want.abs().max())
+            check(rel <= 1e-5, f"split {row}: {S} slices, rel err {rel:.3g}")
+            row["ms_by_slices"][S] = time_ms(
+                lambda: bg._launch(entry, a, b, c, slices=S), hide_host=True)
+        row["rule_ms"] = time_ms(lambda: fn(a, b), hide_host=True)
+        row["library_ms"] = time_ms(lambda: torch.matmul(a, b),
+                                    hide_host=True)
+        emit({"phase": "split", **row})
+        del a, b, c, want
 
 
 @contextlib.contextmanager
@@ -1625,19 +1845,22 @@ def phase_moe_full(cfg):
         warnings.simplefilter("ignore", UserWarning)      # PS-local GEMMs
         sess = rt.train_session(opt_cfg, backend="torch",
                                 dtype_policy="bf16", **chunks)
-    rows, audits = [], []
+    rows, audits, b1_audits = [], [], []
     bg.batched_launches = 0
     bg.launches = 0
+    reset_body_counts()
     torch.cuda.reset_peak_memory_stats()
     for step, batch in enumerate(batches):
         n_b2, n_b1 = bg.batched_launches, bg.launches
         # 22 forward fleet GEMMs per step: GEMM 30 is in the backward
         with routing_log() as routes, band_gemm_audit(
-                verify=True, entry="block_gemm_batched") as audit:
+                verify=True, entry="block_gemm_batched") as audit, \
+                band_gemm_audit(verify=False) as b1_audit:
             params, opt, met = sess.step(
                 params, opt, batch, fail_ids=[3] if step == 1 else (),
                 fail_at_gemm=30)
         audits.append(audit)
+        b1_audits.append(b1_audit)
         if step == 0:
             flip = routing_flip_share(mono_routes, routes, cfg.n_experts)
         rep = met["fleet"]
@@ -1656,6 +1879,7 @@ def phase_moe_full(cfg):
         emit({"phase": "moe_full_step", **rows[-1]})
     torch.cuda.synchronize()
     train_b2 = bg.batched_launches
+    train_bodies = check_bf16_body("moe_full training", *audits, *b1_audits)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     loss_rel = abs(rows[0]["loss"] - float(loss_m)) / abs(float(loss_m))
     gnorm_rel = abs(rows[0]["grad_norm"] - gnorm_m) / abs(gnorm_m)
@@ -1679,8 +1903,10 @@ def phase_moe_full(cfg):
     for p in prompts:
         serve.submit(p, max_new=n_gen)
     n_b2 = bg.batched_launches
+    reset_body_counts()
     t0 = time.perf_counter()
-    with band_gemm_audit(verify=True, entry="block_gemm_batched") as saudit:
+    with band_gemm_audit(verify=True, entry="block_gemm_batched") as saudit, \
+            band_gemm_audit(verify=False) as sb1_audit:
         with routing_log() as serve_routes:
             first = serve.step()
         first_logits = serve.last_logits.clone()
@@ -1688,6 +1914,7 @@ def phase_moe_full(cfg):
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
     serve_b2 = bg.batched_launches - n_b2
+    serve_bodies = check_bf16_body("moe_full serving", saudit, sb1_audit)
 
     # the first decode step against the monolithic path on the same
     # inputs: per-request prefill of prompt[:-1] (the session's own
@@ -1741,6 +1968,11 @@ def phase_moe_full(cfg):
            "first_step_routing_flip_share": flip,
            "max_memory_allocated_gb": peak_gb,
            "bgemm_launches_training": train_b2,
+           "block_gemm_bodies_training": train_bodies,
+           "block_gemm_bodies_serving": serve_bodies,
+           "bgemm_bf16_launches_training": sum(
+               a["by_dtype"]["bfloat16"] for a in audits),
+           "bgemm_bf16_launches_serving": saudit["by_dtype"]["bfloat16"],
            "bgemm_step_shapes_as_timed": step_shapes == want_shapes,
            "serve_s": t_serve, "n_steps": n_steps, "n_tokens":
                srep.n_tokens, "tokens_per_s": srep.tokens_per_sec,
@@ -1793,7 +2025,8 @@ def phase_moe_full(cfg):
           f"{rel_l2} against the monolithic decode with the same routing "
           f"{cmp}")
     return {"training": train_b2, "serving": serve_b2,
-            "max_abs_err": max(a["max_abs_err"] for a in audits + [saudit])}
+            "max_abs_err": max(a["max_abs_err"] for a in audits + [saudit]),
+            "bodies": body_counts(*audits, saudit)}
 
 
 def main(argv=None) -> int:
@@ -1801,7 +2034,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
 
@@ -1836,6 +2069,8 @@ def main(argv=None) -> int:
     if "moe_reduced" in phases:
         phase_moe_reduced()
     moe = phase_moe_full(moe_full) if "moe_full" in phases else None
+    if "split" in phases:
+        phase_split()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1847,25 +2082,30 @@ def main(argv=None) -> int:
                                decode["timed"]["cache32k_bfloat16"])
         timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")
+        # the block GEMM sets with the host's gaps between calls hidden
+        device = ("device_ms", "library_device_ms")
         b2_train, b2_dec, b3 = (bgemm["train_step"], bgemm["decode_step"],
                                 bgemm["block_gemm"])
         kernels = [
             {"name": "band_gemm", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
              "replaces": "src/repro/kernels/block_gemm.py:59",
+             "redesigned": "bf16: wgmma/TMA",
              "launches": train_launches["band_gemm"],
              "launches_serving": launches["band_gemm"],
+             "launches_by_body": train_launches["band_gemm_bodies"],
+             "launches_by_body_serving": launches["band_gemm_bodies"],
+             "split_k_bitwise_repeats": gemm["split_k_bitwise_repeats"],
              "ms_of": f"the {gset['launches']} launches of the first "
                       "full-width training step",
              "max_abs_err": gset["max_abs_err"], "ms": gset["ms"],
              "plain_ms": gset["plain_ms"], "bound_ms": gset["bound_ms"],
              "bound_by": gset["bound_by"],
              "library_ms": gset["library_ms"],
+             **{k: gset[k] for k in device},
              "serving_step": {
                  "ms_of": "the 29 launches of one full-width decode step",
-                 **{k: gemm[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")}}},
+                 **{k: gemm[k] for k in timed + device}}},
             {"name": "paged_decode", "route": "cuda",
              "source": "src/repro_torch/csrc/paged_decode.cu",
              "replaces": "src/repro/kernels/decode_attention.py:97",
@@ -1909,22 +2149,26 @@ def main(argv=None) -> int:
             {"name": "block_gemm_batched", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
              "replaces": "src/repro/kernels/block_gemm.py:92",
+             "redesigned": "bf16: wgmma/TMA",
              "launches": moe["training"],
              "launches_serving": moe["serving"],
+             "launches_by_body": moe["bodies"],
              "ms_of": f"the {b2_train['launches']} launches of one "
                       "full-width granite-moe-1b-a400m training step (bf16)",
-             **{k: b2_train[k] for k in timed},
+             **{k: b2_train[k] for k in timed + device},
              "max_abs_err_on_path": moe["max_abs_err"],
              "decode_step": {
                  "ms_of": f"the {b2_dec['launches']} launches of one "
                           "full-width decode step (4 slots)",
-                 **{k: b2_dec[k] for k in timed}}},
+                 **{k: b2_dec[k] for k in timed + device}}},
             {"name": "block_gemm", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
              "replaces": "src/repro/kernels/block_gemm.py:125",
              "launches": b3["launches"],
+             "launches_by_body": b3["launches_by_body"],
              "ms_of": "one launch of ops.block_gemm at 512 x 512 x 512 f32 "
-                      "(benchmarks/kernels_bench.py's shape)",
+                      "(benchmarks/kernels_bench.py's shape); "
+                      "launches_by_body counts it and one bf16 call",
              **{k: b3[k] for k in timed}},
         ]
         emit({"kernels": kernels})

@@ -207,6 +207,190 @@ def test_block_gemm_kernel_on_card(cuda, dtype):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+# ------------------------------------------- the bf16 body's host-side plan --
+
+# (G, m, k, n) of the bf16 launches on the full-width paths: llama3-8b's
+# decode products (one band of 128 padded rows), its training buckets
+# (forward, dA with the LM head's k = 128256, dW), and granite's experts
+SPLIT_SHAPES = {
+    "decode_q_o": (1, 128, 4096, 4096), "decode_k_v": (1, 128, 4096, 1024),
+    "decode_gate_up": (1, 128, 4096, 14336),
+    "decode_down": (1, 128, 14336, 4096),
+    "decode_lm_head": (1, 128, 4096, 128256),
+    "train_fwd": (1, 1024, 4096, 14336), "train_dA": (2, 512, 14336, 4096),
+    "train_lm_head_dA": (1, 512, 128256, 4096),
+    "train_dW": (4, 1920, 1024, 4096), "train_lm_head_dW": (1, 4096, 512,
+                                                            128256),
+    "expert_up": (32, 320, 1024, 512), "expert_down": (32, 320, 512, 1024),
+    "expert_dW": (32, 1024, 320, 512), "expert_decode": (32, 4, 1024, 512),
+    "ragged": (3, 100, 1000, 777), "short_k": (2, 7, 100, 30),
+}
+
+
+def _check_bounds(bounds, k):
+    """The slices cover [0, k) in order, and each but the last is a whole
+    number of KSPAN spans (each partial restarts on a span boundary), as
+    the kernel's launch demands."""
+    assert bounds[0] == 0 and bounds[-1] == k
+    assert all(k1 > k0 for k0, k1 in zip(bounds, bounds[1:]))
+    assert all(x % bg.KSPAN == 0 for x in bounds[:-1])
+    assert len(bounds) - 1 <= bg.MAX_SLICES
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_SHAPES))
+def test_split_plan_properties(name):
+    """The bounds the wrapper passes to the kernel: the slices cover [0, k)
+    in order; each but the last is a whole number of KSPAN spans; a grid
+    of more than a third of the 132 SMs is not split; a smaller one (the
+    decode products) is split until S x tiles is the multiple of tiles
+    nearest half the SMs -- one wave, never a second -- or every slice is
+    one span."""
+    G, m, k, n = SPLIT_SHAPES[name]
+    bounds = bg.split_plan(G, m, n, k)
+    tiles = G * -(-m // bg.TILE) * -(-n // bg.TILE)
+    spans = -(-k // bg.KSPAN)
+    _check_bounds(bounds, k)
+    S = len(bounds) - 1
+    assert 1 <= S <= spans
+    if 3 * tiles > bg.SMS:
+        assert S == 1
+    else:
+        assert tiles * S <= bg.SMS
+        assert S == spans or abs(tiles * S - bg.SMS / 2) <= tiles / 2
+    if name.startswith("decode") and tiles < bg.SMS // 3:
+        assert S > 1
+
+
+@pytest.mark.parametrize("slices", [1, 3, 7, 16, 200])
+def test_split_plan_forced(slices):
+    """A forced number of slices (the split sweep's) keeps the bounds'
+    rules, capped at one slice per span and at MAX_SLICES."""
+    for k in (1, 255, 256, 1000, 4096, 14336):
+        bounds = bg.split_plan(1, 1024, 14336, k, slices)
+        _check_bounds(bounds, k)
+        assert len(bounds) - 1 == min(slices, -(-k // bg.KSPAN),
+                                      bg.MAX_SLICES)
+
+
+@pytest.mark.parametrize("G,m,k,n", [(3, 100, 1000, 777), (2, 5, 999, 130),
+                                     (1, 7, 13, 1), (2, 9, 64, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_aligned_copy_is_exact(G, m, k, n, dtype, rng):
+    """The plain product of the zero-padded operands, cropped, equals the
+    plain product of the originals bit for bit (small integers: every sum
+    is exact, in any order), and the view the wrapper hands to TMA holds
+    the same values at 16-byte-aligned strides."""
+    dt = TORCH_DT[dtype]
+    a = torch.from_numpy(rng.integers(-4, 5, (G, m, k))
+                         .astype(np.float32)).to(dt)
+    b = torch.from_numpy(rng.integers(-4, 5, (k, n))
+                         .astype(np.float32)).to(dt)
+    ap, bp = bg.pad_inner(a), bg.pad_inner(b)
+    per = 16 // a.element_size()
+    assert ap.shape[-1] % per == 0 and bp.shape[-1] % per == 0
+    assert bool((ap[..., k:] == 0).all()) and bool((bp[..., n:] == 0).all())
+    bp = torch.nn.functional.pad(bp, (0, 0, 0, ap.shape[-1] - k))
+    want = bg.block_gemm_batched_shared_plain(a, b)
+    got = bg.block_gemm_batched_shared_plain(ap, bp)[..., :n]
+    assert torch.equal(got, want)
+    for x in (a, b):
+        y = bg.tma_aligned(x)
+        assert bg.tma_ready(y) and torch.equal(y, x)
+        assert (y is x) == bg.tma_ready(x)
+        assert all(st * y.element_size() % 16 == 0
+                   for st, sz in zip(y.stride()[:-1], y.shape[:-1])
+                   if sz > 1)
+
+
+def test_tma_ready_rules():
+    """TMA reads a unit-stride inner dimension, a 16-byte-aligned base, and
+    16-byte-aligned outer strides that clear the dimensions inside them."""
+    x = torch.zeros((4, 64, 256), dtype=torch.bfloat16)
+    assert bg.tma_ready(x)
+    assert bg.tma_ready(x[1:3, 8:40])                 # band views
+    assert bg.tma_ready(x[:, :, :100])                # ragged, aligned rows
+    assert not bg.tma_ready(x[:, :, 4:])              # base 8 bytes off
+    assert not bg.tma_ready(x[:, :, ::2])             # inner stride 2
+    assert not bg.tma_ready(x.transpose(1, 2))
+    assert not bg.tma_ready(torch.zeros((10, 777), dtype=torch.bfloat16))
+    assert bg.tma_ready(torch.zeros((10, 776), dtype=torch.bfloat16))
+    assert bg.tma_ready(torch.zeros((1, 1, 5), dtype=torch.bfloat16))
+    assert not bg.tma_ready(x[:1].expand(4, 64, 256))  # batch stride 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,m,k,n,batched", [
+    (3, 100, 1000, 777, False), (2, 100, 999, 130, False),
+    (1, 37, 77, 5, False), (1, 128, 4096, 1024, False),
+    (5, 100, 333, 77, True), (6, 100, 336, 200, True),
+    (32, 4, 1024, 512, True)])
+def test_bf16_body_ragged_on_card(cuda, G, m, k, n, batched):
+    """The wgmma/TMA body against its plain version off the tile grid and
+    off TMA's alignment, with a shared and a per-g B: one launch of the
+    bf16 body, one aligned copy per misaligned operand, 1e-5 relative."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((G, m, k), generator=gen, device=cuda).bfloat16()
+    bsh = (G, k, n) if batched else (k, n)
+    b = torch.randn(bsh, generator=gen, device=cuda).bfloat16()
+    fn, plain = ((bg.block_gemm_batched, bg.block_gemm_batched_plain)
+                 if batched else (bg.block_gemm_batched_shared,
+                                  bg.block_gemm_batched_shared_plain))
+    n_tc, n_cp = bg.tc_launches, bg.aligned_copies
+    copies = sum(not bg.tma_ready(x) for x in (a, b))
+    got = fn(a, b)
+    want = plain(a, b)
+    assert bg.tc_launches == n_tc + 1
+    assert bg.aligned_copies == n_cp + copies
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,m,k,n", [(1, 128, 64, 128), (1, 128, 16, 128),
+                                     (1, 64, 64, 64), (2, 128, 512, 256)])
+def test_bf16_body_exact_on_card(cuda, G, m, k, n):
+    """Small integers make every product and sum exact in f32, in any
+    order: the body must equal its plain version bit for bit, so a
+    misplaced element of a swizzled tile shows as a wrong value."""
+    ia = torch.arange(G * m * k, device=cuda).reshape(G, m, k)
+    ib = torch.arange(k * n, device=cuda).reshape(k, n)
+    a = ((ia * 7 + 3) % 17 - 8).bfloat16()
+    b = ((ib * 5 + 1) % 13 - 6).bfloat16()
+    assert torch.equal(bg.block_gemm_batched_shared(a, b),
+                       bg.block_gemm_batched_shared_plain(a, b))
+
+
+@pytest.mark.gpu
+def test_bf16_body_long_contraction_on_card(cuda):
+    """k = 128256, the LM head's dA: the two-level sum keeps the kernel
+    within 1e-5 of the plain version (one running f32 sum drifted to
+    3e-5)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    k = 128256
+    a = torch.randn((1, 512, k), generator=gen, device=cuda).bfloat16()
+    b = (torch.randn((k, 1024), generator=gen, device=cuda)
+         / k ** 0.5).bfloat16()
+    got = bg.block_gemm_batched_shared(a, b)
+    want = bg.block_gemm_batched_shared_plain(a, b)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,m,k,n", [(1, 128, 4096, 1024),
+                                     (1, 128, 14336, 4096)])
+def test_split_k_repeatable_on_card(cuda, G, m, k, n):
+    """A split contraction sums its slices in order, without atomics: two
+    launches on the same operands give the same bits."""
+    assert len(bg.split_plan(G, m, n, k)) > 2
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn((G, m, k), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
+    n_split = bg.split_launches
+    first = bg.block_gemm_batched_shared(a, b)
+    again = bg.block_gemm_batched_shared(a, b)
+    assert bg.split_launches == n_split + 2
+    assert torch.equal(first, again)
+
+
 # ------------------------------------------------------------- paged decode --
 
 def _paged_inputs(rng, page, H, K, D, lengths):
