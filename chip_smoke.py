@@ -13,16 +13,19 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               shapes of llama3-8b, at bucket shapes of its forward, dA
               and dW training GEMMs, and off the tile grid and off TMA's
               8-element alignment (bf16 on the wgmma/TMA body, and IEEE f32
-              with TF32 off on the FMA body; each bf16 call counted on the
-              wgmma body, with its aligned copies); two launches of each
-              split-K shape bitwise equal; the decode shapes timed beside
-              the plain version, one ``torch.matmul`` and their bound.
+              with TF32 off on the FMA body; each call counted on its
+              body, the bf16 ones with their aligned copies); two
+              launches of each split-K shape, bf16 and f32, bitwise equal;
+              the decode shapes timed beside the plain version, one
+              ``torch.matmul`` and their bound.
 3. paged   -- the paged decode kernel against its plain version (shuffled
               page tables, ragged lengths, a length-0 request), timed.
 4. flash   -- the flash-attention kernel against its plain version at the
-              training shape, a serving prefill, a sliding window and a
-              wide GQA case, in f32 and bf16; timed at the training shape
-              beside the plain version and ``scaled_dot_product_attention``.
+              training shape, a serving prefill, a sliding window, a
+              wide GQA case and a head dim off the kernel's grid, in f32
+              and bf16; timed at the training shape beside the plain
+              version and ``scaled_dot_product_attention``, also with the
+              host's gaps hidden.
 5. decode  -- the contiguous-cache flash-decode kernel against its plain
               version (and, in f32, the reference's ``decode_attention``)
               at the serving shape, with ragged per-request lengths, an
@@ -51,7 +54,9 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               monolithic step: loss, grad_norm and moments within 1e-4
               relative, params within 2e-5 in L2, which the same run
               under the bf16 policy must fail; every band GEMM launch
-              (f32) held against the plain version on its own operands.
+              (f32) held against the plain version on its own operands
+              and counted on the FMA body; the first step's launch set
+              timed (as in rwkv_reduced and moe_reduced).
 10. train_full -- the training path at full width: llama3-8b (4 layers,
               bf16 params and policy), batch 8 x 128, 16-device fleet, 3
               fleet steps (forward, dA and dW GEMMs on the band GEMM
@@ -80,7 +85,10 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               TMA's alignment), and the plain block GEMM at the kernels
               benchmark's 512^3; each timed beside its plain version, one
               ``torch.bmm`` / ``torch.matmul`` and its bound, and the
-              training and decode steps' launch sets summed.
+              training and decode steps' launch sets summed; the decode
+              step's products also as it runs them (f32 A against the
+              bf16 weights as stored, bitwise equal to the launch on an
+              f32 copy), beside ``torch.bmm`` in f32.
 14. moe_reduced -- fleet training of ``granite-moe-1b-a400m.reduced()``
               under the f32 policy for 3 steps with a device failure
               mid-backward, against the monolithic step (loss, grad_norm,
@@ -96,22 +104,36 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               slots, a failure at step 2, the paged read checked every
               step, the first decode step against the monolithic
               ``decode_step``; batched block GEMM launches counted around
-              both, each held against the plain version.
+              both, each held against the plain version; every decode
+              step's expert product reads the bf16 weights as stored (f32
+              x bf16, no promoted copy), bitwise equal to the launch on
+              an f32 copy.
 
 In ``full``, ``train_full``, ``rwkv_full`` and ``moe_full`` every bf16
 launch of the block GEMMs must have run the wgmma/TMA body
-(``block_gemm.tc_launches``) with no aligned copy.
+(``block_gemm.tc_launches``) with no aligned copy, and every f32 one the
+FMA body (``block_gemm.fma_launches``); in the f32-policy cells every
+launch ran the body its type picks.
 
 Then a ``kernels`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the result line.  ``--phases`` runs a
 subset (for bring-up); the result line needs all of them.
 
-One more phase runs only when named (``--phases build,split``): the
+Two more phases run only when named.  ``--phases build,split``: the
 band GEMM's bf16 body at each split count of the contraction, for the
 decode products of llama3-8b and granite-moe-1b-a400m, the LM head's
 training dA and a product that fills the card, each split held against
 the unsplit result and timed with the host's gaps hidden, beside the
-split rule's own count (``block_gemm.split_plan``) and ``torch.matmul``.
+split rule's own count (``block_gemm.split_plan``) and ``torch.matmul``;
+the f32 body at each tiling and split count for 512^3, the MoE decode
+products (f32 A, bf16 B), f32-policy cells' buckets and two full-width
+f32 buckets, beside the rule's pick (``block_gemm.fma_plan``); flash
+attention's block shapes at the training shape.  ``--phases
+build,f32sets``: the f32 kernels' sets as the paths run them, through
+calls every tree of the port offers; with ``--src DIR`` the script
+imports ``repro_torch`` from DIR (the ``src`` of another tree, e.g. the
+parent unpacked with ``git archive`` into the ignored ``build/``), which
+builds its own sources, so two trees are timed in one call.
 """
 from __future__ import annotations
 
@@ -132,7 +154,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
           "full", "train_reduced", "train_full", "rwkv_reduced", "rwkv_full",
           "bgemm", "moe_reduced", "moe_full")
-EXTRA_PHASES = ("split",)        # run only when named
+EXTRA_PHASES = ("split", "f32sets")   # run only when named
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # FLOP/s, f32 off-core
@@ -156,13 +178,14 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 
 def time_ms(fn, iters: int = 10, reps: int = 5,
-            hide_host: bool = False) -> float:
+            hide_host: bool = False, launches: int = 1) -> float:
     """Median over ``reps`` of the mean device time of ``iters`` calls,
     after warm-up (CUDA events).  The events bracket the host's gaps
     between calls too, which a call of a few microseconds of device work
     can exceed; with ``hide_host`` a sleep kernel ahead of the start event
-    keeps the card busy while the host enqueues the calls, so the events
-    bracket the calls' device time alone."""
+    keeps the card busy while the host enqueues the calls (``fn`` makes
+    ``launches`` wrapper calls), so the events bracket the calls' device
+    time alone."""
     import torch
     for _ in range(2):
         fn()
@@ -172,7 +195,7 @@ def time_ms(fn, iters: int = 10, reps: int = 5,
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         if hide_host:
-            torch.cuda._sleep(HOST_COVER_CYCLES * iters)
+            torch.cuda._sleep(HOST_COVER_CYCLES * iters * launches)
         s.record()
         for _ in range(iters):
             fn()
@@ -188,6 +211,11 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+BLOCK_GEMM_COUNTERS = ("launches", "batched_launches", "block_gemm_launches",
+                       "tc_launches", "fma_launches", "split_launches",
+                       "fma_split_launches", "aligned_copies")
+
+
 @contextlib.contextmanager
 def band_gemm_audit(verify: bool, entry: str = "block_gemm_batched_shared"):
     """Wraps a block GEMM wrapper (``entry`` of ``kernels.block_gemm``: the
@@ -196,15 +224,19 @@ def band_gemm_audit(verify: bool, entry: str = "block_gemm_batched_shared"):
     result against the plain version on the same operands (relative
     1e-5 of the largest output: both sides sum exact products in f32, in
     another order).  The plain calls launch no kernel, so they add
-    nothing to the launch count.  ``by_dtype`` counts the launches by
-    operand type; ``by_body`` counts them by the body each launched, from
-    the wrapper's per-body counters around each call."""
+    nothing to the launch count.  ``by_dtype`` counts the launches by A's
+    type, ``mixed`` those of an f32 A against a bf16 B; ``by_body`` counts
+    them by the body each launched, from the wrapper's per-body counters
+    around each call.  With ``verify`` a mixed launch must also equal, bit
+    for bit, the launch on B converted to f32, whose launch the counters
+    then forget."""
     import torch
     from repro_torch.kernels import block_gemm as bg
     real, plain = getattr(bg, entry), getattr(bg, entry + "_plain")
     audit = {"shapes": [], "checked": 0, "max_abs_err": 0.0,
              "max_rel_err": 0.0, "by_dtype": collections.Counter(),
-             "by_body": collections.Counter()}
+             "by_body": collections.Counter(), "mixed": 0,
+             "mixed_bitwise_equal_promoted": 0}
 
     def audited(a, b):
         n_tc, n_fma = bg.tc_launches, bg.fma_launches
@@ -214,6 +246,18 @@ def band_gemm_audit(verify: bool, entry: str = "block_gemm_batched_shared"):
         dt = str(a.dtype).rsplit(".", 1)[-1]
         audit["shapes"].append((tuple(a.shape), tuple(b.shape), dt))
         audit["by_dtype"][dt] += 1
+        mixed = a.dtype != b.dtype
+        audit["mixed"] += mixed
+        if verify and mixed:
+            saved = {n: getattr(bg, n) for n in BLOCK_GEMM_COUNTERS}
+            promoted = real(a, b.float())
+            for n, v in saved.items():
+                setattr(bg, n, v)
+            check(torch.equal(c, promoted), f"{entry} launch "
+                  f"{audit['shapes'][-1]}: f32 x bf16 differs from the "
+                  "launch on the f32 copy of B")
+            audit["mixed_bitwise_equal_promoted"] += 1
+            del promoted
         if verify:
             want = plain(a, b)
             err = float((c - want).abs().max())
@@ -283,11 +327,11 @@ def time_band_gemm_set(shapes, entry: str = "block_gemm_batched_shared"):
 
 def reset_body_counts():
     """Zero the block GEMMs' per-body counters (``tc_launches`` of the bf16
-    wgmma/TMA body, ``fma_launches`` of the f32 FMA body,
-    ``split_launches``, ``aligned_copies``)."""
+    wgmma/TMA body, ``fma_launches`` of the f32 FMA body, their split
+    launches, ``aligned_copies``)."""
     from repro_torch.kernels import block_gemm as bg
     bg.tc_launches = bg.fma_launches = bg.split_launches = 0
-    bg.aligned_copies = 0
+    bg.fma_split_launches = bg.aligned_copies = 0
 
 
 def body_counts(*audits):
@@ -296,22 +340,31 @@ def body_counts(*audits):
             for body in ("wgmma_bf16", "fma_f32")}
 
 
+def check_bodies(what: str, *audits):
+    """Every launch the audits recorded ran the body its A's type picks
+    (bf16: the wgmma/TMA body; f32, against an f32 or a bf16 B: the FMA
+    body); returns the body counts."""
+    counts = body_counts(*audits)
+    by_type = {"wgmma_bf16": sum(a["by_dtype"]["bfloat16"] for a in audits),
+               "fma_f32": sum(a["by_dtype"]["float32"] for a in audits)}
+    check(counts == by_type,
+          f"{what}: block GEMM launches by body {counts}, by type {by_type}")
+    return counts
+
+
 def check_bf16_body(what: str, *audits):
-    """Every bf16 launch the audits recorded went through the wgmma/TMA
-    body and every f32 one through the FMA body, the audits saw every
-    launch of either body since :func:`reset_body_counts`, and none needed
-    an aligned copy; returns the body counts."""
+    """As :func:`check_bodies`, and the audits saw every launch of either
+    body since :func:`reset_body_counts`, and none needed an aligned copy;
+    returns the body counts."""
     from repro_torch.kernels import block_gemm as bg
-    bf16 = sum(a["by_dtype"]["bfloat16"] for a in audits)
-    f32 = sum(a["by_dtype"]["float32"] for a in audits)
-    counts = {**body_counts(*audits), "split_k": bg.split_launches,
+    counts = {**check_bodies(what, *audits), "split_k": bg.split_launches,
+              "fma_split_k": bg.fma_split_launches,
               "aligned_copies": bg.aligned_copies}
-    check(counts["wgmma_bf16"] == bf16 == bg.tc_launches
-          and counts["fma_f32"] == f32 == bg.fma_launches
+    check(counts["wgmma_bf16"] == bg.tc_launches
+          and counts["fma_f32"] == bg.fma_launches
           and bg.aligned_copies == 0,
-          f"{what}: {bf16} bf16 and {f32} f32 block GEMM launches, body "
-          f"counts {counts}, counters {bg.tc_launches} wgmma, "
-          f"{bg.fma_launches} FMA")
+          f"{what}: body counts {counts}, counters {bg.tc_launches} "
+          f"wgmma, {bg.fma_launches} FMA")
     return counts
 
 
@@ -395,16 +448,20 @@ def phase_gemm(cfg):
                   f"{copies})")
             if bf16:
                 row["aligned_copies"] = copies
-                row["split_k_slices"] = len(bg.split_plan(G, m, q, k)) - 1
-                if row["split_k_slices"] > 1:
-                    # no atomics: a second launch gives the same bits
-                    again = bg.block_gemm_batched_shared(a, b)
-                    row["split_k_bitwise_repeat"] = bool(
-                        torch.equal(got, again))
-                    check(row["split_k_bitwise_repeat"],
-                          f"band GEMM split-K {row}: two launches differ")
-                    step["split_k_bitwise_repeats"] += 1
-                    del again
+                S = len(bg.split_plan(G, m, q, k)) - 1
+            else:
+                tiling, plan = bg.fma_plan(G, m, q, k)
+                row["float32_tiling"], S = tiling, len(plan) - 1
+            row[f"{name}_split_k_slices"] = S
+            if S > 1:
+                # no atomics: a second launch gives the same bits
+                again = bg.block_gemm_batched_shared(a, b)
+                row[f"{name}_split_k_bitwise_repeat"] = bool(
+                    torch.equal(got, again))
+                check(torch.equal(got, again),
+                      f"band GEMM {name} split-K {row}: two launches differ")
+                step["split_k_bitwise_repeats"] += 1
+                del again
         if per_step or G == 3 and m == 128:
             a, b = a32.bfloat16(), b32.bfloat16()
             row["kernel_ms"] = time_ms(
@@ -511,6 +568,8 @@ FLASH_CASES = (
     # step and one serving prefill of 15)
     ("granite_train", 8, 128, 16, 8, 64, True, 0),
     ("granite_prefill", 1, 15, 16, 8, 64, True, 0),
+    # no GQA, a head dim off the kernel's 32-column grid, a window
+    ("mha_d80", 2, 100, 4, 4, 80, True, 40),
 )
 
 
@@ -572,16 +631,22 @@ def phase_flash():
                 qh = q.reshape(B, H, S, D)
                 kh = k.reshape(B, K, S, D).repeat_interleave(G, dim=1)
                 vh = v.reshape(B, K, S, D).repeat_interleave(G, dim=1)
+                sdpa = torch.nn.functional.scaled_dot_product_attention
                 row["library_ms"] = time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qh, kh, vh, is_causal=causal))
+                    lambda: sdpa(qh, kh, vh, is_causal=causal))
+                row["device_ms"] = time_ms(
+                    lambda: ops.mha_flash(q4, k4, v4, causal=causal),
+                    hide_host=True)
+                row["library_device_ms"] = time_ms(
+                    lambda: sdpa(qh, kh, vh, is_causal=causal),
+                    hide_host=True)
                 nbytes = 4 * (2 * B * H * S * D + 2 * B * K * S * D)
                 flops = 4.0 * D * B * H * _visible_keys(S, causal, window)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     nbytes, flops, "float32")
                 out.update({k_: row[k_] for k_ in (
-                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by")})
+                    "kernel_ms", "plain_ms", "library_ms", "device_ms",
+                    "library_device_ms", "bound_ms", "bound_by")})
             if name == "float32":
                 out["max_abs_err"] = max(out["max_abs_err"], err)
             emit(row)
@@ -960,37 +1025,57 @@ def _worst_rel(a, b, norm=None) -> float:
                for x, y in zip(T.leaves(a), T.leaves(b)))
 
 
-def phase_train_reduced():
-    """Fleet training (f32 policy) against the monolithic step: 3 steps,
-    device 2 failing mid-backward at step 1."""
+# the f32-policy parity cells: reduced config and chunk sizes of each
+F32_CELLS = {"train_reduced": ("llama3-8b",
+                               dict(q_chunk=16, k_chunk=16, loss_chunk=16)),
+             "rwkv_reduced": ("rwkv6-7b", dict(loss_chunk=16)),
+             "moe_reduced": ("granite-moe-1b-a400m",
+                             dict(q_chunk=16, k_chunk=16, loss_chunk=16))}
+
+
+def f32_cell(cell: str):
+    """The set-up of an f32-policy parity cell (:data:`F32_CELLS`): the
+    reduced config, the chunk sizes, AdamW's config, params and state from
+    seed 0, 2 x 32-token synthetic batches, and two fleet training
+    sessions on 8 devices: the f32 policy's and the bf16 control's (every
+    fleet GEMM's operands rounded to bf16), which the params checks must
+    catch."""
     import torch
     from repro_torch.api import Fleet, TorchCleaveRuntime
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
     from repro_torch.optim import adam
+    arch, chunks = F32_CELLS[cell]
     dev = torch.device("cuda")
-    cfg = get_config("llama3-8b").reduced()
-    chunks = dict(q_chunk=16, k_chunk=16, loss_chunk=16)
+    cfg = get_config(arch).reduced()
     opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=2, total_steps=20)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     opt = adam.init(params, opt_cfg)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                   global_batch=2, seed=0))
-    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
-                            device=dev)
-    sess = rt.train_session(opt_cfg, backend="torch", dtype_policy="f32",
-                            **chunks)
+    sessions = []
+    for policy in ("f32", "bf16"):
+        rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
+                                device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # PS-local GEMMs
+            sessions.append(rt.train_session(opt_cfg, backend="torch",
+                                             dtype_policy=policy, **chunks))
+    return (cfg, chunks, opt_cfg, params, opt, data) + tuple(sessions)
+
+
+def phase_train_reduced():
+    """Fleet training (f32 policy) against the monolithic step: 3 steps,
+    device 2 failing mid-backward at step 1."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    dev = torch.device("cuda")
+    cfg, chunks, opt_cfg, params, opt, data, sess, ctl = \
+        f32_cell("train_reduced")
     mono = make_train_step(cfg, opt_cfg, **chunks)
-    # the control: the same fleet run with every fleet GEMM's operands
-    # rounded to bf16 (the bf16 policy), which the params check must catch
-    rt_c = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
-                              device=dev)
-    ctl = rt_c.train_session(opt_cfg, backend="torch", dtype_policy="bf16",
-                             **chunks)
     p_f, o_f, p_m, o_m, p_c, o_c = params, opt, params, opt, params, opt
-    rows = []
+    rows, audits = [], []
     for step in range(3):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.batch(step).items()}
@@ -999,6 +1084,7 @@ def phase_train_reduced():
         # 16 forward GEMMs per step: GEMM 20 is in the backward
         with band_gemm_audit(verify=True) as audit:
             p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+        audits.append(audit)
         p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
         rep = met_f["fleet"]
         lm, lf = float(met_m["loss"]), float(met_f["loss"])
@@ -1016,8 +1102,10 @@ def phase_train_reduced():
              "params_l2": _worst_rel(p_m, p_f, norm=2),
              "control_bf16_params": _worst_rel(p_m, p_c),
              "control_bf16_params_l2": _worst_rel(p_m, p_c, norm=2)}
+    out = {"bodies": check_bodies("train_reduced", *audits),
+           "band_gemm_step": time_band_gemm_set(audits[0]["shapes"])}
     emit({"phase": "train_reduced", "steps": rows, "worst_rel": worst,
-          "params_l2_limit": TRAIN_PARAMS_L2_LIMIT})
+          "params_l2_limit": TRAIN_PARAMS_L2_LIMIT, **out})
     # the reference's bar for fleet vs monolithic training: 1e-4 relative
     # (max |difference| over max |leaf|, per leaf) on loss, grad_norm and
     # the moments.  The params are held in L2, per leaf: Adam moves an
@@ -1040,6 +1128,7 @@ def phase_train_reduced():
           f"train_reduced: the bf16 control passed the params check {worst}")
     check(rows[1]["n_recovered"] > 0 and rows[1]["failed_ids"] == [2],
           "train_reduced: the failure recovered nothing")
+    return out
 
 
 def phase_train_full(cfg):
@@ -1202,33 +1291,14 @@ def phase_rwkv_reduced():
     greedy serving against token-by-token decoding."""
     import numpy as np
     import torch
-    from repro_torch.api import Fleet, TorchCleaveRuntime
-    from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import wkv6 as wkv
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import model as M
-    from repro_torch.optim import adam
     dev = torch.device("cuda")
-    cfg = get_config("rwkv6-7b").reduced()
-    chunks = dict(loss_chunk=16)
-    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=2, total_steps=20)
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    opt = adam.init(params, opt_cfg)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                                  global_batch=2, seed=0))
-    sessions = []
-    for policy in ("f32", "bf16"):       # the bf16 run is the control
-        rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
-                                device=dev)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)  # PS-local GEMMs
-            sessions.append(rt.train_session(opt_cfg, backend="torch",
-                                             dtype_policy=policy, **chunks))
-    sess, ctl = sessions
+    cfg, chunks, opt_cfg, params, opt, data, sess, ctl = \
+        f32_cell("rwkv_reduced")
     mono = make_train_step(cfg, opt_cfg, **chunks)
     p_f, o_f, p_m, o_m, p_c, o_c = params, opt, params, opt, params, opt
-    rows = []
+    rows, audits = [], []
     wkv.launches = 0
     for step in range(3):
         batch = {k: torch.as_tensor(v, device=dev)
@@ -1238,6 +1308,7 @@ def phase_rwkv_reduced():
         p_m, o_m, met_m = mono(p_m, o_m, batch)
         with band_gemm_audit(verify=True) as audit:
             p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+        audits.append(audit)
         p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
         rep = met_f["fleet"]
         lm, lf = float(met_m["loss"]), float(met_f["loss"])
@@ -1261,8 +1332,10 @@ def phase_rwkv_reduced():
     wkv.launches = 0
     (toks, _), (toks_tbt, _) = _rwkv_greedy(cfg, p_f, prompts, 8, dev)
     serve_wkv = wkv.launches
+    out = {"bodies": check_bodies("rwkv_reduced", *audits),
+           "band_gemm_step": time_band_gemm_set(audits[0]["shapes"])}
     emit({"phase": "rwkv_reduced", "steps": rows, "worst_rel": worst,
-          "params_l2_limit": TRAIN_PARAMS_L2_LIMIT,
+          "params_l2_limit": TRAIN_PARAMS_L2_LIMIT, **out,
           "wkv_launches_training": train_wkv,
           "wkv_launches_serving": serve_wkv,
           "greedy_tokens": toks, "greedy_tokens_match": toks == toks_tbt})
@@ -1289,6 +1362,7 @@ def phase_rwkv_reduced():
           f"rwkv_reduced: {serve_wkv} WKV launches in serving")
     check(toks == toks_tbt, f"rwkv_reduced: greedy tokens {toks} != "
           f"token-by-token {toks_tbt}")
+    return out
 
 
 def phase_rwkv_full(cfg):
@@ -1428,7 +1502,7 @@ def moe_expert_shapes(cfg, n_tokens: int, backward: bool):
     return shapes
 
 
-def _set_sum(counts, rows, n_layers):
+def _set_sum(counts, rows, n_layers, err_key="bfloat16_max_abs_err"):
     """Per-launch times of ``rows`` summed over a step's launch set."""
     tot = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "device_ms": 0.0, "library_device_ms": 0.0, "bytes_ms": 0.0,
@@ -1439,8 +1513,7 @@ def _set_sum(counts, rows, n_layers):
         for key in ("ms", "plain_ms", "library_ms", "device_ms",
                     "library_device_ms", "bytes_ms", "ops_ms"):
             tot[key] += n * row[key]
-        tot["max_abs_err"] = max(tot["max_abs_err"],
-                                 row["bfloat16_max_abs_err"])
+        tot["max_abs_err"] = max(tot["max_abs_err"], row[err_key])
     tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
     tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                        else "operations")
@@ -1540,11 +1613,56 @@ def phase_bgemm(cfg):
         emit({"phase": "bgemm", **row})
         del a32, b32, a, b
 
+    # the decode step's products as it runs them: f32 capacity buffers
+    # against the bf16 expert weights as stored (the FMA body widens them),
+    # which must give the bits of the call on f32 copies of the weights;
+    # beside one torch.bmm in f32 and the bytes the launch reads
+    f32_rows = {}
+    for ash, bsh in sorted(decode):
+        a = torch.randn(ash, generator=gen, device=dev)
+        w = (torch.randn(bsh, generator=gen, device=dev)
+             / ash[2] ** 0.5).bfloat16()
+        wf = w.float()
+        n_fma = bg.fma_launches
+        got = bg.block_gemm_batched(a, w)
+        check(bg.fma_launches - n_fma == 1,
+              f"bgemm f32 x bf16 {ash}x{bsh}: {bg.fma_launches - n_fma} "
+              "FMA launches")
+        promoted = bg.block_gemm_batched(a, wf)
+        want = bg.block_gemm_batched_plain(a, w)
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        tiling, plan = bg.fma_plan(ash[0], ash[1], bsh[2], ash[2])
+        row = {"case": "decode_f32_bf16", "A": list(ash), "B": list(bsh),
+               "tiling": tiling, "split_k_slices": len(plan) - 1,
+               "max_abs_err": err, "rel_err": rel,
+               "bitwise_equal_promoted": bool(torch.equal(got, promoted))}
+        check(rel <= 1e-5 and row["bitwise_equal_promoted"],
+              f"bgemm f32 x bf16 {row}")
+        row["ms"] = time_ms(lambda: bg.block_gemm_batched(a, w))
+        row["plain_ms"] = time_ms(lambda: bg.block_gemm_batched_plain(a, w))
+        row["library_ms"] = time_ms(lambda: torch.bmm(a, wf))
+        row["device_ms"] = time_ms(lambda: bg.block_gemm_batched(a, w),
+                                   hide_host=True)
+        row["library_device_ms"] = time_ms(lambda: torch.bmm(a, wf),
+                                           hide_host=True)
+        G, m, k = ash
+        n = bsh[2]
+        row["bytes_ms"] = (4 * G * m * k + 2 * G * k * n
+                           + 4 * G * m * n) / PEAK_BW * 1e3
+        row["ops_ms"] = 2.0 * G * m * k * n / PEAK_OPS["float32"] * 1e3
+        f32_rows[(ash, bsh)] = row
+        emit({"phase": "bgemm", **row})
+        del a, w, wf, got, promoted, want
+
     out = {"train_step": _set_sum(train, rows, cfg.n_layers),
            "decode_step": _set_sum(decode, rows, cfg.n_layers),
+           "decode_step_f32": _set_sum(decode, f32_rows, cfg.n_layers,
+                                       err_key="max_abs_err"),
            "train_shapes": train}
     emit({"phase": "bgemm_steps", "train_step": out["train_step"],
-          "decode_step": out["decode_step"]})
+          "decode_step": out["decode_step"],
+          "decode_step_f32": out["decode_step_f32"]})
 
     # block_gemm at benchmarks/kernels_bench.py's shape (512^3, f32), the
     # way that benchmark calls it (``ops.block_gemm``), once as the path
@@ -1577,9 +1695,15 @@ def phase_bgemm(cfg):
            "launches": launches, "max_abs_err": err, "rel_err": rel,
            "bfloat16_rel_err": rel16,
            "launches_by_body": {b: bodies[b] + bodies16[b] for b in bodies},
+           "tiling": bg.fma_plan(1, 512, 512, 512)[0],
+           "split_k_slices": len(bg.fma_plan(1, 512, 512, 512)[1]) - 1,
            "ms": time_ms(lambda: ops.block_gemm(a, b), iters=20),
            "plain_ms": time_ms(lambda: bg.block_gemm_plain(a, b), iters=20),
-           "library_ms": time_ms(lambda: torch.matmul(a, b), iters=20)}
+           "library_ms": time_ms(lambda: torch.matmul(a, b), iters=20),
+           "device_ms": time_ms(lambda: ops.block_gemm(a, b), iters=20,
+                                hide_host=True),
+           "library_device_ms": time_ms(lambda: torch.matmul(a, b),
+                                        iters=20, hide_host=True)}
     row["bound_ms"], row["bound_by"] = bound_ms(4 * 3 * 512 * 512,
                                                 2.0 * 512 ** 3, "float32")
     emit({"phase": "bgemm", "case": "block_gemm", **row})
@@ -1596,13 +1720,37 @@ SPLIT_SHAPES = ((1, 128, 4096, 4096, False), (1, 128, 4096, 1024, False),
                 (32, 4, 1024, 512, True), (32, 4, 512, 1024, True),
                 (1, 1024, 4096, 14336, False))
 SPLIT_COUNTS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 16)
+# (G, m, k, n, per-g B, B's type) of the f32 body: the kernels benchmark's
+# 512^3; granite's expert decode products as the decode step runs them;
+# f32-policy cells' buckets (train_reduced, moe_reduced's experts);
+# llama's decode buckets in f32 (32, 64, 96 and 112 tiles of 128 x 128)
+# and the full-width f32 buckets the gemm phase checks (llama's training
+# forward, the LM head's training dA: 896 and 128 tiles)
+F32_SPLIT_SHAPES = ((1, 512, 512, 512, False, "float32"),
+                    (32, 4, 1024, 512, True, "bfloat16"),
+                    (32, 4, 512, 1024, True, "bfloat16"),
+                    (2, 128, 256, 128, False, "float32"),
+                    (1, 128, 1024, 256, False, "float32"),
+                    (1, 256, 128, 1024, False, "float32"),
+                    (4, 40, 256, 64, True, "float32"),
+                    (4, 256, 40, 64, True, "float32"),
+                    (1, 128, 4096, 4096, False, "float32"),
+                    (2, 128, 4096, 4096, False, "float32"),
+                    (3, 128, 4096, 4096, False, "float32"),
+                    (1, 128, 4096, 14336, False, "float32"),
+                    (1, 1024, 4096, 14336, False, "float32"),
+                    (1, 512, 128256, 4096, False, "float32"))
+F32_SPLIT_COUNTS = (1, 2, 3, 4, 6, 8)
 
 
 def phase_split():
     """Device time of the bf16 body at each split count of the
     contraction (at most one slice per KSPAN span), beside the rule's own
     count and one ``torch.matmul``; every split held against the unsplit
-    result (1e-5 relative)."""
+    result (1e-5 relative).  Then the f32 body at each of its tilings and
+    split counts beside the rule's pick (against the rule's result), and
+    flash attention at each of its block shapes (against the plain
+    version)."""
     import torch
     from repro_torch.kernels import block_gemm as bg
     dev = torch.device("cuda")
@@ -1631,6 +1779,118 @@ def phase_split():
                                     hide_host=True)
         emit({"phase": "split", **row})
         del a, b, c, want
+
+    # the f32 body: every tiling that covers the rows, at each split
+    for G, m, k, n, per_g, b_type in F32_SPLIT_SHAPES:
+        a = torch.randn((G, m, k), generator=gen, device=dev)
+        b = (torch.randn((G, k, n) if per_g else (k, n), generator=gen,
+                         device=dev) / k ** 0.5).to(getattr(torch, b_type))
+        entry, fn = (("block_gemm_batched", bg.block_gemm_batched) if per_g
+                     else ("band_gemm", bg.block_gemm_batched_shared))
+        c = torch.empty((G, m, n), dtype=torch.float32, device=dev)
+        tiling, plan = bg.fma_plan(G, m, n, k)
+        row = {"G": G, "m": m, "k": k, "n": n, "per_g_b": per_g,
+               "b_type": b_type, "rule_tiling": tiling,
+               "rule_slices": len(plan) - 1, "ms_by_tiling_slices": {}}
+        want = fn(a, b)
+        tilings = ([bg.SKINNY] if m <= bg.FMA_TILES[bg.SKINNY][0]
+                   else [bg.WIDE_64, bg.WIDE_128])
+        for t in tilings:
+            for S in (x for x in F32_SPLIT_COUNTS if x <= -(-k // bg.KSPAN)):
+                bg._launch(entry, a, b, c, slices=S, tiling=t)
+                rel = float((c - want).abs().max() / want.abs().max())
+                check(rel <= 1e-5, f"split f32 {row}: tiling {t}, {S} "
+                      f"slices, rel err {rel:.3g}")
+                row["ms_by_tiling_slices"][f"{t}/{S}"] = time_ms(
+                    lambda: bg._launch(entry, a, b, c, slices=S, tiling=t),
+                    hide_host=True)
+        bf = b.float()
+        row["rule_ms"] = time_ms(lambda: fn(a, b), hide_host=True)
+        row["library_ms"] = time_ms(lambda: torch.matmul(a, bf),
+                                    hide_host=True)
+        emit({"phase": "split", **row})
+        del a, b, bf, c, want
+
+    # flash attention's rows a block at the training shape (f32)
+    from repro_torch.kernels import flash_attention as fa
+    B, S_, H, K, D = 8, 128, 32, 8, 128
+    q = torch.randn((B, H, S_, D), generator=gen, device=dev)
+    k_ = torch.randn((B, K, S_, D), generator=gen, device=dev)
+    v = torch.randn((B, K, S_, D), generator=gen, device=dev)
+    want = fa._attend_plain(q, k_, v, causal=True, window=0, q_offset=0)
+    out, row = torch.empty_like(q), {"case": "flash_block_q", "ms": {}}
+    for bq in (32, 64, 128):
+        fa.attend(q, k_, v, out, _block_q=bq)
+        rel = float((out - want).abs().max() / want.abs().max())
+        check(rel <= 1e-5, f"flash block_q {bq}: rel err {rel:.3g}")
+        row["ms"][bq] = time_ms(
+            lambda: fa.attend(q, k_, v, out, _block_q=bq), hide_host=True)
+    emit({"phase": "split", "path_block_q": fa.BLOCK_Q, **row})
+
+
+def phase_f32sets(moe_cfg):
+    """The f32 kernels' sets as the paths run them, by events (``ms``) and
+    with the host's gaps hidden (``device_ms``), through calls that every
+    tree of the port offers, so that ``--src`` times an older tree beside
+    this one: ``ops.block_gemm`` at 512^3; the expert products of one
+    full-width MoE decode step as the step calls them (``ops.expert_matmul``
+    of f32 capacity buffers against the bf16 weights, no gradient); the
+    block GEMM launches of each f32-policy cell's first fleet step, timed
+    by :func:`time_band_gemm_set`; ``ops.mha_flash`` at the training shape
+    (batch 8, 128 tokens, 32 heads over 8, head dim 128, causal, f32)."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"src": os.path.dirname(os.path.dirname(repro_torch.__file__))}
+
+    def both(fn, launches=1):
+        return {"launches": launches, "ms": time_ms(fn),
+                "device_ms": time_ms(fn, hide_host=True, launches=launches)}
+
+    a = torch.randn((512, 512), generator=gen, device=dev)
+    b = torch.randn((512, 512), generator=gen, device=dev)
+    out["block_gemm_512"] = both(lambda: ops.block_gemm(a, b))
+
+    experts = [(torch.randn(ash, generator=gen, device=dev),
+                (torch.randn(bsh, generator=gen, device=dev)
+                 / ash[2] ** 0.5).bfloat16(), n * moe_cfg.n_layers)
+               for (ash, bsh), n in sorted(collections.Counter(
+                   moe_expert_shapes(moe_cfg, 4, False)).items())]
+
+    def decode_step():
+        with torch.no_grad():
+            for x, w, n in experts:
+                for _ in range(n):
+                    ops.expert_matmul(x, w)
+    out["moe_decode_step"] = both(decode_step, sum(e[2] for e in experts))
+
+    out["cells"] = {}
+    for cell in F32_CELLS:
+        _, _, _, params, opt, data, sess, _ = f32_cell(cell)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in data.batch(0).items()}
+        with band_gemm_audit(verify=False) as band, \
+                band_gemm_audit(verify=False,
+                                entry="block_gemm_batched") as b2:
+            sess.step(params, opt, batch)
+        out["cells"][cell] = {}
+        for name, entry, audit in (
+                ("band_gemm", "block_gemm_batched_shared", band),
+                ("block_gemm_batched", "block_gemm_batched", b2)):
+            if audit["shapes"]:
+                t = time_band_gemm_set(audit["shapes"], entry)
+                out["cells"][cell][name] = {
+                    k: t[k] for k in ("launches", "ms", "device_ms")}
+        del params, opt, sess
+
+    B, S, H, K, D = 8, 128, 32, 8, 128
+    q = torch.randn((B, S, H, D), generator=gen, device=dev)
+    k = torch.randn((B, S, K, D), generator=gen, device=dev)
+    v = torch.randn((B, S, K, D), generator=gen, device=dev)
+    out["flash_train"] = both(lambda: ops.mha_flash(q, k, v, causal=True))
+    emit({"phase": "f32sets", **out})
 
 
 @contextlib.contextmanager
@@ -1696,32 +1956,14 @@ def phase_moe_reduced():
     import numpy as np
     import torch
     from repro_torch.api import Fleet, TorchCleaveRuntime
-    from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import block_gemm as bg
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import model as M
-    from repro_torch.optim import adam
     dev = torch.device("cuda")
-    cfg = get_config("granite-moe-1b-a400m").reduced()
-    chunks = dict(q_chunk=16, k_chunk=16, loss_chunk=16)
-    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=2, total_steps=20)
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    opt = adam.init(params, opt_cfg)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                                  global_batch=2, seed=0))
-    sessions = []
-    for policy in ("f32", "bf16"):       # the bf16 run is the control
-        rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
-                                device=dev)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)  # PS-local GEMMs
-            sessions.append(rt.train_session(opt_cfg, backend="torch",
-                                             dtype_policy=policy, **chunks))
-    sess, ctl = sessions
+    cfg, chunks, opt_cfg, params, opt, data, sess, ctl = \
+        f32_cell("moe_reduced")
     mono = make_train_step(cfg, opt_cfg, **chunks)
     p_f, o_f, p_m, o_m, p_c, o_c = params, opt, params, opt, params, opt
-    rows = []
+    rows, audits, b2_audits = [], [], []
     for step in range(3):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.batch(step).items()}
@@ -1732,6 +1974,8 @@ def phase_moe_reduced():
                 band_gemm_audit(verify=True,
                                 entry="block_gemm_batched") as audit2:
             p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+        audits.append(audit)
+        b2_audits.append(audit2)
         p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
         rep = met_f["fleet"]
         lm, lf = float(met_m["loss"]), float(met_f["loss"])
@@ -1774,7 +2018,11 @@ def phase_moe_reduced():
     want = {i: _monolithic_greedy(cfg32, p_f, p, 4, 16, dev)
             for i, p in enumerate(prompts)}
     serve_ok = all(s.verified for s in serve.step_reports)
-    emit({"phase": "moe_reduced", "steps": rows, "worst_rel": worst,
+    out = {"bodies": check_bodies("moe_reduced", *audits, *b2_audits),
+           "band_gemm_step": time_band_gemm_set(audits[0]["shapes"]),
+           "bgemm_step": time_band_gemm_set(b2_audits[0]["shapes"],
+                                            entry="block_gemm_batched")}
+    emit({"phase": "moe_reduced", "steps": rows, "worst_rel": worst, **out,
           "params_l2_limit": TRAIN_PARAMS_L2_LIMIT,
           "serve_tokens_match": got == want, "serve_verified": serve_ok,
           "serve_recovered": srep.n_recovered,
@@ -1801,6 +2049,7 @@ def phase_moe_reduced():
     check(serve_ok and srep.n_recovered > 0 and serve_b2 > 0
           and serve.paged_read_checks == srep.n_steps,
           "moe_reduced: serving unverified, unrecovered or unchecked")
+    return out
 
 
 def phase_moe_full(cfg):
@@ -1915,6 +2164,14 @@ def phase_moe_full(cfg):
     t_serve = time.perf_counter() - t0
     serve_b2 = bg.batched_launches - n_b2
     serve_bodies = check_bf16_body("moe_full serving", saudit, sb1_audit)
+    # every decode step's expert product met the bf16 weights as stored
+    # (no f32 copy), with the bits of the launch on an f32 copy; prefills
+    # run bf16 throughout
+    check(saudit["mixed"] == saudit["by_dtype"]["float32"]
+          == saudit["mixed_bitwise_equal_promoted"] > 0,
+          f"moe_full serving: {saudit['mixed']} f32 x bf16 expert launches "
+          f"({saudit['mixed_bitwise_equal_promoted']} equal to the promoted "
+          f"launch) of {dict(saudit['by_dtype'])}")
 
     # the first decode step against the monolithic path on the same
     # inputs: per-request prefill of prompt[:-1] (the session's own
@@ -1973,6 +2230,7 @@ def phase_moe_full(cfg):
            "bgemm_bf16_launches_training": sum(
                a["by_dtype"]["bfloat16"] for a in audits),
            "bgemm_bf16_launches_serving": saudit["by_dtype"]["bfloat16"],
+           "bgemm_f32_x_bf16_launches_serving": saudit["mixed"],
            "bgemm_step_shapes_as_timed": step_shapes == want_shapes,
            "serve_s": t_serve, "n_steps": n_steps, "n_tokens":
                srep.n_tokens, "tokens_per_s": srep.tokens_per_sec,
@@ -2032,7 +2290,13 @@ def phase_moe_full(cfg):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--src", default="",
+                    help="the src directory whose repro_torch to import "
+                         "(default: this checkout's), to time an older "
+                         "tree's kernels (the f32sets phase)")
     args = ap.parse_args(argv)
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
     if unknown:
@@ -2059,24 +2323,28 @@ def main(argv=None) -> int:
     if "reduced" in phases:
         phase_reduced()
     launches = phase_full(full) if "full" in phases else None
+    cells = {}                    # the f32-policy cells' launch sets
     if "train_reduced" in phases:
-        phase_train_reduced()
+        cells["train_reduced"] = phase_train_reduced()
     train = phase_train_full(full) if "train_full" in phases else None
     if "rwkv_reduced" in phases:
-        phase_rwkv_reduced()
+        cells["rwkv_reduced"] = phase_rwkv_reduced()
     rwkv = phase_rwkv_full(rwkv_full) if "rwkv_full" in phases else None
     bgemm = phase_bgemm(moe_full) if "bgemm" in phases else None
     if "moe_reduced" in phases:
-        phase_moe_reduced()
+        cells["moe_reduced"] = phase_moe_reduced()
     moe = phase_moe_full(moe_full) if "moe_full" in phases else None
     if "split" in phases:
         phase_split()
+    if "f32sets" in phases:
+        phase_f32sets(moe_full)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     if all(x is not None for x in (gemm, paged, flash, decode, wkv,
-                                   launches, train, rwkv, bgemm, moe)):
+                                   launches, train, rwkv, bgemm, moe)) \
+            and len(cells) == 3:
         train_launches, gset = train
         dec_serve, dec_long = (decode["timed"]["serving_float32"],
                                decode["timed"]["cache32k_bfloat16"])
@@ -2086,11 +2354,17 @@ def main(argv=None) -> int:
         device = ("device_ms", "library_device_ms")
         b2_train, b2_dec, b3 = (bgemm["train_step"], bgemm["decode_step"],
                                 bgemm["block_gemm"])
+        b2_dec32 = bgemm["decode_step_f32"]
+        set_keys = ("launches",) + timed[1:] + device
+
+        def f32_set(cell, key="band_gemm_step"):
+            return {k: cells[cell][key][k] for k in set_keys}
         kernels = [
             {"name": "band_gemm", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
              "replaces": "src/repro/kernels/block_gemm.py:59",
-             "redesigned": "bf16: wgmma/TMA",
+             "redesigned": "bf16: wgmma/TMA; f32: wide and skinny "
+                           "cp.async FMA tilings",
              "launches": train_launches["band_gemm"],
              "launches_serving": launches["band_gemm"],
              "launches_by_body": train_launches["band_gemm_bodies"],
@@ -2105,7 +2379,11 @@ def main(argv=None) -> int:
              **{k: gset[k] for k in device},
              "serving_step": {
                  "ms_of": "the 29 launches of one full-width decode step",
-                 **{k: gemm[k] for k in timed + device}}},
+                 **{k: gemm[k] for k in timed + device}},
+             "f32_cells": {
+                 "ms_of": "the f32 launches of each f32-policy cell's first "
+                          "fleet step",
+                 **{c: f32_set(c) for c in cells}}},
             {"name": "paged_decode", "route": "cuda",
              "source": "src/repro_torch/csrc/paged_decode.cu",
              "replaces": "src/repro/kernels/decode_attention.py:97",
@@ -2120,10 +2398,13 @@ def main(argv=None) -> int:
              "launches": train_launches["flash_attention"],
              "launches_serving": launches["flash_attention"],
              "ms_of": "one launch at the training step's shape (f32)",
+             "redesigned": "f32 CUDA-core tiles, K/V staged once per kv "
+                           "head",
              "max_abs_err": flash["max_abs_err"], "ms": flash["kernel_ms"],
              "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
              "bound_by": flash["bound_by"],
-             "library_ms": flash["library_ms"]},
+             "library_ms": flash["library_ms"],
+             **{k: flash[k] for k in device}},
             {"name": "flash_decode", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/decode_attention.py:144",
@@ -2149,7 +2430,8 @@ def main(argv=None) -> int:
             {"name": "block_gemm_batched", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
              "replaces": "src/repro/kernels/block_gemm.py:92",
-             "redesigned": "bf16: wgmma/TMA",
+             "redesigned": "bf16: wgmma/TMA; f32: wide and skinny "
+                           "cp.async FMA tilings, f32 x bf16 entry",
              "launches": moe["training"],
              "launches_serving": moe["serving"],
              "launches_by_body": moe["bodies"],
@@ -2159,17 +2441,26 @@ def main(argv=None) -> int:
              "max_abs_err_on_path": moe["max_abs_err"],
              "decode_step": {
                  "ms_of": f"the {b2_dec['launches']} launches of one "
-                          "full-width decode step (4 slots)",
-                 **{k: b2_dec[k] for k in timed + device}}},
+                          "full-width decode step (4 slots), bf16",
+                 **{k: b2_dec[k] for k in timed + device}},
+             "decode_step_f32": {
+                 "ms_of": f"the {b2_dec32['launches']} launches of one "
+                          "full-width decode step as it runs them: f32 A, "
+                          "bf16 B read as stored; library: torch.bmm in f32",
+                 **{k: b2_dec32[k] for k in timed + device}},
+             "f32_cell": {
+                 "ms_of": "the launches of moe_reduced's first fleet step",
+                 **f32_set("moe_reduced", "bgemm_step")}},
             {"name": "block_gemm", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
              "replaces": "src/repro/kernels/block_gemm.py:125",
              "launches": b3["launches"],
              "launches_by_body": b3["launches_by_body"],
+             "redesigned": "f32: wide cp.async FMA tiling, split-K",
              "ms_of": "one launch of ops.block_gemm at 512 x 512 x 512 f32 "
                       "(benchmarks/kernels_bench.py's shape); "
                       "launches_by_body counts it and one bf16 call",
-             **{k: b3[k] for k in timed}},
+             **{k: b3[k] for k in timed + device}},
         ]
         emit({"kernels": kernels})
     print(smi.splitlines()[0], flush=True)

@@ -21,10 +21,11 @@ from repro_torch.kernels.ref import NEG_INF
 launches = 0                 # kernel launches since the last reset
 
 BLOCK_K = 64                 # key tile of the kernel and the plain version
+BLOCK_Q = 64                 # (position, head) rows of a kernel block
 MAX_D = 128                  # head dims the kernel is built for
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
     + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3 \
-    + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _attend_plain(q, k, v, *, causal, window, q_offset):
@@ -82,12 +83,16 @@ def _kernel(dtype):
     return fn
 
 
-def attend(q, k, v, out, *, causal=True, window=0, q_offset=0):
+def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
+           _block_q=BLOCK_Q):
     """Write attention of ``q`` over ``k``/``v`` into ``out``.  All four
     are (B, heads, S, D) views with unit stride along D (any other
     strides; the model's (B, S, H, D) tensors pass as
     ``x.transpose(1, 2)``); k and v have Hk heads with H % Hk == 0.  Query
-    row i sits at position ``q_offset + i``."""
+    row i sits at position ``q_offset + i``.  ``_block_q`` is for the
+    block-shape sweep of ``chip_smoke.py --phases build,split`` alone: the
+    kernel's rows a block, 32 and 128 built for f32 at D > 96 only (the
+    CPU path ignores it)."""
     global launches
     B, H, Sq, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
@@ -116,17 +121,24 @@ def attend(q, k, v, out, *, causal=True, window=0, q_offset=0):
     if D > MAX_D:
         raise ValueError(f"flash attention is built for head dims up to "
                          f"{MAX_D}, not {D}")
-    if B * H > 65535:
+    tiles = -(-(H // k.shape[1]) * Sq // _block_q)
+    if tiles > 65535:
         raise ValueError(f"flash attention launches one grid row per "
-                         f"(batch, head): {B * H} > 65535")
+                         f"{_block_q} (position, head) rows: {tiles} > 65535")
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        err = _kernel(q.dtype)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
             k.shape[1], Sq, k.shape[2], D, strides, int(bool(causal)),
-            int(window), int(q_offset), 1.0 / math.sqrt(D),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(window), int(q_offset), 1.0 / math.sqrt(D), int(_block_q))
+    # as the block GEMM's launch: the raw stream, and no device switch when
+    # the card is already current
+    idx = q.device.index
+    if torch.cuda.current_device() == idx:
+        err = _kernel(q.dtype)(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(q.device):
+            err = _kernel(q.dtype)(
+                *args, torch._C._cuda_getCurrentRawStream(idx))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

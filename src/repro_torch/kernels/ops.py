@@ -85,7 +85,14 @@ def expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The routed experts' einsum ``ecd,edf->ecf``: a (E, C, d) capacity
     buffers, w (E, d, f) expert weights.  Returns (E, C, f) in the
     operands' (promoted) dtype, like the reference's einsum; differentiable
-    in both operands (:class:`_ExpertMatmul`)."""
+    in both operands (:class:`_ExpertMatmul`).  With no gradient asked, an
+    f32 buffer meets bf16 weights as they are stored (the serving decode
+    step): the kernel widens them exactly, so the result has the bits of
+    the promoted call without an f32 copy of every expert."""
+    if a.dtype == torch.float32 and w.dtype == torch.bfloat16 and not (
+            torch.is_grad_enabled() and (a.requires_grad or w.requires_grad)):
+        with torch.profiler.record_function("moe.experts"):
+            return _bg.block_gemm_batched(a.contiguous(), w.contiguous())
     a, w = _promote(a, w)
     return _ExpertMatmul.apply(a, w)
 

@@ -2,6 +2,8 @@
 mode on the CPU).  Here the wrappers run their plain versions, since the
 tensors lie on the CPU; the ``gpu``-marked tests hold the CUDA kernels
 against the same plain versions on a card and skip elsewhere."""
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -391,6 +393,198 @@ def test_split_k_repeatable_on_card(cuda, G, m, k, n):
     assert torch.equal(first, again)
 
 
+# ------------------------------------------- the f32 body's host-side plan --
+
+# (G, m, k, n) of f32 launches: the kernels benchmark's 512^3, granite's
+# expert decode products (4 rows), f32-policy cells' buckets and experts,
+# llama's training buckets at full width (the gemm phase's f32 checks),
+# and ragged or empty ones
+FMA_SHAPES = {
+    "bgemm_512": (1, 512, 512, 512), "decode_up": (32, 4, 1024, 512),
+    "decode_down": (32, 4, 512, 1024), "cell_q": (2, 128, 256, 128),
+    "cell_down": (1, 128, 1024, 256), "cell_dw": (1, 256, 128, 1024),
+    "cell_expert": (4, 40, 256, 64), "cell_expert_dw": (4, 256, 40, 64),
+    "train_fwd": (1, 1024, 4096, 14336), "lm_head_da": (1, 512, 128256,
+                                                       4096),
+    "train_down_da": (2, 512, 14336, 4096),
+    "lm_head_dw": (1, 4096, 512, 128256), "decode_q": (1, 128, 4096, 4096),
+    "decode_q2": (2, 128, 4096, 4096), "decode_q3": (3, 128, 4096, 4096),
+    "skinny_16": (3, 16, 1000, 777), "wide_17": (3, 17, 999, 130),
+    "short_k": (2, 7, 100, 30), "empty_k": (2, 9, 0, 24),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FMA_SHAPES))
+def test_fma_plan_properties(name):
+    """The f32 body's plan: slice bounds 0, then multiples of KSPAN, then
+    k, at most one slice per span; the skinny tiling (every row in one
+    block) only for up to 16 rows, a wide one above, 128 x 128 where its
+    grid split as far as allowed gives every SM a block; the tile grid
+    covers m and n; a 128 x 128 grid of less than a wave takes the fewest
+    slices with the fewest waves for the work, another grid that covers
+    half the SMs is not split."""
+    G, m, k, n = FMA_SHAPES[name]
+    tiling, bounds = bg.fma_plan(G, m, n, k)
+    rows, cols = bg.FMA_TILES[tiling]
+    assert (tiling == bg.SKINNY) == (m <= 16)
+    assert rows * -(-m // rows) >= m and cols * -(-n // cols) >= n
+    assert rows >= m or tiling != bg.SKINNY
+    S = len(bounds) - 1
+    assert bounds[0] == 0 and bounds[-1] == k
+    if k:
+        _check_bounds(bounds, k)
+    assert 1 <= S <= max(1, -(-k // bg.KSPAN))
+    tiles = bg._tiles(G, m, n, tiling)
+    assert tiles >= G * -(-m // rows) * -(-n // cols)
+    most = min(max(1, -(-k // bg.KSPAN)), bg.WIDE_128_SLICES)
+    if m > 16:
+        t128 = G * -(-m // 128) * -(-n // 128)
+        assert (tiling == bg.WIDE_128) == (t128 * most >= bg.SMS)
+    if tiling == bg.WIDE_128 and tiles < bg.SMS:
+        def waves(s):        # waves of the grid over the work
+            return Fraction(-(-tiles * s // bg.SMS), s)
+        assert S <= most
+        assert all(waves(S) < waves(s) for s in range(1, S))
+        assert all(waves(S) <= waves(s) for s in range(S, most + 1))
+    elif 2 * tiles >= bg.SMS:
+        assert S == 1
+    for t in bg.FMA_TILES:
+        if t != bg.SKINNY or m <= 16:
+            forced = bg.fma_plan(G, m, n, k, t, 3)
+            assert forced[0] == t and forced[1] == bg._slice_bounds(k, 3)
+
+
+def test_shared_constants_match_the_cuda_sources():
+    """The constants that Python and CUDA share, read from the sources as
+    text: the two-level sum's span and the slice cap of the band GEMM, the
+    f32 body's tiling numbers, and flash attention's key tile (the plain
+    version's online-softmax tile) and the path's block rows."""
+    import re
+    from pathlib import Path
+    csrc = Path(bg.__file__).resolve().parents[1] / "csrc"
+    gemm = (csrc / "band_gemm.cu").read_text()
+    flash = (csrc / "flash_attention.cu").read_text()
+
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const(gemm, "KSPAN") == bg.KSPAN
+    assert const(gemm, "MAX_SLICES") == bg.MAX_SLICES
+    enum = re.search(r"enum Tiling \{([^}]*)\}", gemm)[1]
+    tilings = {k.strip(): int(v) for k, v in
+               (x.split("=") for x in enum.split(","))}
+    assert tilings == {"SKINNY": bg.SKINNY, "WIDE_64": bg.WIDE_64,
+                       "WIDE_128": bg.WIDE_128}
+    assert const(flash, "BK") == fa.BLOCK_K
+    assert const(flash, "BQ_PATH") == fa.BLOCK_Q
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_expert_matmul_f32_buffer_bf16_weights(grad, rng):
+    """An f32 capacity buffer against bf16 expert weights (the serving
+    decode step): with no gradient asked the product goes to the batched
+    GEMM with the weights as stored, and on the CPU it equals the promoted
+    product bit for bit; with gradients it takes the promoted route, whose
+    output and gradients are unchanged."""
+    a0 = torch.from_numpy(rng.standard_normal((4, 6, 48)).astype(np.float32))
+    w0 = torch.from_numpy(rng.standard_normal((4, 48, 24))
+                          .astype(np.float32)).bfloat16()
+    gy = torch.from_numpy(rng.standard_normal((4, 6, 24)).astype(np.float32))
+    if not grad:
+        with torch.no_grad():
+            got = ops.expert_matmul(a0, w0)
+            want = ops.expert_matmul(a0, w0.float())
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+        return
+    a, w = a0.clone().requires_grad_(), w0.clone().requires_grad_()
+    y = ops.expert_matmul(a, w)
+    y.backward(gy)
+    ap, wp = a0.clone().requires_grad_(), w0.clone().requires_grad_()
+    a2, w2 = ops._promote(ap, wp)
+    y2 = ops._ExpertMatmul.apply(a2, w2)
+    y2.backward(gy)
+    assert torch.equal(y, y2)
+    assert torch.equal(a.grad, ap.grad) and torch.equal(w.grad, wp.grad)
+    assert w.grad.dtype == torch.bfloat16
+
+
+def _small_ints(G, m, k, n, cuda, per_g=False, b_dtype=torch.float32):
+    ia = torch.arange(G * m * k, device=cuda).reshape(G, m, k)
+    ib = torch.arange((G if per_g else 1) * k * n, device=cuda)
+    a = ((ia * 7 + 3) % 17 - 8).float()
+    b = ((ib * 5 + 1) % 13 - 6).reshape((G, k, n) if per_g else (k, n))
+    return a, b.to(b_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiling", ["skinny", "64", "128"])
+@pytest.mark.parametrize("slices", [1, 2])
+@pytest.mark.parametrize("b_dtype", ["float32", "bfloat16"])
+def test_fma_body_exact_on_card(cuda, tiling, slices, b_dtype):
+    """Small integers make every product and sum exact in f32, in any
+    order: each tiling of the f32 body, split or not, with an f32 or (the
+    per-g entry) a bf16 B, equals its plain version bit for bit, off the
+    tile grid in m, n and k."""
+    t = {"skinny": bg.SKINNY, "64": bg.WIDE_64, "128": bg.WIDE_128}[tiling]
+    m = 13 if t == bg.SKINNY else 150
+    per_g = b_dtype == "bfloat16"
+    a, b = _small_ints(3, m, 600, 203, cuda, per_g, TORCH_DT[b_dtype])
+    entry = "block_gemm_batched" if per_g else "band_gemm"
+    c = torch.empty((3, m, 203), device=cuda)
+    n_fma = bg.fma_launches
+    bg._launch(entry, a, b, c, slices=slices, tiling=t)
+    assert bg.fma_launches == n_fma + 1
+    assert torch.equal(c, bg.block_gemm_batched_plain(
+        a, b if per_g else b.expand(3, -1, -1)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+def test_fma_body_long_contraction_on_card(cuda, m):
+    """k = 128,256 (the LM head's dA) in f32: the two-level sum keeps the
+    f32 body within 1e-5 of the plain version, skinny and wide."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    k = 128256
+    a = torch.randn((1, m, k), generator=gen, device=cuda)
+    b = torch.randn((k, 256), generator=gen, device=cuda) / k ** 0.5
+    got = bg.block_gemm_batched_shared(a, b)
+    want = bg.block_gemm_batched_shared_plain(a, b)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,m,k,n", [(1, 512, 512, 512),
+                                     (32, 4, 1024, 512),
+                                     (1, 128, 1024, 256)])
+def test_fma_split_repeatable_on_card(cuda, G, m, k, n):
+    """A split f32 contraction sums its slices in order, without atomics:
+    two launches on the same operands give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn((G, m, k), generator=gen, device=cuda)
+    b = torch.randn((k, n), generator=gen, device=cuda)
+    c1, c2 = (torch.empty((G, m, n), device=cuda) for _ in range(2))
+    n_split = bg.fma_split_launches
+    bg._launch("band_gemm", a, b, c1, slices=2)
+    bg._launch("band_gemm", a, b, c2, slices=2)
+    assert bg.fma_split_launches == n_split + 2
+    assert torch.equal(c1, c2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,m,k,n", [(32, 4, 1024, 512), (32, 4, 512, 1024),
+                                     (5, 3, 333, 77), (4, 40, 256, 64)])
+def test_mixed_entry_equals_promoted_on_card(cuda, G, m, k, n):
+    """The f32 x bf16 entry (the weights as stored, off 16-byte alignment
+    too) gives the bits of the launch on the f32 copy, within 1e-5 of the
+    plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn((G, m, k), generator=gen, device=cuda)
+    w = torch.randn((G, k, n), generator=gen, device=cuda).bfloat16()
+    got = bg.block_gemm_batched(a, w)
+    assert torch.equal(got, bg.block_gemm_batched(a, w.float()))
+    want = bg.block_gemm_batched_plain(a, w)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 # ------------------------------------------------------------- paged decode --
 
 def _paged_inputs(rng, page, H, K, D, lengths):
@@ -592,6 +786,30 @@ def test_flash_kernel_on_card(cuda, S, H, K, D, window, dtype):
                                 window=window, q_offset=0).transpose(1, 2))
     err = float((got.float() - want.float()).abs().max())
     assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q_offset", [-5, 24])
+@pytest.mark.parametrize("G,D", [(1, 64), (2, 128), (4, 128), (8, 64),
+                                 (4, 80), (1, 100)])
+def test_flash_kernel_groups_offsets_on_card(cuda, G, D, q_offset, dtype):
+    """The kernel's blocks over the G query heads of a kv head, at head
+    dims on and off its 32-column grid, with a window and a query offset
+    (negative: the first rows see no key and come out as zeros), against
+    the plain version: 1e-5 in f32, 2^-7 in bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    B, Sq, Sk, K = 2, 70, 100, 2
+    q, k, v = (torch.randn((B, n, S, D), generator=gen, device=cuda)
+               .to(TORCH_DT[dtype]) for n, S in ((G * K, Sq), (K, Sk),
+                                                 (K, Sk)))
+    opts = dict(causal=True, window=40, q_offset=q_offset)
+    got = fa.attend(q, k, v, torch.empty_like(q), **opts)
+    want = fa._attend_plain(q, k, v, **opts)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
+    if q_offset < 0:
+        assert not got[:, :, :-q_offset].any()
 
 
 # ------------------------------------------------- contiguous-cache decode --
