@@ -29,16 +29,21 @@ Phases, each printing JSON lines; any failed check exits non-zero:
 5. decode  -- the contiguous-cache flash-decode kernel against its plain
               version (and, in f32, the reference's ``decode_attention``)
               at the serving shape, with ragged per-request lengths, an
-              8-group GQA case and a 32k-token cache, in f32 and bf16;
-              timed at the serving shape and at the 32k cache beside the
-              plain version, ``scaled_dot_product_attention`` and the
-              bound.
+              8-group GQA case, a 32k-token cache and granite's serving
+              shape, in f32 and bf16, two launches bit for bit, every
+              launch on the cp.async route; timed at llama's and
+              granite's serving shapes and the 32k cache, in f32 and bf16,
+              by events and with the host's gaps hidden, beside the plain
+              version, ``scaled_dot_product_attention`` (its device time
+              too) and the bound.
 6. wkv     -- the WKV-6 kernel against its plain version at the RWKV
               training shape (zero and random incoming state), a prompt
               length off the 32-step chunk grid and S = 1, y and the last
-              state; against the step-exact recurrence at a small shape;
-              timed at the training shape beside the plain version and
-              the bound.
+              state, two launches bit for bit; against the step-exact
+              recurrence at a small shape; timed (bf16, by events and with
+              the host's gaps hidden) at the training, decode and
+              100-token prefill shapes beside the bound, the training
+              shape beside the plain version.
 7. reduced -- ``llama3-8b.reduced()`` fleet serving under the f32 policy
               with a device failure: greedy tokens equal the port's
               monolithic decode, every step verified, tasks recovered.
@@ -119,21 +124,30 @@ Then a ``kernels`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the result line.  ``--phases`` runs a
 subset (for bring-up); the result line needs all of them.
 
-Two more phases run only when named.  ``--phases build,split``: the
-band GEMM's bf16 body at each split count of the contraction, for the
-decode products of llama3-8b and granite-moe-1b-a400m, the LM head's
-training dA and a product that fills the card, each split held against
-the unsplit result and timed with the host's gaps hidden, beside the
-split rule's own count (``block_gemm.split_plan``) and ``torch.matmul``;
-the f32 body at each tiling and split count for 512^3, the MoE decode
-products (f32 A, bf16 B), f32-policy cells' buckets and two full-width
-f32 buckets, beside the rule's pick (``block_gemm.fma_plan``); flash
-attention's block shapes at the training shape.  ``--phases
-build,f32sets``: the f32 kernels' sets as the paths run them, through
-calls every tree of the port offers; with ``--src DIR`` the script
-imports ``repro_torch`` from DIR (the ``src`` of another tree, e.g. the
-parent unpacked with ``git archive`` into the ignored ``build/``), which
-builds its own sources, so two trees are timed in one call.
+Three more phases run only when named.  ``--phases build,split``: the
+flash-decode kernel at split sizes of 256 to 4096 slots with one and two
+blocks an SM (the 32k cell, a 4k-token cache, llama's and granite's
+serving shapes) beside the split rule's own (``decode_splits``); the WKV
+kernel at 1, 2 and 4 column slices (its timed shapes and two small grids)
+beside the rule's (``wkv_slices``), every slice count bit for bit one
+slice; the band GEMM's bf16 body at each split count of the contraction,
+for the decode products of llama3-8b and granite-moe-1b-a400m, the LM
+head's training dA and a product that fills the card, each split held
+against the unsplit result and timed with the host's gaps hidden, beside
+the split rule's own count (``block_gemm.split_plan``) and
+``torch.matmul``; the f32 body at each tiling and split count for 512^3,
+the MoE decode products (f32 A, bf16 B), f32-policy cells' buckets and
+two full-width f32 buckets, beside the rule's pick
+(``block_gemm.fma_plan``); flash attention's block shapes at the training
+shape.  ``--phases build,f32sets``: the f32 kernels' sets as the paths
+run them, through calls every tree of the port offers.  ``--phases
+build,attnsets``: the flash-decode kernel at the decode phase's timed
+shapes and the WKV kernel at its, likewise through calls every tree
+offers (``ops.gqa_flash_decode``, ``ops.wkv6``).  With ``--src DIR`` the
+script imports ``repro_torch`` from DIR (the ``src`` of another tree,
+e.g. the parent unpacked with ``git archive`` into the ignored
+``build/``), which builds its own sources, so two trees are timed in one
+call (``f32sets``, ``attnsets``).
 """
 from __future__ import annotations
 
@@ -154,7 +168,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
           "full", "train_reduced", "train_full", "rwkv_reduced", "rwkv_full",
           "bgemm", "moe_reduced", "moe_full")
-EXTRA_PHASES = ("split", "f32sets")   # run only when named
+EXTRA_PHASES = ("split", "f32sets", "attnsets")   # run only when named
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # FLOP/s, f32 off-core
@@ -666,6 +680,14 @@ DECODE_CASES = (
 )
 
 
+# the shapes at which B5 is timed (every dtype), and B6's: (tag, B, S, H,
+# hd, incoming state)
+DECODE_TIMED = ("serving", "granite_serving", "cache32k")
+WKV_TIMED = (("train", 8, 128, 64, 64, False),
+             ("decode", 4, 1, 64, 64, True),
+             ("prompt100", 4, 100, 64, 64, True))
+
+
 def _decode_bound(B, H, K, D, lengths, esz):
     """Bytes each read once (q f32, the occupied K and V slots, the mask)
     and written once (the output), against 4·G·D operations per occupied
@@ -676,6 +698,26 @@ def _decode_bound(B, H, K, D, lengths, esz):
     return bound_ms(nbytes, 4.0 * ntok * H * D, "float32")
 
 
+def _decode_inputs(dev, gen, B, S, H, K, D, lengths):
+    """A decode case's f32 query and caches and its per-request mask."""
+    import torch
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev)
+    k32 = torch.randn((B, S, K, D), generator=gen, device=dev)
+    v32 = torch.randn((B, S, K, D), generator=gen, device=dev)
+    ln = torch.as_tensor(lengths, device=dev)
+    valid = torch.arange(S, device=dev)[None, :] < ln[:, None]
+    return q, k32, v32, valid
+
+
+def _sdpa_operands(q, k, v, valid, G):
+    """What one ``scaled_dot_product_attention`` call reads for the same
+    function: heads first, K and V repeated G times, a boolean mask."""
+    qh = q.to(k.dtype).transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
+    return qh, kh, vh, valid[:, None, None, :]
+
+
 def phase_decode():
     import torch
     from repro_torch import ieee_f32
@@ -684,18 +726,18 @@ def phase_decode():
     ieee_f32()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"max_abs_err": 0.0, "timed": {}}
+    n0, e0 = dec.flash_decode_launches, dec.flash_decode_element_launches
     for tag, B, S, H, K, D, lengths in DECODE_CASES:
-        q = torch.randn((B, 1, H, D), generator=gen, device=dev)
-        k32 = torch.randn((B, S, K, D), generator=gen, device=dev)
-        v32 = torch.randn((B, S, K, D), generator=gen, device=dev)
-        ln = torch.as_tensor(lengths, device=dev)
-        valid = torch.arange(S, device=dev)[None, :] < ln[:, None]
+        q, k32, v32, valid = _decode_inputs(dev, gen, B, S, H, K, D,
+                                            lengths)
         for name, dt in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
             k, v = k32.to(dt), v32.to(dt)
             got = dec.flash_decode(q, k, v, valid)
             want = dec.flash_decode_plain(q, k, v, valid)
+            again = dec.flash_decode(q, k, v, valid)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             scale = max(1.0, float(want.float().abs().max()))
@@ -705,9 +747,12 @@ def phase_decode():
             row = {"phase": "decode", "case": tag, "dtype": name, "B": B,
                    "Smax": S, "H": H, "K": K, "D": D, "lengths": lengths,
                    "splits": dec.decode_splits(B, K, S),
-                   "max_abs_err": err}
+                   "max_abs_err": err,
+                   "bitwise_repeat": bool(torch.equal(got, again))}
             check(err <= tol * scale, f"flash decode {tag} {name}: max abs "
                   f"err {err:.3g}")
+            check(row["bitwise_repeat"], f"flash decode {tag} {name}: two "
+                  "launches differ")
             if name == "float32":
                 # the model's own function (normalised p, rounded q): the
                 # same in f32 up to summation order
@@ -716,30 +761,39 @@ def phase_decode():
                 check(row["vs_decode_attention"] <= tol * scale,
                       f"flash decode {tag}: off decode_attention {row}")
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-            if tag in ("serving", "cache32k") and (
-                    name == "bfloat16" or tag == "serving"):
-                G = H // K
-                row["kernel_ms"] = time_ms(
-                    lambda: dec.flash_decode(q, k, v, valid), iters=20)
-                row["plain_ms"] = time_ms(
-                    lambda: dec.flash_decode_plain(q, k, v, valid), iters=3,
-                    reps=3)
-                qh = q.to(dt).transpose(1, 2)
-                kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
-                vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
-                mask = valid[:, None, None, :]
+            if tag in DECODE_TIMED:
+                def kernel():
+                    return dec.flash_decode(q, k, v, valid)
+                row["kernel_ms"] = time_ms(kernel, iters=20)
+                row["device_ms"] = time_ms(kernel, iters=20, hide_host=True)
+                if (tag, name) in (("serving", "float32"),
+                                   ("cache32k", "bfloat16")):
+                    row["plain_ms"] = time_ms(
+                        lambda: dec.flash_decode_plain(q, k, v, valid),
+                        iters=3, reps=3)
+                qh, kh, vh, mask = _sdpa_operands(q, k, v, valid, H // K)
                 row["library_ms"] = time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=mask), iters=20)
-                del kh, vh
+                    lambda: sdpa(qh, kh, vh, attn_mask=mask), iters=20)
+                row["library_device_ms"] = time_ms(
+                    lambda: sdpa(qh, kh, vh, attn_mask=mask), iters=20,
+                    hide_host=True)
+                del qh, kh, vh
                 row["bound_ms"], row["bound_by"] = _decode_bound(
                     B, H, K, D, lengths, k.element_size())
                 out["timed"][f"{tag}_{name}"] = {
-                    k_: row[k_] for k_ in ("kernel_ms", "plain_ms",
-                                           "library_ms", "bound_ms",
-                                           "bound_by")}
+                    k_: row[k_] for k_ in (
+                        "kernel_ms", "device_ms", "plain_ms", "library_ms",
+                        "library_device_ms", "bound_ms", "bound_by")
+                    if k_ in row}
             emit(row)
             del k, v
+    # every case's caches meet the 16-byte rule: all on the cp.async route
+    out["launches_by_route"] = {
+        "cp_async16": dec.flash_decode_launches - n0
+        - (dec.flash_decode_element_launches - e0),
+        "element": dec.flash_decode_element_launches - e0}
+    check(out["launches_by_route"]["element"] == 0,
+          f"flash decode: {out['launches_by_route']}")
     return out
 
 
@@ -757,6 +811,30 @@ def _wkv_flops(B, S, H, hd, chunk):
     return B * H * tot
 
 
+def _wkv_inputs(dev, gen, B, S, H, hd, dt, state):
+    """r, k, v in ``dt``; the model's decays w = exp(-exp(w0 + lora)) with
+    w0 = -2; a small bonus u; a random incoming state or None."""
+    import torch
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+               .to(dt) for _ in range(3))
+    ww = -2.0 + 0.5 * torch.randn((B, S, H, hd), generator=gen, device=dev)
+    w = torch.exp(-torch.exp(ww))
+    u = 0.1 * torch.randn((H, hd), generator=gen, device=dev)
+    s0 = torch.randn((B, H, hd, hd), generator=gen, device=dev) \
+        if state else None
+    return r, k, v, w, u, s0
+
+
+def _wkv_bound(r, w, B, S, H, hd, state):
+    """r, k, v (their type), w (f32), u and the incoming state read once,
+    y and the last state written once, against the chunked form's
+    operations in f32."""
+    nbytes = r.numel() * r.element_size() * 3 \
+        + 4 * (w.numel() + B * S * H * hd + (1 + state) * B * H * hd * hd
+               + H * hd)
+    return bound_ms(nbytes, _wkv_flops(B, S, H, hd, 32), "float32")
+
+
 def phase_wkv():
     import torch
     from repro_torch import ieee_f32
@@ -765,19 +843,9 @@ def phase_wkv():
     ieee_f32()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    out = {"max_rel_err": 0.0}
-
-    def inputs(B, S, H, hd, dt, state):
-        r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
-                   .to(dt) for _ in range(3))
-        # the model's decays: exp(-exp(w0 + lora)), w0 = -2
-        ww = -2.0 + 0.5 * torch.randn((B, S, H, hd), generator=gen,
-                                      device=dev)
-        w = torch.exp(-torch.exp(ww))
-        u = 0.1 * torch.randn((H, hd), generator=gen, device=dev)
-        s0 = torch.randn((B, H, hd, hd), generator=gen, device=dev) \
-            if state else None
-        return r, k, v, w, u, s0
+    out = {"max_rel_err": 0.0, "timed": {}}
+    timed = {t[0] for t in WKV_TIMED}
+    e0 = wkv.element_launches
 
     # (tag, B, S, H, hd, incoming state): the training shape, a prefill
     # of 100 (three chunks of 32 and one of 4), the decode step
@@ -787,40 +855,49 @@ def phase_wkv():
                                     ("decode", 4, 1, 64, 64, True)):
         for name, dt in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-            r, k, v, w, u, s0 = inputs(B, S, H, hd, dt, state)
+            r, k, v, w, u, s0 = _wkv_inputs(dev, gen, B, S, H, hd, dt, state)
             y, s_last = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32)
             yp, sp = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=32)
+            y2, s2 = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32)
             torch.cuda.synchronize()
             ey = float((y - yp).abs().max() / yp.abs().max())
             es = float((s_last - sp).abs().max() / sp.abs().max())
             row = {"phase": "wkv", "case": tag, "dtype": name, "B": B,
                    "S": S, "H": H, "hd": hd, "state_in": state,
+                   "slices": wkv.wkv_slices(B, H, S),
                    "y_rel_err": ey, "s_last_rel_err": es,
-                   "y_max_abs_err": float((y - yp).abs().max())}
+                   "y_max_abs_err": float((y - yp).abs().max()),
+                   "bitwise_repeat": bool(torch.equal(y, y2)
+                                          and torch.equal(s_last, s2))}
             # both sides read the same values and compute the same chunked
             # form in f32, summing in another order
             check(ey <= 1e-5 and es <= 1e-5,
                   f"wkv {tag} {name}: rel err y {ey:.3g}, s_last {es:.3g}")
+            check(row["bitwise_repeat"], f"wkv {tag} {name}: two launches "
+                  "differ")
             out["max_rel_err"] = max(out["max_rel_err"], ey, es)
-            if tag == "train" and name == "bfloat16":
-                out["max_abs_err"] = row["y_max_abs_err"]
-                row["kernel_ms"] = time_ms(
-                    lambda: wkv.wkv6(r, k, v, w, u, chunk=32))
-                row["plain_ms"] = time_ms(
-                    lambda: wkv.wkv6_plain(r, k, v, w, u, None, chunk=32),
-                    iters=3, reps=3)
+            if tag in timed and name == "bfloat16":
+
+                def kernel():
+                    return wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32)
+                row["kernel_ms"] = time_ms(kernel)
+                row["device_ms"] = time_ms(kernel, hide_host=True)
+                if tag == "train":
+                    out["max_abs_err"] = row["y_max_abs_err"]
+                    row["plain_ms"] = time_ms(
+                        lambda: wkv.wkv6_plain(r, k, v, w, u, None,
+                                               chunk=32), iters=3, reps=3)
                 row["library_ms"] = None     # no single PyTorch call
-                nbytes = r.numel() * 2 * 3 + 4 * (w.numel() + y.numel()
-                                                  + s_last.numel() + u.numel())
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    nbytes, _wkv_flops(B, S, H, hd, 32), "float32")
-                out.update({k_: row[k_] for k_ in (
-                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by")})
+                row["bound_ms"], row["bound_by"] = _wkv_bound(
+                    r, w, B, S, H, hd, state)
+                out["timed"][tag] = {k_: row[k_] for k_ in (
+                    "kernel_ms", "device_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "slices") if k_ in row}
             emit(row)
-            del r, k, v, w, y, yp
+            del r, k, v, w, y, yp, y2
     # the step-exact recurrence, at the reference test's own tolerance
-    r, k, v, w, u, _ = inputs(2, 64, 2, 16, torch.float32, False)
+    r, k, v, w, u, _ = _wkv_inputs(dev, gen, 2, 64, 2, 16, torch.float32,
+                                   False)
     y, _ = wkv.wkv6(r, k, v, w, u, chunk=16)
 
     def flat(x):
@@ -831,6 +908,8 @@ def phase_wkv():
     emit({"phase": "wkv", "case": "step_exact", "ok": ok,
           "max_abs_err": float((flat(y) - want).abs().max())})
     check(ok, "wkv: off the step-exact recurrence")
+    check(wkv.element_launches == e0, "wkv: a launch took the element route")
+    out.update(out["timed"]["train"])
     return out
 
 
@@ -910,7 +989,7 @@ def phase_full(cfg):
 
     bg.launches = 0
     dec.launches = 0
-    dec.flash_decode_launches = 0
+    dec.flash_decode_launches = dec.flash_decode_element_launches = 0
     fa.launches = 0
     reset_body_counts()
     t0 = time.perf_counter()
@@ -925,7 +1004,11 @@ def phase_full(cfg):
     # kernel, one launch per layer
     launches = {"band_gemm": bg.launches, "paged_decode": dec.launches,
                 "flash_attention": fa.launches,
-                "flash_decode": dec.flash_decode_launches}
+                "flash_decode": dec.flash_decode_launches,
+                "flash_decode_by_route": {
+                    "cp_async16": dec.flash_decode_launches
+                    - dec.flash_decode_element_launches,
+                    "element": dec.flash_decode_element_launches}}
     bodies = check_bf16_body("full width", audit)
 
     # the first step against the port's monolithic decode on the same
@@ -984,8 +1067,12 @@ def phase_full(cfg):
     # another order; a flipped last bit (2^-8 relative) now and then,
     # carried through 4 layers, stays well under 2% of the logits' norm
     check(rel_l2 <= 2e-2, f"full width: first-step logits rel L2 {rel_l2}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(v > 0 for k_, v in launches.items()
+              if k_ != "flash_decode_by_route"),
           f"full width: a kernel was not launched: {launches}")
+    check(launches["flash_decode_by_route"]["element"] == 0,
+          f"full width: a flash-decode launch took the element route "
+          f"{launches['flash_decode_by_route']}")
     check(launches["flash_decode"] == n_steps * cfg.n_layers,
           f"full width: {launches['flash_decode']} flash-decode launches in "
           f"{n_steps} steps of {cfg.n_layers} layers")
@@ -1407,7 +1494,7 @@ def phase_rwkv_full(cfg):
         sess = rt.train_session(opt_cfg, backend="torch",
                                 dtype_policy="bf16", **chunks)
     rows = []
-    wkv.launches = 0
+    wkv.launches = wkv.element_launches = 0
     bg.launches = 0
     reset_body_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1478,6 +1565,9 @@ def phase_rwkv_full(cfg):
     # steps on each path, one launch per layer each
     check(serve_wkv == (1 + 16 + 2 * 8) * cfg.n_layers,
           f"rwkv_full: {serve_wkv} WKV launches in serving")
+    check(wkv.element_launches == 0,
+          f"rwkv_full: {wkv.element_launches} WKV launches took the element "
+          "route")
     # the chunked and the one-step forms round differently in bf16
     check(rel_l2 <= 2e-2, f"rwkv_full: first decode step's logits rel L2 "
           f"{rel_l2}")
@@ -1743,8 +1833,85 @@ F32_SPLIT_SHAPES = ((1, 512, 512, 512, False, "float32"),
 F32_SPLIT_COUNTS = (1, 2, 3, 4, 6, 8)
 
 
+# B5's split sweep: the 32k cell, a 4k-token cache, llama's and granite's
+# serving shapes (tag, B, Smax, H, K, D, lengths), bf16
+DECODE_SPLIT_CASES = (
+    ("cache32k", 4, 32768, 32, 8, 128, [32768, 30000, 32768, 20000]),
+    ("cache4k", 4, 4096, 32, 8, 128, [4096, 3000, 4096, 2000]),
+    ("serving", 4, 32, 32, 8, 128, [17, 18, 19, 24]),
+    ("granite_serving", 4, 32, 16, 8, 64, [17, 18, 19, 24]))
+DECODE_SPLITS = (256, 512, 1024, 2048, 4096)
+
+
+def split_decode():
+    """B5 at each split size (256 to 4096 slots, those under Smax, and the
+    rule's own) with one and two blocks an SM, each held against the plain
+    version cut alike, device times with the host's gaps hidden."""
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for tag, B, S, H, K, D, lengths in DECODE_SPLIT_CASES:
+        q, k32, v32, valid = _decode_inputs(dev, gen, B, S, H, K, D,
+                                            lengths)
+        k, v = k32.bfloat16(), v32.bfloat16()
+        del k32, v32
+        rule = dec.decode_splits(B, K, S)[0]
+        row = {"phase": "split", "kernel": "flash_decode", "case": tag,
+               "B": B, "Smax": S, "H": H, "K": K, "D": D,
+               "rule_split": rule, "ms_by_split_blocks": {}}
+        for split in sorted({x for x in DECODE_SPLITS if x < S} | {rule}):
+            want = dec.flash_decode_plain(q, k, v, valid, split=split)
+            for one in (False, True):
+                got = dec.flash_decode(q, k, v, valid, _split=split,
+                                       _one_block_per_sm=one)
+                err = float((got.float() - want.float()).abs().max())
+                check(err <= 1e-2 * max(1.0, float(want.float().abs().max())),
+                      f"split flash_decode {tag} {split}: err {err:.3g}")
+                row["ms_by_split_blocks"][f"{split}/{1 if one else 2}"] = \
+                    time_ms(lambda: dec.flash_decode(
+                        q, k, v, valid, _split=split,
+                        _one_block_per_sm=one), iters=20, hide_host=True)
+        emit(row)
+        del q, k, v
+
+
+# B6's slice sweep: the timed shapes and two small grids (one request's
+# decode step and prefill: 64 (batch, head) rows on 132 SMs)
+WKV_SPLIT_CASES = WKV_TIMED + (("decode_b1", 1, 1, 64, 64, True),
+                               ("prompt100_b1", 1, 100, 64, 64, True))
+
+
+def split_wkv():
+    """B6 at each column-slice count (1, 2, 4) at the timed shapes and two
+    small grids (bf16), every count equal bit for bit to one slice, device
+    times with the host's gaps hidden beside the rule's pick."""
+    import torch
+    from repro_torch.kernels import wkv6 as wkv
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for tag, B, S, H, hd, state in WKV_SPLIT_CASES:
+        r, k, v, w, u, s0 = _wkv_inputs(dev, gen, B, S, H, hd,
+                                        torch.bfloat16, state)
+        base = wkv.wkv6(r, k, v, w, u, s0=s0, _slices=1)
+        row = {"phase": "split", "kernel": "wkv6", "case": tag, "B": B,
+               "S": S, "H": H, "hd": hd,
+               "rule_slices": wkv.wkv_slices(B, H, S), "ms_by_slices": {}}
+        for n in wkv.SLICES:
+            got = wkv.wkv6(r, k, v, w, u, s0=s0, _slices=n)
+            check(torch.equal(got[0], base[0]) and torch.equal(got[1],
+                                                               base[1]),
+                  f"split wkv {tag}: {n} slices differ from one")
+            row["ms_by_slices"][n] = time_ms(
+                lambda: wkv.wkv6(r, k, v, w, u, s0=s0, _slices=n),
+                hide_host=True)
+        emit(row)
+
+
 def phase_split():
-    """Device time of the bf16 body at each split count of the
+    """B5's split sizes and B6's column slices (:func:`split_decode`,
+    :func:`split_wkv`).  Then the device time of the bf16 body at each
+    split count of the
     contraction (at most one slice per KSPAN span), beside the rule's own
     count and one ``torch.matmul``; every split held against the unsplit
     result (1e-5 relative).  Then the f32 body at each of its tilings and
@@ -1753,6 +1920,8 @@ def phase_split():
     version)."""
     import torch
     from repro_torch.kernels import block_gemm as bg
+    split_decode()
+    split_wkv()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for G, m, k, n, per_g in SPLIT_SHAPES:
@@ -1891,6 +2060,47 @@ def phase_f32sets(moe_cfg):
     v = torch.randn((B, S, K, D), generator=gen, device=dev)
     out["flash_train"] = both(lambda: ops.mha_flash(q, k, v, causal=True))
     emit({"phase": "f32sets", **out})
+
+
+def phase_attnsets():
+    """B5 and B6 at their timed shapes through calls every tree of the port
+    offers (``ops.gqa_flash_decode``, ``ops.wkv6``), by events (``ms``) and
+    with the host's gaps hidden (``device_ms``), so that ``--src`` times an
+    older tree beside this one: B5 at the 32k cell, llama's and granite's
+    serving shapes, each in f32 and bf16; B6 at the training, decode and
+    100-token prefill shapes in bf16."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {"src": os.path.dirname(os.path.dirname(repro_torch.__file__))}
+    for tag, B, S, H, K, D, lengths in DECODE_CASES:
+        if tag not in DECODE_TIMED:
+            continue
+        q, k32, v32, valid = _decode_inputs(dev, gen, B, S, H, K, D,
+                                            lengths)
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            k, v = k32.to(dt), v32.to(dt)
+
+            def kernel():
+                return ops.gqa_flash_decode(q, k, v, valid)
+            out[f"flash_decode_{tag}_{name}"] = {
+                "ms": time_ms(kernel, iters=20),
+                "device_ms": time_ms(kernel, iters=20, hide_host=True)}
+            del k, v
+        del q, k32, v32
+    for tag, B, S, H, hd, state in WKV_TIMED:
+        r, k, v, w, u, s0 = _wkv_inputs(dev, gen, B, S, H, hd,
+                                        torch.bfloat16, state)
+
+        def kernel():
+            return ops.wkv6(r, k, v, w, u, s0=s0, chunk=32)
+        out[f"wkv6_{tag}_bfloat16"] = {
+            "ms": time_ms(kernel), "device_ms": time_ms(kernel,
+                                                        hide_host=True)}
+    emit({"phase": "attnsets", **out})
 
 
 @contextlib.contextmanager
@@ -2293,7 +2503,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default="",
                     help="the src directory whose repro_torch to import "
                          "(default: this checkout's), to time an older "
-                         "tree's kernels (the f32sets phase)")
+                         "tree's kernels (the f32sets and attnsets "
+                         "phases)")
     args = ap.parse_args(argv)
     if args.src:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -2338,6 +2549,8 @@ def main(argv=None) -> int:
         phase_split()
     if "f32sets" in phases:
         phase_f32sets(moe_full)
+    if "attnsets" in phases:
+        phase_attnsets()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2408,7 +2621,10 @@ def main(argv=None) -> int:
             {"name": "flash_decode", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_decode.cu",
              "replaces": "src/repro/kernels/decode_attention.py:144",
+             "redesigned": "a 4-stage cp.async K/V ring, each key scored "
+                           "once for all G rows",
              "launches": launches["flash_decode"],
+             "launches_by_route": launches["flash_decode_by_route"],
              "ms_of": "one launch at the serving path's shape (4 requests, "
                       "cache of 32, f32 pools)",
              "max_abs_err": decode["max_abs_err"],
@@ -2416,17 +2632,26 @@ def main(argv=None) -> int:
              "bound_ms": dec_serve["bound_ms"],
              "bound_by": dec_serve["bound_by"],
              "library_ms": dec_serve["library_ms"],
-             "cache_32k_bf16": dec_long},
+             "device_ms": dec_serve["device_ms"],
+             "library_device_ms": dec_serve["library_device_ms"],
+             "cache_32k_bf16": dec_long,
+             **{k_: v_ for k_, v_ in decode["timed"].items()
+                if k_ not in ("serving_float32", "cache32k_bfloat16")}},
             {"name": "wkv6", "route": "cuda",
              "source": "src/repro_torch/csrc/wkv6.cu",
              "replaces": "src/repro/kernels/wkv6.py:66",
+             "redesigned": "state in registers, 4 x 4 register tiles, "
+                           "column slices, cp.async prefetch",
              "launches": rwkv["training"],
              "launches_serving": rwkv["serving"],
              "ms_of": "one launch at the RWKV training shape (B 8, S 128, "
                       "64 heads of 64, bf16 r/k/v)",
              "max_abs_err": wkv["max_abs_err"], "ms": wkv["kernel_ms"],
              "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
-             "bound_by": wkv["bound_by"], "library_ms": wkv["library_ms"]},
+             "bound_by": wkv["bound_by"], "library_ms": wkv["library_ms"],
+             "device_ms": wkv["device_ms"], "slices": wkv["slices"],
+             "decode": wkv["timed"]["decode"],
+             "prompt100": wkv["timed"]["prompt100"]},
             {"name": "block_gemm_batched", "route": "cuda",
              "source": "src/repro_torch/csrc/band_gemm.cu",
              "replaces": "src/repro/kernels/block_gemm.py:92",

@@ -23,6 +23,7 @@ from repro_torch.kernels.ref import NEG_INF, paged_decode_ref
 
 launches = 0                 # paged kernel launches since the last reset
 flash_decode_launches = 0    # contiguous-cache kernel launches, likewise
+flash_decode_element_launches = 0   # of which took the element route
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -103,25 +104,56 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
 # ------------------------------------------------- contiguous-cache decode --
 
 SPLIT_MAX = 1024             # cache slots per block of the kernel
+SPLIT_QUANTUM = 64           # splits are multiples of this many slots
 _SPLIT_BLOCKS = 264          # blocks to aim for: two per SM of an H100
 GROUPS_MAX = 16              # query heads per kv head the kernel takes
-_THREADS = 256
+# shared with csrc/flash_decode.cu
+THREADS = 256                # threads of a block
+WARPS = THREADS // 32
+STAGES = 4                   # the K/V ring's depth
+STAGE_CHUNKS = 4             # 16-byte slices a thread copies a tile
+SMEM_MAX = 232448            # an H100 block's dynamic shared memory
+_ONE_BLOCK_SMEM = 120 * 1024  # shared memory that leaves one block an SM
 _DEC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_float] \
-    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_float] \
+    + [ctypes.c_longlong] * 2 + [ctypes.POINTER(ctypes.c_longlong)] \
+    + [ctypes.c_int] * 2
 
 
 def decode_splits(B: int, K: int, S: int):
     """``(split, nsplit)``: the key axis of each (request, kv head) is cut
     into ``nsplit`` splits of ``split`` slots (the last one ragged), enough
-    of them that B·K·nsplit blocks fill the card, each a multiple of 64
-    slots and at most :data:`SPLIT_MAX`.  The kernel and
-    :func:`flash_decode_plain` cut alike, so they round alike."""
+    of them that B·K·nsplit blocks fill the card, each a multiple of
+    :data:`SPLIT_QUANTUM` slots and at most :data:`SPLIT_MAX`.  The kernel
+    and :func:`flash_decode_plain` cut alike, so they round alike."""
     want = max(1, -(-_SPLIT_BLOCKS // max(B * K, 1)))
-    ns = max(1, min(want, -(-S // 64)))
+    ns = max(1, min(want, -(-S // SPLIT_QUANTUM)))
     split = -(-S // ns)
-    split = min(-(-split // 64) * 64, SPLIT_MAX)
+    split = min(-(-split // SPLIT_QUANTUM) * SPLIT_QUANTUM, SPLIT_MAX)
     return split, max(1, -(-S // split))
+
+
+def padded_head_dim(D: int, element_size: int) -> int:
+    """D as the kernel lays it out: at least one 16-byte row slice."""
+    return max(D, 16 // element_size)
+
+
+def group_bucket(G: int) -> int:
+    """The kernel's instantiation for G query rows (2, 4, 8 or 16)."""
+    return next(b for b in (2, 4, 8, 16) if G <= b)
+
+
+def decode_smem(G: int, D: int, element_size: int, split: int) -> int:
+    """Dynamic shared-memory bytes of a block of the kernel: the ring of
+    STAGES tiles (whose space later sums the p·V shares), the split's
+    scores (split x GB f32), the scaled queries, the row partials, the
+    warps' last slots and the split's mask."""
+    DP = padded_head_dim(D, element_size)
+    GB = group_bucket(G)
+    cpt = min(STAGE_CHUNKS, DP * element_size // 16)
+    region = max(STAGES * THREADS * cpt * 16, THREADS * 16 * G)
+    return region + 4 * (split * GB + GB * DP + 2 * WARPS * GB + WARPS) \
+        + split
 
 
 def _valid_rows(valid, B, S):
@@ -133,16 +165,20 @@ def _valid_rows(valid, B, S):
                      f"({B}, {S}); got {tuple(valid.shape)}")
 
 
-def flash_decode_plain(q, k_cache, v_cache, valid):
+def flash_decode_plain(q, k_cache, v_cache, valid, *, split=None):
     """Plain version of :func:`flash_decode` (same arguments): per split of
-    :func:`decode_splits`, scores of the f32-scaled query in f32, the
-    split's max m, p = exp(s - m)·valid rounded to the cache type before
-    the p·V product, then the splits combined with weights exp(m_i - max
-    m); the output acc / max(l, 1e-30) in the cache type."""
+    :func:`decode_splits` (or of ``split`` slots), scores of the f32-scaled
+    query in f32, the split's max m, p = exp(s - m)·valid rounded to the
+    cache type before the p·V product, then the splits combined with
+    weights exp(m_i - max m); the output acc / max(l, 1e-30) in the cache
+    type."""
     B, _, H, D = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     G = H // K
-    split, ns = decode_splits(B, K, S)
+    if split is None:
+        split, ns = decode_splits(B, K, S)
+    else:
+        ns = -(-S // split)
     pad = split * ns - S
     qf = q.float().reshape(B, K, G, D) * (1.0 / math.sqrt(D))
     s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
@@ -171,23 +207,42 @@ def flash_decode_plain(q, k_cache, v_cache, valid):
 def _flash_kernel(dtype):
     from repro_torch.kernels import _build
     lib = _build.load("flash_decode")
-    fn = lib.flash_decode_bf16 if dtype == torch.bfloat16 \
-        else lib.flash_decode_f32
-    fn.argtypes = _DEC_ARGS
+    if dtype == torch.bfloat16:
+        fn = lib.flash_decode_bf16
+        fn.argtypes = _DEC_ARGS + [ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = lib.flash_decode_f32
+        fn.argtypes = _DEC_ARGS + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _cp_async_route(k_cache, v_cache) -> bool:
+    """The 16-byte cp.async route's rule: both caches' base addresses,
+    (b, s, k) strides and rows of D elements are multiples of 16 bytes;
+    otherwise the element route."""
+    esz = k_cache.element_size()
+    if (k_cache.shape[3] * esz) % 16:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all((x * esz) % 16 == 0 for x in t.stride()[:3])
+               for t in (k_cache, v_cache))
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+                 v_cache: torch.Tensor, valid: torch.Tensor, *,
+                 _split=None, _one_block_per_sm=False) -> torch.Tensor:
     """q: (B, 1, H, D); k_cache/v_cache: (B, Smax, K, D), float32 or
     bfloat16 of one type, H % K == 0; valid: (Smax,) or (B, Smax) bool.
     Returns (B, 1, H, D) in the cache type.  Query head h reads kv head
-    h // (H // K) by index; the caches are read through their strides
-    (unit stride along D).  A row with no valid slot gives zeros, as the
-    TPU kernel's does (``models.attention.decode_attention`` gives the
-    mean of V there; ``decode_step`` never forms such a row)."""
-    global flash_decode_launches
+    h // (H // K) by index; q, the caches and the mask are read through
+    their strides (unit stride along D and Smax).  A row with no valid slot
+    gives zeros, as the TPU kernel's does
+    (``models.attention.decode_attention`` gives the mean of V there;
+    ``decode_step`` never forms such a row).  ``_split`` (slots a split)
+    and ``_one_block_per_sm`` override the split rule and the occupancy,
+    for the measurement of :func:`decode_splits` only."""
+    global flash_decode_launches, flash_decode_element_launches
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
             or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != q.shape[0] \
@@ -201,46 +256,63 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     S, K = k_cache.shape[1], k_cache.shape[2]
     G = H // K
     _valid_rows(valid, B, S)             # checks the mask's shape
-    devs = {t.device for t in (q, k_cache, v_cache, valid)}
-    if len(devs) != 1:
-        raise ValueError(f"operands on several devices: {devs}")
+    if not (q.device == k_cache.device == v_cache.device == valid.device):
+        raise ValueError(f"operands on several devices: "
+                         f"{ {t.device for t in (q, k_cache, v_cache, valid)} }")
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, valid)
+        return flash_decode_plain(q, k_cache, v_cache, valid, split=_split)
     if q.device.type != "cuda":
         raise ValueError(f"flash decode runs on cuda or cpu, not {q.device}")
-    if k_cache.dtype != v_cache.dtype \
-            or k_cache.dtype not in (torch.float32, torch.bfloat16):
+    dt = k_cache.dtype
+    if v_cache.dtype != dt or dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"caches must be float32 or bfloat16 of one type; "
-                         f"got {k_cache.dtype}/{v_cache.dtype}")
+                         f"got {dt}/{v_cache.dtype}")
     if valid.dtype != torch.bool:
         raise ValueError(f"valid must be bool, not {valid.dtype}")
     if k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("flash decode needs unit stride along D")
-    if G > GROUPS_MAX or D > _THREADS or _THREADS % D:
+    if G > GROUPS_MAX or D > THREADS or THREADS % D:
         raise ValueError(f"flash decode takes up to {GROUPS_MAX} query heads "
-                         f"per kv head and D dividing {_THREADS}; got G={G}, "
+                         f"per kv head and D dividing {THREADS}; got G={G}, "
                          f"D={D}")
     if B > 65535 or S == 0:
         raise ValueError(f"flash decode needs 0 < Smax and B <= 65535; got "
                          f"B={B}, Smax={S}")
-    split, ns = decode_splits(B, K, S)
-    smem = 4 * (G * D + G * split + G * _THREADS + 2 * G)
-    qf = q.float().reshape(B, K, G, D).contiguous()
-    vrow = valid.contiguous().view(torch.uint8)
-    out = torch.empty((B, 1, H, D), dtype=v_cache.dtype, device=q.device)
-    part = torch.empty((B * K * ns * (G * D + 2 * G),) if ns > 1 else (1,),
-                       dtype=torch.float32, device=q.device)
+    if _split is None:
+        split, ns = decode_splits(B, K, S)
+    else:
+        split, ns = _split, -(-S // _split)
+    esz = k_cache.element_size()
+    smem = decode_smem(G, D, esz, split)
+    if _one_block_per_sm:
+        smem = max(smem, _ONE_BLOCK_SMEM)
+    if smem > SMEM_MAX or split % 4:
+        raise ValueError(f"flash decode: a split of {split} slots needs "
+                         f"{smem} B of shared memory (limit {SMEM_MAX})")
+    if q.dtype not in (torch.float32, dt) or q.stride(3) != 1:
+        q = q.float().contiguous()
+    if valid.stride(-1) != 1:
+        valid = valid.contiguous()
+    async16 = _cp_async_route(k_cache, v_cache)
+    out = torch.empty((B, 1, H, D), dtype=dt, device=q.device)
+    part = torch.empty((B * K * ns * (G * D + 2 * G),), dtype=torch.float32,
+                       device=q.device) if ns > 1 else out
     strides = (ctypes.c_longlong * 6)(
-        *(s_ for t in (k_cache, v_cache)
-          for s_ in (t.stride(0), t.stride(1), t.stride(2))))
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2))
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            valid.data_ptr(), valid.stride(0) if valid.dim() == 2 else 0,
+            out.data_ptr(), part.data_ptr(), B, K, G, D,
+            padded_head_dim(D, esz), S, split, ns, 1.0 / math.sqrt(D),
+            q.stride(0), q.stride(2), strides, int(async16), smem)
+    if dt == torch.bfloat16:
+        args += (int(q.dtype == torch.bfloat16),)
     with torch.cuda.device(q.device):
-        err = _flash_kernel(k_cache.dtype)(
-            qf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            vrow.data_ptr(), S if valid.dim() == 2 else 0, out.data_ptr(),
-            part.data_ptr(), B, K, G, D, S, split, ns, 1.0 / math.sqrt(D),
-            strides, smem, torch.cuda.current_stream(q.device).cuda_stream)
+        err = _flash_kernel(dt)(
+            *args, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
     flash_decode_launches += 1
+    flash_decode_element_launches += not async16
     return out

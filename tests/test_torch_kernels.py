@@ -928,6 +928,155 @@ def test_flash_decode_kernel_on_card(cuda, B, S, H, K, D, dtype):
     assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
 
 
+@pytest.mark.parametrize("B,K,S", [(4, 8, 32), (4, 8, 32768), (1, 8, 4096),
+                                   (2, 2, 5000), (3, 1, 3000), (1, 1, 1),
+                                   (64, 8, 200), (1, 1, 100000)])
+def test_decode_splits_properties(B, K, S):
+    """The split rule: splits are multiples of SPLIT_QUANTUM slots, at most
+    SPLIT_MAX, cover the cache with the last one ragged (no empty split),
+    and a block's shared memory fits at every group count the kernel
+    takes."""
+    split, ns = dec.decode_splits(B, K, S)
+    assert split % dec.SPLIT_QUANTUM == 0 and 0 < split <= dec.SPLIT_MAX
+    assert split * ns >= S > split * (ns - 1)
+    for G in (1, 2, 4, 8, 16):
+        for D, esz in ((64, 2), (128, 2), (128, 4), (256, 4), (8, 2)):
+            assert dec.decode_smem(G, D, esz, split) <= dec.SMEM_MAX
+
+
+def test_decode_shared_constants_match_the_cuda_source():
+    """The constants the flash-decode wrapper shares with
+    ``csrc/flash_decode.cu`` (threads, ring depth, slices a thread copies,
+    the group cap and the shared-memory limit), and its shared-memory
+    size, read from the source as text."""
+    import re
+    from pathlib import Path
+    src = (Path(dec.__file__).resolve().parents[1] / "csrc"
+           / "flash_decode.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("THREADS") == dec.THREADS
+    assert const("STAGES") == dec.STAGES
+    assert const("STAGE_CHUNKS") == dec.STAGE_CHUNKS
+    assert const("GROUPS_MAX") == dec.GROUPS_MAX
+    assert const("SMEM_MAX") == dec.SMEM_MAX
+    # the kernel's carve-up: region, then (split, GB) + (GB, DP) + (2,
+    # WARPS, GB) floats, WARPS ints, split mask bytes
+    assert "float* qs = sc + split * GB;" in src
+    assert "float* wred = qs + GB * DP;" in src
+    assert "int* wlast = reinterpret_cast<int*>(wred + 2 * WARPS * GB);" \
+        in src
+    assert "ok = reinterpret_cast<unsigned char*>(wlast + WARPS);" in src
+    assert "max(STAGES * geo.stage, THREADS * 16 * G)" in src
+    # 32k cell, G 4, D 128, bf16: the ring (64 KB) and 2 blocks an SM
+    split, _ = dec.decode_splits(4, 8, 32768)
+    assert dec.decode_smem(4, 128, 2, split) <= 113 * 1024
+
+
+@pytest.mark.parametrize("split", [64, 192, 1024])
+def test_flash_decode_plain_forced_split(split, rng):
+    """A forced split (the split sweep's) cuts the plain version alike:
+    against the reference's ``decode_attention``, 2e-4."""
+    B, S, H, K, D = 2, 1000, 8, 2, 32
+    q, k, v = _decode_inputs(rng, B, S, H, K, D)
+    valid = np.arange(S)[None, :] < np.asarray([S, 333])[:, None]
+    want = jattn.decode_attention(*(jnp.asarray(x) for x in (q, k, v, valid)))
+    got = dec.flash_decode(*(torch.from_numpy(x) for x in (q, k, v, valid)),
+                           _split=split)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def _decode_case(dev, gen, B, S, H, K, D, dtype, lens, per_request,
+                 strided):
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev)
+    if strided:     # a layer of a stacked (L, B, Smax, K, D) cache, and
+        # a (B, Smax, 2K, D) buffer whose K heads are every other one
+        kv = torch.randn((2, B, S, 2 * K, D), generator=gen, device=dev) \
+            .to(dtype)
+        k, v = kv[0, :, :, ::2], kv[1, :, :, 1::2]
+    else:
+        k, v = (torch.randn((B, S, K, D), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+    ln = torch.as_tensor(lens, device=dev)
+    valid = torch.arange(S, device=dev)[None, :] < ln[:, None]
+    if not per_request:
+        valid = valid[0]
+    return q, k, v, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ["one_split", "many_splits", "shared_mask",
+                                  "strided"])
+def test_flash_decode_groups_masks_strides_on_card(cuda, case, D, G, dtype):
+    """B5 at G 1-16, D 64 and 128, f32 and bf16: one split (Smax 40) and
+    many (Smax 5000), lengths 1 and Smax, a per-request or a shared mask,
+    a strided cache view; against the plain version at its tolerance, the
+    launch counted on the route the strides pick, and two launches equal
+    bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(G * D)
+    K = 2
+    B, S = (3, 40) if case == "one_split" else (3, 5000)
+    lens = [1, S, S // 2 + 3] if case != "shared_mask" else [S - 7] * 3
+    q, k, v, valid = _decode_case(cuda, gen, B, S, G * K, K, D,
+                                  TORCH_DT[dtype], lens,
+                                  case != "shared_mask", case == "strided")
+    n0, e0 = dec.flash_decode_launches, dec.flash_decode_element_launches
+    got = dec.flash_decode(q, k, v, valid)
+    again = dec.flash_decode(q, k, v, valid)
+    assert dec.flash_decode_launches == n0 + 2
+    assert dec.flash_decode_element_launches == e0
+    want = dec.flash_decode_plain(q, k, v, valid)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [2, 4, 16, 256])
+def test_flash_decode_element_route_on_card(cuda, D, dtype):
+    """Caches off the 16-byte rule (an odd slot stride, or rows under 16
+    bytes) take the element route: the same results as the plain version,
+    counted on that route; a bf16 query is read as it lies."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    B, S, K, G = 2, 300, 2, 4
+    buf = torch.randn((B, S, K * D + 1), generator=gen, device=cuda) \
+        .to(TORCH_DT[dtype])
+    k = buf[:, :, :K * D].unflatten(2, (K, D))
+    v = buf[:, :, 1:].unflatten(2, (K, D))
+    q = torch.randn((B, 1, G * K, D), generator=gen, device=cuda) \
+        .to(TORCH_DT[dtype])
+    valid = torch.arange(S, device=cuda)[None, :] < torch.as_tensor(
+        [S, 17], device=cuda)[:, None]
+    e0 = dec.flash_decode_element_launches
+    got = dec.flash_decode(q, k, v, valid)
+    assert dec.flash_decode_element_launches == e0 + 1
+    want = dec.flash_decode_plain(q, k, v, valid)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [256, 512, 2048, 4096])
+@pytest.mark.parametrize("one_block", [False, True])
+def test_flash_decode_forced_split_on_card(cuda, split, one_block):
+    """The split sweep's knobs: every forced split and occupancy against
+    the plain version cut alike (bf16, G 4, D 128)."""
+    gen = torch.Generator(device=cuda).manual_seed(split)
+    q, k, v, valid = _decode_case(cuda, gen, 2, 6000, 16, 4, 128,
+                                  torch.bfloat16, [6000, 4097], True, False)
+    got = dec.flash_decode(q, k, v, valid, _split=split,
+                           _one_block_per_sm=one_block)
+    want = dec.flash_decode_plain(q, k, v, valid, split=split)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL["bfloat16"] * float(want.float().abs().max())
+
+
 # -------------------------------------------------------------------- WKV --
 
 def _wkv_args(rng, B, S, H, hd):
@@ -1021,6 +1170,119 @@ def test_wkv6_kernel_on_card(cuda, S, with_state, dtype):
     n0 = wkv.launches
     y, s_last = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32)
     assert wkv.launches == n0 + 1
+    yp, sp = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=32)
+    for got, want in ((y, yp), (s_last, sp)):
+        assert float((got - want).abs().max()) \
+            <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,H,S", [(8, 64, 128), (4, 64, 1), (4, 64, 100),
+                                   (1, 64, 1), (1, 64, 100)])
+def test_wkv_slices_rule(B, H, S):
+    """The column-slice rule at the shapes its sweep timed (training,
+    decode, 100-token prefill, one request's decode and prefill): one
+    slice, a count the kernel takes; the CUDA source instantiates every
+    count of SLICES."""
+    from pathlib import Path
+    assert wkv.wkv_slices(B, H, S) == 1 and 1 in wkv.SLICES
+    src = (Path(wkv.__file__).resolve().parents[1] / "csrc"
+           / "wkv6.cu").read_text()
+    for n in wkv.SLICES:
+        assert f"launch_nsl<T, {n}>" in src
+
+
+def test_wkv_shared_constants_match_the_cuda_source():
+    """The constants the WKV wrapper shares with ``csrc/wkv6.cu`` and the
+    block's shared memory (the ``Smem`` struct, read from the source as
+    text): four bf16 blocks fit an SM's 228 KB."""
+    import re
+    from pathlib import Path
+    src = (Path(wkv.__file__).resolve().parents[1] / "csrc"
+           / "wkv6.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\w+)", src)[1]
+                   .replace("MAXHD", str(wkv.MAX_HD)))
+    assert const("THREADS") == wkv.THREADS
+    assert const("MAXT") == wkv.MAX_CHUNK
+    assert const("MAXHD") == wkv.MAX_HD
+    assert "constexpr int WP = MAXHD + 4;" in src
+    body = re.search(r"struct Smem \{(.*?)\};", src, re.S)[1]
+    fields = re.findall(r"(T|float) (\w+)((?:\[[^\]]+\])+);", body)
+    assert [f[1] for f in fields] == ["r", "k", "v", "w", "vf", "rw", "kd",
+                                      "A", "dec", "u"]
+    for esz in (2, 4):
+        for n in wkv.SLICES:
+            env = {"MAXT": wkv.MAX_CHUNK, "MAXHD": wkv.MAX_HD,
+                   "WP": wkv.MAX_HD + 4, "NSL": n}
+            size = 0
+            for typ, _, dims in fields:
+                count = 1
+                for d in re.findall(r"\[([^\]]+)\]", dims):
+                    count *= eval(d.replace("/", "//"), {}, env)
+                size += count * (esz if typ == "T" else 4)
+            assert size == wkv.wkv_smem(esz, n)
+    assert 4 * (wkv.wkv_smem(2, 1) + 1024) <= 228 * 1024
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("S", [1, 7, 32, 100, 128])
+def test_wkv6_shapes_slices_on_card(cuda, S, hd, dtype):
+    """B6 at S 1, 7, 32, 100 and 128 and hd 16, 32 and 64, from a zero and
+    a random incoming state, at every column-slice count: y and the last
+    state within 1e-5 of the plain version, every slice count equal bit
+    for bit to one slice, and two launches equal bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(S * hd)
+    B, H = 2, 3
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=cuda)
+               .to(TORCH_DT[dtype]) for _ in range(3))
+    w = torch.rand((B, S, H, hd), generator=gen, device=cuda) * 0.9 + 0.05
+    u = torch.randn((H, hd), generator=gen, device=cuda)
+    for s0 in (None, torch.randn((B, H, hd, hd), generator=gen,
+                                 device=cuda)):
+        yp, sp = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=32)
+        first = None
+        for n in wkv.SLICES:
+            n0 = wkv.launches
+            y, s_last = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32, _slices=n)
+            assert wkv.launches == n0 + 1
+            for got, want in ((y, yp), (s_last, sp)):
+                assert float((got - want).abs().max()) \
+                    <= 1e-5 * float(want.abs().max())
+            if first is None:
+                first = (y, s_last)
+                y2, s2 = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32,
+                                  _slices=n)
+                assert torch.equal(y, y2) and torch.equal(s_last, s2)
+            else:
+                assert torch.equal(y, first[0])
+                assert torch.equal(s_last, first[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_wkv6_strided_inputs_on_card(cuda, aligned, dtype):
+    """Strided (B, S, H, hd) views, as a fused projection gives them: on
+    16-byte strides the cp.async route, off them the element route (each
+    counted); both within 1e-5 of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(int(aligned))
+    B, S, H, hd = 2, 45, 4, 64
+    extra = 0 if aligned else 1
+    buf = torch.randn((B, S, H, 3 * hd + extra), generator=gen, device=cuda) \
+        .to(TORCH_DT[dtype])
+    r, k, v = (buf[..., i * hd + extra:(i + 1) * hd + extra]
+               for i in range(3))
+    wbuf = torch.rand((B, S, H, 2 * hd), generator=gen, device=cuda) \
+        * 0.9 + 0.05
+    w = wbuf[..., hd:]
+    u = torch.randn((H, hd), generator=gen, device=cuda)
+    s0 = torch.randn((B, H, hd, hd), generator=gen, device=cuda)
+    e0 = wkv.element_launches
+    y, s_last = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32)
+    assert wkv.element_launches == e0 + (0 if aligned else 1)
     yp, sp = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=32)
     for got, want in ((y, yp), (s_last, sp)):
         assert float((got - want).abs().max()) \
