@@ -34,8 +34,10 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               launch on the cp.async route; timed at llama's and
               granite's serving shapes and the 32k cache, in f32 and bf16,
               by events and with the host's gaps hidden, beside the plain
-              version, ``scaled_dot_product_attention`` (its device time
-              too) and the bound.
+              version, ``scaled_dot_product_attention`` with
+              ``enable_gqa`` on the unrepeated caches (its device time
+              too, and on caches repeated G times beforehand) and the
+              bound.
 6. wkv     -- the WKV-6 kernel against its plain version at the RWKV
               training shape (zero and random incoming state), a prompt
               length off the 32-step chunk grid and S = 1, y and the last
@@ -125,12 +127,9 @@ Then a ``kernels`` line, the card's name and power limit as
 subset (for bring-up); the result line needs all of them.
 
 Three more phases run only when named.  ``--phases build,split``: the
-flash-decode kernel at split sizes of 256 to 4096 slots with one and two
-blocks an SM (the 32k cell, a 4k-token cache, llama's and granite's
-serving shapes) beside the split rule's own (``decode_splits``); the WKV
-kernel at 1, 2 and 4 column slices (its timed shapes and two small grids)
-beside the rule's (``wkv_slices``), every slice count bit for bit one
-slice; the band GEMM's bf16 body at each split count of the contraction,
+flash-decode kernel at split sizes of 256 to 4096 slots (the 32k cell, a
+4k-token cache, llama's and granite's serving shapes) beside the split
+rule's own (``decode_splits``); the band GEMM's bf16 body at each split count of the contraction,
 for the decode products of llama3-8b and granite-moe-1b-a400m, the LM
 head's training dA and a product that fills the card, each split held
 against the unsplit result and timed with the host's gaps hidden, beside
@@ -709,13 +708,17 @@ def _decode_inputs(dev, gen, B, S, H, K, D, lengths):
     return q, k32, v32, valid
 
 
-def _sdpa_operands(q, k, v, valid, G):
-    """What one ``scaled_dot_product_attention`` call reads for the same
-    function: heads first, K and V repeated G times, a boolean mask."""
+# a bf16 flash-decode output against its plain version: one bf16 ulp of
+# the largest output (both round the same f32 result to bf16)
+BF16_OUT_TOL = 2.0 ** -7
+
+
+def _sdpa_operands(q, k, v, valid):
+    """What one ``scaled_dot_product_attention(..., enable_gqa=True)`` call
+    reads for the same function: heads-first views of q (in the cache
+    type) and of the unrepeated caches, a boolean mask."""
     qh = q.to(k.dtype).transpose(1, 2)
-    kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
-    vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
-    return qh, kh, vh, valid[:, None, None, :]
+    return qh, k.transpose(1, 2), v.transpose(1, 2), valid[:, None, None, :]
 
 
 def phase_decode():
@@ -740,10 +743,11 @@ def phase_decode():
             again = dec.flash_decode(q, k, v, valid)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            scale = max(1.0, float(want.float().abs().max()))
             # f32: sums in another order (the reference's 2e-4); bf16: the
-            # output is rounded to bf16 (one ulp in [1, 2) is 7.8e-3)
-            tol = 2e-4 if name == "float32" else 1e-2
+            # output is rounded to bf16 (one ulp of the largest output)
+            wmax = float(want.float().abs().max())
+            tol, scale = (2e-4, max(1.0, wmax)) if name == "float32" \
+                else (BF16_OUT_TOL, wmax)
             row = {"phase": "decode", "case": tag, "dtype": name, "B": B,
                    "Smax": S, "H": H, "K": K, "D": D, "lengths": lengths,
                    "splits": dec.decode_splits(B, K, S),
@@ -771,19 +775,28 @@ def phase_decode():
                     row["plain_ms"] = time_ms(
                         lambda: dec.flash_decode_plain(q, k, v, valid),
                         iters=3, reps=3)
-                qh, kh, vh, mask = _sdpa_operands(q, k, v, valid, H // K)
-                row["library_ms"] = time_ms(
-                    lambda: sdpa(qh, kh, vh, attn_mask=mask), iters=20)
-                row["library_device_ms"] = time_ms(
-                    lambda: sdpa(qh, kh, vh, attn_mask=mask), iters=20,
+                qh, kh, vh, mask = _sdpa_operands(q, k, v, valid)
+
+                def library():
+                    return sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+                row["library_ms"] = time_ms(library, iters=20)
+                row["library_device_ms"] = time_ms(library, iters=20,
+                                                   hide_host=True)
+                # the same call on K and V repeated G times beforehand, as
+                # SDPA without enable_gqa needs them (the copy not timed)
+                kr = kh.repeat_interleave(H // K, dim=1)
+                vr = vh.repeat_interleave(H // K, dim=1)
+                row["library_repeated_device_ms"] = time_ms(
+                    lambda: sdpa(qh, kr, vr, attn_mask=mask), iters=20,
                     hide_host=True)
-                del qh, kh, vh
+                del qh, kh, vh, kr, vr
                 row["bound_ms"], row["bound_by"] = _decode_bound(
                     B, H, K, D, lengths, k.element_size())
                 out["timed"][f"{tag}_{name}"] = {
                     k_: row[k_] for k_ in (
                         "kernel_ms", "device_ms", "plain_ms", "library_ms",
-                        "library_device_ms", "bound_ms", "bound_by")
+                        "library_device_ms", "library_repeated_device_ms",
+                        "bound_ms", "bound_by")
                     if k_ in row}
             emit(row)
             del k, v
@@ -864,7 +877,6 @@ def phase_wkv():
             es = float((s_last - sp).abs().max() / sp.abs().max())
             row = {"phase": "wkv", "case": tag, "dtype": name, "B": B,
                    "S": S, "H": H, "hd": hd, "state_in": state,
-                   "slices": wkv.wkv_slices(B, H, S),
                    "y_rel_err": ey, "s_last_rel_err": es,
                    "y_max_abs_err": float((y - yp).abs().max()),
                    "bitwise_repeat": bool(torch.equal(y, y2)
@@ -892,7 +904,7 @@ def phase_wkv():
                     r, w, B, S, H, hd, state)
                 out["timed"][tag] = {k_: row[k_] for k_ in (
                     "kernel_ms", "device_ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by", "slices") if k_ in row}
+                    "bound_ms", "bound_by") if k_ in row}
             emit(row)
             del r, k, v, w, y, yp, y2
     # the step-exact recurrence, at the reference test's own tolerance
@@ -1845,8 +1857,8 @@ DECODE_SPLITS = (256, 512, 1024, 2048, 4096)
 
 def split_decode():
     """B5 at each split size (256 to 4096 slots, those under Smax, and the
-    rule's own) with one and two blocks an SM, each held against the plain
-    version cut alike, device times with the host's gaps hidden."""
+    rule's own), each held against the plain version cut alike, device
+    times with the host's gaps hidden."""
     import torch
     from repro_torch.kernels import decode_attention as dec
     dev = torch.device("cuda")
@@ -1859,60 +1871,23 @@ def split_decode():
         rule = dec.decode_splits(B, K, S)[0]
         row = {"phase": "split", "kernel": "flash_decode", "case": tag,
                "B": B, "Smax": S, "H": H, "K": K, "D": D,
-               "rule_split": rule, "ms_by_split_blocks": {}}
+               "rule_split": rule, "ms_by_split": {}}
         for split in sorted({x for x in DECODE_SPLITS if x < S} | {rule}):
             want = dec.flash_decode_plain(q, k, v, valid, split=split)
-            for one in (False, True):
-                got = dec.flash_decode(q, k, v, valid, _split=split,
-                                       _one_block_per_sm=one)
-                err = float((got.float() - want.float()).abs().max())
-                check(err <= 1e-2 * max(1.0, float(want.float().abs().max())),
-                      f"split flash_decode {tag} {split}: err {err:.3g}")
-                row["ms_by_split_blocks"][f"{split}/{1 if one else 2}"] = \
-                    time_ms(lambda: dec.flash_decode(
-                        q, k, v, valid, _split=split,
-                        _one_block_per_sm=one), iters=20, hide_host=True)
+            got = dec.flash_decode(q, k, v, valid, _split=split)
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= BF16_OUT_TOL * float(want.float().abs().max()),
+                  f"split flash_decode {tag} {split}: err {err:.3g}")
+            row["ms_by_split"][split] = time_ms(
+                lambda: dec.flash_decode(q, k, v, valid, _split=split),
+                iters=20, hide_host=True)
         emit(row)
         del q, k, v
 
 
-# B6's slice sweep: the timed shapes and two small grids (one request's
-# decode step and prefill: 64 (batch, head) rows on 132 SMs)
-WKV_SPLIT_CASES = WKV_TIMED + (("decode_b1", 1, 1, 64, 64, True),
-                               ("prompt100_b1", 1, 100, 64, 64, True))
-
-
-def split_wkv():
-    """B6 at each column-slice count (1, 2, 4) at the timed shapes and two
-    small grids (bf16), every count equal bit for bit to one slice, device
-    times with the host's gaps hidden beside the rule's pick."""
-    import torch
-    from repro_torch.kernels import wkv6 as wkv
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(7)
-    for tag, B, S, H, hd, state in WKV_SPLIT_CASES:
-        r, k, v, w, u, s0 = _wkv_inputs(dev, gen, B, S, H, hd,
-                                        torch.bfloat16, state)
-        base = wkv.wkv6(r, k, v, w, u, s0=s0, _slices=1)
-        row = {"phase": "split", "kernel": "wkv6", "case": tag, "B": B,
-               "S": S, "H": H, "hd": hd,
-               "rule_slices": wkv.wkv_slices(B, H, S), "ms_by_slices": {}}
-        for n in wkv.SLICES:
-            got = wkv.wkv6(r, k, v, w, u, s0=s0, _slices=n)
-            check(torch.equal(got[0], base[0]) and torch.equal(got[1],
-                                                               base[1]),
-                  f"split wkv {tag}: {n} slices differ from one")
-            row["ms_by_slices"][n] = time_ms(
-                lambda: wkv.wkv6(r, k, v, w, u, s0=s0, _slices=n),
-                hide_host=True)
-        emit(row)
-
-
 def phase_split():
-    """B5's split sizes and B6's column slices (:func:`split_decode`,
-    :func:`split_wkv`).  Then the device time of the bf16 body at each
-    split count of the
-    contraction (at most one slice per KSPAN span), beside the rule's own
+    """B5's split sizes (:func:`split_decode`).  Then the device time of
+    the bf16 body at each split count of the contraction (at most one slice per KSPAN span), beside the rule's own
     count and one ``torch.matmul``; every split held against the unsplit
     result (1e-5 relative).  Then the f32 body at each of its tilings and
     split counts beside the rule's pick (against the rule's result), and
@@ -1921,7 +1896,6 @@ def phase_split():
     import torch
     from repro_torch.kernels import block_gemm as bg
     split_decode()
-    split_wkv()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for G, m, k, n, per_g in SPLIT_SHAPES:
@@ -2641,7 +2615,7 @@ def main(argv=None) -> int:
              "source": "src/repro_torch/csrc/wkv6.cu",
              "replaces": "src/repro/kernels/wkv6.py:66",
              "redesigned": "state in registers, 4 x 4 register tiles, "
-                           "column slices, cp.async prefetch",
+                           "cp.async prefetch",
              "launches": rwkv["training"],
              "launches_serving": rwkv["serving"],
              "ms_of": "one launch at the RWKV training shape (B 8, S 128, "
@@ -2649,7 +2623,7 @@ def main(argv=None) -> int:
              "max_abs_err": wkv["max_abs_err"], "ms": wkv["kernel_ms"],
              "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
              "bound_by": wkv["bound_by"], "library_ms": wkv["library_ms"],
-             "device_ms": wkv["device_ms"], "slices": wkv["slices"],
+             "device_ms": wkv["device_ms"],
              "decode": wkv["timed"]["decode"],
              "prompt100": wkv["timed"]["prompt100"]},
             {"name": "block_gemm_batched", "route": "cuda",

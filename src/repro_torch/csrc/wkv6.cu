@@ -26,14 +26,12 @@
 // pairwise exp of A, which no factoring may remove; the rest are the y product and
 // the carry, whose operands come from shared memory.
 //
-// Design: one block per (head, batch, column slice). The recurrence is
-// independent per value column e, so a block may own hd / NSL of the
-// columns (NSL = 1, 2 or 4, `wkv_slices` in kernels/wkv6.py; each slice
-// computes A again, so the rule takes one slice at the measured shapes)
-// with 256 / NSL threads; a bf16 block holds 49 KB of shared memory and
-// 80 registers a thread, three blocks an SM. The state stays in registers
-// for the whole sequence: thread (d-block db, e-block eb) holds the 4 x 4
-// tile S[4 db .. 4 db + 4, 4 eb .. 4 eb + 4]. Per chunk:
+// Design: one block of 256 threads per (head, batch); a bf16 block holds
+// 49 KB of shared memory and 80 registers a thread, three blocks an SM.
+// (Blocks owning 1/2 or 1/4 of a row's value columns compute A again
+// each and lost at every shape timed: PERF.md.) The state stays in
+// registers for the whole sequence: thread (d-block db, e-block eb) holds
+// the 4 x 4 tile S[4 db .. 4 db + 4, 4 eb .. 4 eb + 4]. Per chunk:
 //  - r, k, v and w arrive by 16-byte cp.async, issued under the previous
 //    chunk's products; rows past the chunk and columns past hd are
 //    zero-filled. v is turned to f32 once, freeing its staging buffer.
@@ -57,15 +55,14 @@
 // whose bases or strides are not 16-byte multiples take the element route
 // (the same pipeline, filled by ordinary loads). Chunks are at most 32
 // steps: any S runs, the last chunk ragged (S = 1 for decode); shared
-// memory never grows with S. The column slices change no sum's order:
-// every slice count gives the same bits.
+// memory never grows with S.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;      // threads of an unsliced block
+constexpr int THREADS = 256;      // threads of a block
 constexpr int MAXT = 32;          // steps per chunk
 constexpr int MAXHD = 64;         // head dims the kernel is built for
 constexpr int WP = MAXHD + 4;     // padded row of log w / W (bank spread)
@@ -134,13 +131,13 @@ struct Strides {  // element strides of a (B, S, H, hd) view; hd is unit
   long long b, s, h;
 };
 
-template <typename T, int NSL>
+template <typename T>
 struct Smem {
   T r[MAXT * MAXHD];
   T k[MAXT * MAXHD];
-  T v[MAXT * (MAXHD / NSL)];      // this slice's columns, as staged
+  T v[MAXT * MAXHD];              // as staged
   float w[MAXT * WP];             // log w, then W (inclusive)
-  float vf[MAXT * (MAXHD / NSL)]; // the same in f32
+  float vf[MAXT * MAXHD];         // v in f32
   float rw[MAXT * MAXHD];         // r ⊙ exp(W_{t-1})
   float kd[MAXT * MAXHD];         // k ⊙ exp(W_{c-1} - W_j)
   float A[MAXT * MAXT];           // intra-chunk scores, zero above
@@ -178,40 +175,35 @@ __device__ __forceinline__ void copy_tile(T* dst, int dst_ld, const T* src,
 template <typename T>
 constexpr int min_blocks() { return sizeof(T) == 2 ? 3 : 2; }
 
-template <typename T, int NSL>
-__global__ void __launch_bounds__(THREADS / NSL, min_blocks<T>() * NSL)
+template <typename T>
+__global__ void __launch_bounds__(THREADS, min_blocks<T>())
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
             const T* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ s0,
             float* __restrict__ y, float* __restrict__ s_out, int H, int S,
             int hd, int tile, Strides rs, Strides ks, Strides vs, Strides ws,
             Strides ys, int async16) {
-  constexpr int NT = THREADS / NSL;
-  constexpr int E = MAXHD / NSL;            // columns of the slice
+  constexpr int NT = THREADS;
   constexpr int RC = MAXHD * sizeof(T) / 16;
-  constexpr int VC = E * sizeof(T) / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T, NSL>& sm = *reinterpret_cast<Smem<T, NSL>*>(smem_raw);
+  Smem<T>& sm = *reinterpret_cast<Smem<T>*>(smem_raw);
 
-  const int sl = blockIdx.x % NSL;
-  const int h = blockIdx.x / NSL;
+  const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int e0 = sl * E;
-  if (e0 >= hd) return;                     // a slice of padding only
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   // the state tile of this thread: rows 4 db .. 4 db + 4, columns
-  // 4 eb .. 4 eb + 4 of the slice (ec onward in the head)
+  // 4 eb .. 4 eb + 4 (ec onward)
   const int db = lane & 15;
   const int eb = warp * 2 + (lane >> 4);
-  const int ec = e0 + 4 * eb;
+  const int ec = 4 * eb;
   const long long bh = (long long)b * H + h;
   const long long nst = (long long)hd * hd;
 
   const T* rb = r + b * rs.b + h * rs.h;
   const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h + e0;
+  const T* vb = v + b * vs.b + h * vs.h;
   const float* wb = w + b * ws.b + h * ws.h;
   auto load_rkw = [&](int c0, int c) {
     copy_tile<T, RC>(sm.r, MAXHD, rb + c0 * rs.s, rs.s, c, hd, tid, NT,
@@ -222,7 +214,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
                                 NT, async16);
   };
   auto load_v = [&](int c0, int c) {
-    copy_tile<T, VC>(sm.v, E, vb + c0 * vs.s, vs.s, c, hd - e0, tid, NT,
+    copy_tile<T, RC>(sm.v, MAXHD, vb + c0 * vs.s, vs.s, c, hd, tid, NT,
                      async16);
   };
 
@@ -260,7 +252,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     __syncthreads();   // this chunk is in; the last chunk's products done
 
     // v in f32 (its staging buffer is then free for the next chunk's)
-    for (int i = tid; i < MAXT * E / 4; i += NT) {
+    for (int i = tid; i < MAXT * MAXHD / 4; i += NT) {
       float x[4];
       load4(sm.v + 4 * i, x);
       *reinterpret_cast<float4*>(sm.vf + 4 * i) =
@@ -405,8 +397,8 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     // stages need no select.
     const float* vt = sm.vf;
     float v0[4], v1[4];                     // v[db][ec ..], v[db + 16][ec ..]
-    load4(vt + db * E + 4 * eb, v0);
-    load4(vt + (db + 16) * E + 4 * eb, v1);
+    load4(vt + db * MAXHD + ec, v0);
+    load4(vt + (db + 16) * MAXHD + ec, v1);
     const int ty = db >> 2, ey = ec + (db & 3);
 #pragma unroll 2
     for (int tg = 0; tg < (c + 3) / 4; ++tg) {
@@ -452,7 +444,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
       const float4 kv =
           *reinterpret_cast<const float4*>(sm.kd + j * MAXHD + 4 * db);
       float vv[4];
-      load4(vt + j * E + 4 * eb, vv);
+      load4(vt + j * MAXHD + ec, vv);
       const float kk[4] = {kv.x, kv.y, kv.z, kv.w};
 #pragma unroll
       for (int i = 0; i < 16; ++i)
@@ -475,57 +467,35 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NSL>
-int launch_nsl(const void* r, const void* k, const void* v, const void* w,
-               const void* u, const void* s0, void* y, void* s_out, int B,
-               int H, int S, int hd, int tile, const Strides* st, int async16,
-               cudaStream_t stream) {
-  constexpr int smem = (int)sizeof(Smem<T, NSL>);
+template <typename T>
+int launch(const void* r, const void* k, const void* v, const void* w,
+           const void* u, const void* s0, void* y, void* s_out, int B, int H,
+           int S, int hd, int tile, const long long* st, int async16,
+           void* stream) {
+  if (hd < 1 || hd > MAXHD || tile < 1 || tile > MAXT)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0) return (int)cudaGetLastError();
+  constexpr int smem = (int)sizeof(Smem<T>);
   static bool ready[64] = {};   // the shared-memory opt-in, once per device
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 64 || !ready[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        wkv6_kernel<T, NSL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        wkv6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     if (dev < 64) ready[dev] = true;
   }
-  dim3 grid(H * NSL, B);
-  wkv6_kernel<T, NSL><<<grid, THREADS / NSL, smem, stream>>>(
+  const Strides ss[5] = {{st[0], st[1], st[2]}, {st[3], st[4], st[5]},
+                         {st[6], st[7], st[8]}, {st[9], st[10], st[11]},
+                         {st[12], st[13], st[14]}};
+  dim3 grid(H, B);
+  wkv6_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<const float*>(s0),
       static_cast<float*>(y), static_cast<float*>(s_out), H, S, hd, tile,
-      st[0], st[1], st[2], st[3], st[4], async16);
+      ss[0], ss[1], ss[2], ss[3], ss[4], async16);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, const void* s0, void* y, void* s_out, int B, int H,
-           int S, int hd, int tile, int slices, const long long* st,
-           int async16, void* stream) {
-  if (hd < 1 || hd > MAXHD || tile < 1 || tile > MAXT)
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0 || H <= 0) return (int)cudaGetLastError();
-  const Strides ss[5] = {{st[0], st[1], st[2]}, {st[3], st[4], st[5]},
-                         {st[6], st[7], st[8]}, {st[9], st[10], st[11]},
-                         {st[12], st[13], st[14]}};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (slices) {
-    case 1:
-      return launch_nsl<T, 1>(r, k, v, w, u, s0, y, s_out, B, H, S, hd, tile,
-                              ss, async16, s);
-    case 2:
-      return launch_nsl<T, 2>(r, k, v, w, u, s0, y, s_out, B, H, S, hd, tile,
-                              ss, async16, s);
-    case 4:
-      return launch_nsl<T, 4>(r, k, v, w, u, s0, y, s_out, B, H, S, hd, tile,
-                              ss, async16, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -533,22 +503,21 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 // r, k, v in float32 or bfloat16; w, u (contiguous (H, hd)), s0 (may be
 // null: zero state; contiguous (B, H, hd, hd)), y and s_out in float32.
 // st holds the (b, s, h) element strides of r, k, v, w and y, in that
-// order; slices: column slices per (batch, head), 1, 2 or 4; async16: the
-// cp.async route (bases and strides of r, k, v and w 16-byte multiples).
+// order; async16: the cp.async route (bases and strides of r, k, v and w
+// 16-byte multiples).
 extern "C" int wkv6_f32(const void* r, const void* k, const void* v,
                         const void* w, const void* u, const void* s0, void* y,
                         void* s_out, int B, int H, int S, int hd, int tile,
-                        int slices, const long long* st, int async16,
-                        void* stream) {
-  return launch<float>(r, k, v, w, u, s0, y, s_out, B, H, S, hd, tile,
-                       slices, st, async16, stream);
+                        const long long* st, int async16, void* stream) {
+  return launch<float>(r, k, v, w, u, s0, y, s_out, B, H, S, hd, tile, st,
+                       async16, stream);
 }
 
 extern "C" int wkv6_bf16(const void* r, const void* k, const void* v,
                          const void* w, const void* u, const void* s0,
                          void* y, void* s_out, int B, int H, int S, int hd,
-                         int tile, int slices, const long long* st,
-                         int async16, void* stream) {
+                         int tile, const long long* st, int async16,
+                         void* stream) {
   return launch<__nv_bfloat16>(r, k, v, w, u, s0, y, s_out, B, H, S, hd,
-                               tile, slices, st, async16, stream);
+                               tile, st, async16, stream);
 }

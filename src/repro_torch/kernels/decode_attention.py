@@ -113,7 +113,6 @@ WARPS = THREADS // 32
 STAGES = 4                   # the K/V ring's depth
 STAGE_CHUNKS = 4             # 16-byte slices a thread copies a tile
 SMEM_MAX = 232448            # an H100 block's dynamic shared memory
-_ONE_BLOCK_SMEM = 120 * 1024  # shared memory that leaves one block an SM
 _DEC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_float] \
     + [ctypes.c_longlong] * 2 + [ctypes.POINTER(ctypes.c_longlong)] \
@@ -231,7 +230,7 @@ def _cp_async_route(k_cache, v_cache) -> bool:
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, valid: torch.Tensor, *,
-                 _split=None, _one_block_per_sm=False) -> torch.Tensor:
+                 _split=None) -> torch.Tensor:
     """q: (B, 1, H, D); k_cache/v_cache: (B, Smax, K, D), float32 or
     bfloat16 of one type, H % K == 0; valid: (Smax,) or (B, Smax) bool.
     Returns (B, 1, H, D) in the cache type.  Query head h reads kv head
@@ -240,8 +239,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     gives zeros, as the TPU kernel's does
     (``models.attention.decode_attention`` gives the mean of V there;
     ``decode_step`` never forms such a row).  ``_split`` (slots a split)
-    and ``_one_block_per_sm`` override the split rule and the occupancy,
-    for the measurement of :func:`decode_splits` only."""
+    overrides the split rule, for the measurement of :func:`decode_splits`
+    only."""
     global flash_decode_launches, flash_decode_element_launches
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
             or k_cache.shape != v_cache.shape \
@@ -284,8 +283,6 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         split, ns = _split, -(-S // _split)
     esz = k_cache.element_size()
     smem = decode_smem(G, D, esz, split)
-    if _one_block_per_sm:
-        smem = max(smem, _ONE_BLOCK_SMEM)
     if smem > SMEM_MAX or split % 4:
         raise ValueError(f"flash decode: a split of {split} slots needs "
                          f"{smem} B of shared memory (limit {SMEM_MAX})")

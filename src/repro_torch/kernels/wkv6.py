@@ -11,10 +11,7 @@ with ``s0`` it is ``repro.models.rwkv.wkv_chunked``'s, which carries the
 state in and returns it.  On a CUDA tensor the wrapper launches the
 hand-written Hopper kernel in ``csrc/wkv6.cu`` (or raises); on a CPU
 tensor it runs :func:`wkv6_plain`, the chunked arithmetic of
-``src/repro/models/rwkv.py:64-118`` over the same chunks.  The kernel
-splits each (batch, head) row's value columns into :func:`wkv_slices`
-blocks; the split changes no sum's order, so y and the state are the
-same bit for bit at every slice count.
+``src/repro/models/rwkv.py:64-118`` over the same chunks.
 """
 from __future__ import annotations
 
@@ -28,31 +25,18 @@ element_launches = 0         # of which took the element route
 
 MAX_CHUNK = 32               # steps per chunk of the kernel
 MAX_HD = 64                  # head dims the kernel is built for
-THREADS = 256                # threads of an unsliced block (256 / slices)
-SLICES = (1, 2, 4)           # column slices a (batch, head) row may take
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+THREADS = 256                # threads of a block, one per (batch, head)
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
 
 
-def wkv_slices(B: int, H: int, S: int) -> int:
-    """Column slices per (batch, head) row: one.  ``chip_smoke.py --phases
-    build,split`` times 1, 2 and 4 at the training, decode and 100-token
-    prefill shapes and at one request's decode and prefill (64 rows on
-    132 SMs): one slice was the fastest at each, since every slice
-    computes the chunk's score matrix again and a decode step's state is
-    read no faster in pieces.  ``_slices`` of :func:`wkv6` keeps the other
-    counts for that sweep."""
-    return 1
-
-
-def wkv_smem(element_size: int, slices: int) -> int:
+def wkv_smem(element_size: int) -> int:
     """Shared-memory bytes of a block (``Smem`` of ``csrc/wkv6.cu``): r, k
-    and v's slice staged in their type, log w in rows padded by 4 floats,
-    v's slice in f32, rw, the decayed keys, A, and two hd vectors."""
+    and v staged in their type, log w in rows padded by 4 floats, v in
+    f32, rw, the decayed keys, A, and two hd vectors."""
     t, hd = MAX_CHUNK, MAX_HD
-    return element_size * (2 * t * hd + t * hd // slices) \
-        + 4 * (t * (hd + 4) + t * hd // slices + 2 * t * hd + t * t
-               + 2 * hd)
+    return element_size * 3 * t * hd \
+        + 4 * (t * (hd + 4) + 3 * t * hd + t * t + 2 * hd)
 
 
 def _aligned16(*ts) -> bool:
@@ -119,7 +103,7 @@ def _kernel(dtype):
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor, *, s0=None, chunk: int = 32, _slices=None):
+         u: torch.Tensor, *, s0=None, chunk: int = 32):
     """r, k, v: (B, S, H, hd) float32 or bfloat16 (one type); w: (B, S, H,
     hd) float32 decay in (0, 1); u: (H, hd) bonus; s0: (B, H, hd, hd)
     float32 incoming state or None (zeros).  Returns ``(y, s_last)``: y
@@ -127,8 +111,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     last step.  The CUDA kernel reads the (B, S, H, hd) layout through its
     strides (unit stride along hd) and takes chunks of ``min(chunk, 32)``
     steps, the last one ragged: any S runs, and the chunk length changes
-    only the rounding.  ``_slices`` forces the column slices (1, 2 or 4;
-    for the measurement of :func:`wkv_slices` only)."""
+    only the rounding."""
     global launches, element_launches
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
         raise ValueError(f"wkv6 needs r, k, v, w of one (B, S, H, hd) "
@@ -165,9 +148,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if B > 65535:
         raise ValueError(f"wkv6 launches one grid row per batch: {B} > "
                          "65535")
-    slices = wkv_slices(B, H, S) if _slices is None else _slices
-    if slices not in SLICES:
-        raise ValueError(f"wkv6 takes {SLICES} column slices, not {slices}")
     uc = u.float().contiguous()
     sc = None if s0 is None else s0.float().contiguous()
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
@@ -181,7 +161,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             uc.data_ptr(), None if sc is None else sc.data_ptr(),
             y.data_ptr(), s_last.data_ptr(), B, H, S, hd,
-            max(1, min(chunk, MAX_CHUNK, S)), slices, strides, int(async16),
+            max(1, min(chunk, MAX_CHUNK, S)), strides, int(async16),
             torch.cuda.current_stream(r.device).cuda_stream)
     if err:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")

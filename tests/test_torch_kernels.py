@@ -1063,15 +1063,13 @@ def test_flash_decode_element_route_on_card(cuda, D, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("split", [256, 512, 2048, 4096])
-@pytest.mark.parametrize("one_block", [False, True])
-def test_flash_decode_forced_split_on_card(cuda, split, one_block):
-    """The split sweep's knobs: every forced split and occupancy against
-    the plain version cut alike (bf16, G 4, D 128)."""
+def test_flash_decode_forced_split_on_card(cuda, split):
+    """The split sweep's knob: every forced split against the plain version
+    cut alike (bf16, G 4, D 128)."""
     gen = torch.Generator(device=cuda).manual_seed(split)
     q, k, v, valid = _decode_case(cuda, gen, 2, 6000, 16, 4, 128,
                                   torch.bfloat16, [6000, 4097], True, False)
-    got = dec.flash_decode(q, k, v, valid, _split=split,
-                           _one_block_per_sm=one_block)
+    got = dec.flash_decode(q, k, v, valid, _split=split)
     want = dec.flash_decode_plain(q, k, v, valid, split=split)
     err = float((got.float() - want.float()).abs().max())
     assert err <= FLASH_TOL["bfloat16"] * float(want.float().abs().max())
@@ -1176,19 +1174,22 @@ def test_wkv6_kernel_on_card(cuda, S, with_state, dtype):
             <= 1e-5 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("B,H,S", [(8, 64, 128), (4, 64, 1), (4, 64, 100),
-                                   (1, 64, 1), (1, 64, 100)])
-def test_wkv_slices_rule(B, H, S):
-    """The column-slice rule at the shapes its sweep timed (training,
-    decode, 100-token prefill, one request's decode and prefill): one
-    slice, a count the kernel takes; the CUDA source instantiates every
-    count of SLICES."""
-    from pathlib import Path
-    assert wkv.wkv_slices(B, H, S) == 1 and 1 in wkv.SLICES
-    src = (Path(wkv.__file__).resolve().parents[1] / "csrc"
-           / "wkv6.cu").read_text()
-    for n in wkv.SLICES:
-        assert f"launch_nsl<T, {n}>" in src
+@pytest.mark.parametrize("cut", [1, 31, 32, 33, 99])
+def test_wkv6_state_carries_across_calls(cut, rng):
+    """A prefill of 100 steps cut in two calls, the second from the first's
+    last state (as serving runs a prompt, then decode steps): y and the
+    last state equal one call's over the 100 steps up to the rounding of
+    the shifted chunk bounds (1e-5 of the largest value)."""
+    B, S, H, hd = 2, 100, 2, 16
+    r, k, v, w, u = (torch.from_numpy(x) for x in _wkv_args(rng, B, S, H,
+                                                            hd))
+    s0 = torch.from_numpy(rng.standard_normal((B, H, hd, hd))
+                          .astype(np.float32))
+    y, s_last = ops.wkv6(r, k, v, w, u, s0=s0)
+    y1, s1 = ops.wkv6(*(x[:, :cut] for x in (r, k, v, w)), u, s0=s0)
+    y2, s2 = ops.wkv6(*(x[:, cut:] for x in (r, k, v, w)), u, s0=s1)
+    assert _rel_err(torch.cat([y1, y2], dim=1).numpy(), y.numpy()) <= 1e-5
+    assert _rel_err(s2.numpy(), s_last.numpy()) <= 1e-5
 
 
 def test_wkv_shared_constants_match_the_cuda_source():
@@ -1211,29 +1212,26 @@ def test_wkv_shared_constants_match_the_cuda_source():
     fields = re.findall(r"(T|float) (\w+)((?:\[[^\]]+\])+);", body)
     assert [f[1] for f in fields] == ["r", "k", "v", "w", "vf", "rw", "kd",
                                       "A", "dec", "u"]
+    env = {"MAXT": wkv.MAX_CHUNK, "MAXHD": wkv.MAX_HD, "WP": wkv.MAX_HD + 4}
     for esz in (2, 4):
-        for n in wkv.SLICES:
-            env = {"MAXT": wkv.MAX_CHUNK, "MAXHD": wkv.MAX_HD,
-                   "WP": wkv.MAX_HD + 4, "NSL": n}
-            size = 0
-            for typ, _, dims in fields:
-                count = 1
-                for d in re.findall(r"\[([^\]]+)\]", dims):
-                    count *= eval(d.replace("/", "//"), {}, env)
-                size += count * (esz if typ == "T" else 4)
-            assert size == wkv.wkv_smem(esz, n)
-    assert 4 * (wkv.wkv_smem(2, 1) + 1024) <= 228 * 1024
+        size = 0
+        for typ, _, dims in fields:
+            count = 1
+            for d in re.findall(r"\[([^\]]+)\]", dims):
+                count *= eval(d, {}, env)
+            size += count * (esz if typ == "T" else 4)
+        assert size == wkv.wkv_smem(esz)
+    assert 4 * (wkv.wkv_smem(2) + 1024) <= 228 * 1024
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [16, 32, 64])
 @pytest.mark.parametrize("S", [1, 7, 32, 100, 128])
-def test_wkv6_shapes_slices_on_card(cuda, S, hd, dtype):
+def test_wkv6_shapes_on_card(cuda, S, hd, dtype):
     """B6 at S 1, 7, 32, 100 and 128 and hd 16, 32 and 64, from a zero and
-    a random incoming state, at every column-slice count: y and the last
-    state within 1e-5 of the plain version, every slice count equal bit
-    for bit to one slice, and two launches equal bit for bit."""
+    a random incoming state: y and the last state within 1e-5 of the plain
+    version, and two launches equal bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(S * hd)
     B, H = 2, 3
     r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=cuda)
@@ -1243,22 +1241,14 @@ def test_wkv6_shapes_slices_on_card(cuda, S, hd, dtype):
     for s0 in (None, torch.randn((B, H, hd, hd), generator=gen,
                                  device=cuda)):
         yp, sp = wkv.wkv6_plain(r, k, v, w, u, s0, chunk=32)
-        first = None
-        for n in wkv.SLICES:
-            n0 = wkv.launches
-            y, s_last = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32, _slices=n)
-            assert wkv.launches == n0 + 1
-            for got, want in ((y, yp), (s_last, sp)):
-                assert float((got - want).abs().max()) \
-                    <= 1e-5 * float(want.abs().max())
-            if first is None:
-                first = (y, s_last)
-                y2, s2 = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32,
-                                  _slices=n)
-                assert torch.equal(y, y2) and torch.equal(s_last, s2)
-            else:
-                assert torch.equal(y, first[0])
-                assert torch.equal(s_last, first[1])
+        n0 = wkv.launches
+        y, s_last = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32)
+        assert wkv.launches == n0 + 1
+        for got, want in ((y, yp), (s_last, sp)):
+            assert float((got - want).abs().max()) \
+                <= 1e-5 * float(want.abs().max())
+        y2, s2 = wkv.wkv6(r, k, v, w, u, s0=s0, chunk=32)
+        assert torch.equal(y, y2) and torch.equal(s_last, s2)
 
 
 @pytest.mark.gpu
