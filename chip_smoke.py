@@ -511,63 +511,157 @@ def phase_gemm(cfg):
     return step
 
 
-def _paged_case(dev, gen, B, K, G, D, page, n_pages, lengths, dtype):
+def _paged_case(dev, gen, B, K, G, D, page, n_pages, lengths, dtype,
+                offset=0):
+    """q (B, K, G, D) f32, pools of ``n_pages`` pages in ``dtype`` (shifted
+    ``offset`` elements off the 16-byte grid), page tables shuffled over
+    the pool, lengths."""
     import torch
     maxp = max(1, -(-max(lengths) // page))
     perm = torch.randperm(n_pages, generator=gen, device=dev)
     pt = perm[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
     q = torch.randn((B, K, G, D), generator=gen, device=dev)
-    kp = torch.randn((n_pages, page, K, D), generator=gen,
-                     device=dev).to(dtype)
-    vp = torch.randn((n_pages, page, K, D), generator=gen,
-                     device=dev).to(dtype)
+    n = n_pages * page * K * D
+
+    def pool():
+        buf = torch.randn((n + offset,), generator=gen, device=dev).to(dtype)
+        return buf[offset:].view(n_pages, page, K, D)
+    kp, vp = pool(), pool()
     ln = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     return q, kp, vp, pt, ln
 
 
+# B5's 32k lengths, read through page tables
+PAGED32K = [32768, 30000, 32768, 20000]
+# paged decode cases: (tag, B, K, G, D, page, pool pages, lengths, dtypes,
+# pool offset (elements off the 16-byte grid: the element route))
+PAGED_CASES = (
+    ("ragged", 4, 8, 4, 128, 16, 64, [37, 16, 0, 100], "fb", 0),
+    # llama3-8b's heads at the serving path's shape (full), and
+    # granite-moe-1b-a400m's at moe_full's
+    ("main_path", 4, 8, 4, 128, 16, 64, [23, 23, 23, 23], "fb", 0),
+    ("granite", 4, 8, 2, 64, 16, 64, [23, 23, 23, 23], "fb", 0),
+    # llama's heads at a 32k context, tables shuffled over 8192 pages
+    ("paged32k", 4, 8, 4, 128, 16, 8192, PAGED32K, "fb", 0),
+    # the same tokens in pages of 64 and 256 (the same pool bytes)
+    ("paged32k_page64", 4, 8, 4, 128, 64, 2048, PAGED32K, "b", 0),
+    ("paged32k_page256", 4, 8, 4, 128, 256, 512, PAGED32K, "b", 0),
+    # off the fast route's rule: the element route
+    ("element_misaligned", 4, 8, 4, 128, 16, 64, [37, 16, 0, 100], "fb", 1),
+    ("element_groups24", 2, 2, 24, 64, 16, 64, [300, 5], "fb", 0),
+)
+# the shapes at which B3 is timed (every dtype the case runs)
+PAGED_TIMED = ("main_path", "granite", "paged32k", "paged32k_page64",
+               "paged32k_page256")
+
+
+def _paged_bound(B, K, G, D, lengths, esz, page):
+    """Bytes each read once (q f32, the page ids and K and V rows of the
+    occupied tokens in the pool's type, the lengths) and written once (the
+    output), against 4·G·D operations per occupied token and kv head (f32
+    on the CUDA cores)."""
+    ntok = sum(lengths)
+    pages = sum(-(-n // page) for n in lengths)
+    nbytes = 4 * B * K * G * D + 2 * esz * ntok * K * D + 4 * pages \
+        + 4 * B + esz * B * K * G * D
+    return bound_ms(nbytes, 4.0 * ntok * K * G * D, "float32")
+
+
 def phase_paged():
+    """B3 against its plain version cut alike at every case of
+    ``PAGED_CASES`` (f32 within 2e-4 of max(1, largest output), bf16
+    within 2^-7 of the largest output), two launches bit for bit, each
+    launch counted on the route the pools pick; timed at PAGED_TIMED by
+    events and with the host's gaps hidden, on both copy feeds, beside the
+    bound, the plain version (main_path f32, paged32k bf16) and B5 on the
+    same tokens gathered into contiguous caches."""
     import torch
+    from repro_torch import ieee_f32
     from repro_torch.kernels import decode_attention as dec
+    ieee_f32()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    B, K, page = 4, 8, 16
-    out = {}
-    # llama3-8b's heads (4 query heads per kv head, D = 128), then
-    # granite-moe-1b-a400m's (2 per kv head, D = 64) at moe_full's serving
-    # shape
-    for lengths, tag, G, D in (([37, 16, 0, 100], "ragged", 4, 128),
-                               ([23, 23, 23, 23], "main_path", 4, 128),
-                               ([23, 23, 23, 23], "granite", 2, 64)):
-        for name, dt, tol in (("float32", torch.float32, 2e-4),
-                              ("bfloat16", torch.bfloat16, 1e-2)):
-            args = _paged_case(dev, gen, B, K, G, D, page, 64, lengths, dt)
+    out = {"max_abs_err": 0.0, "timed": {}}
+    n0, e0 = dec.launches, dec.paged_element_launches
+    n_elem = 0
+    for tag, B, K, G, D, page, n_pages, lengths, dts, offset in PAGED_CASES:
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            if name[0] not in dts:
+                continue
+            args = _paged_case(dev, gen, B, K, G, D, page, n_pages, lengths,
+                               dt, offset)
+            e1 = dec.paged_element_launches
             got = dec.flash_decode_paged(*args)
+            again = dec.flash_decode_paged(*args)
             want = dec.flash_decode_paged_plain(*args)
             torch.cuda.synchronize()
+            element = dec.paged_element_launches - e1
+            n_elem += element
             err = float((got.float() - want.float()).abs().max())
-            err_rel = err / max(1.0, float(want.float().abs().max()))
+            wmax = float(want.float().abs().max())
+            # f32: sums in another order (the reference's 2e-4); bf16: the
+            # output is rounded to bf16 (one ulp of the largest output)
+            tol, scale = (2e-4, max(1.0, wmax)) if name == "float32" \
+                else (BF16_OUT_TOL, wmax)
             zero_ok = all(bool((got[b] == 0).all())
                           for b in range(B) if lengths[b] == 0)
-            # f32: sums in another order (the reference's 2e-4); bf16: the
-            # output is rounded to bf16 (one ulp in [1, 2) is 7.8e-3)
-            check(err_rel <= tol and zero_ok,
-                  f"paged decode {tag} {name}: max abs err {err:.3g}")
+            S = args[3].shape[1] * page
             row = {"phase": "paged", "case": tag, "dtype": name,
                    "B": B, "K": K, "G": G, "D": D, "page": page,
-                   "lengths": lengths, "max_abs_err": err}
-            if tag == "main_path" and name == "float32":
-                row["kernel_ms"] = time_ms(
-                    lambda: dec.flash_decode_paged(*args), iters=50)
-                row["plain_ms"] = time_ms(
-                    lambda: dec.flash_decode_paged_plain(*args), iters=50)
+                   "lengths": lengths,
+                   "splits": dec.paged_splits(B, K, S, G),
+                   "route": "element" if element else "fast",
+                   "max_abs_err": err,
+                   "bitwise_repeat": bool(torch.equal(got, again))}
+            check(err <= tol * scale and zero_ok,
+                  f"paged decode {tag} {name}: max abs err {err:.3g}")
+            check(row["bitwise_repeat"], f"paged decode {tag} {name}: two "
+                  "launches differ")
+            check(element == (2 if tag.startswith("element") else 0),
+                  f"paged decode {tag} {name}: {element} of 2 launches on "
+                  "the element route")
+            if name == "float32":
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+            if tag in PAGED_TIMED:
+                def kernel(feed="bulk"):
+                    return dec.flash_decode_paged(*args, _feed=feed)
+                row["kernel_ms"] = time_ms(kernel, iters=20)
+                row["device_ms"] = time_ms(kernel, iters=20, hide_host=True)
+                row["device_ms_tma"] = time_ms(lambda: kernel("tma"),
+                                               iters=20, hide_host=True)
+                if (tag, name) in (("main_path", "float32"),
+                                   ("paged32k", "bfloat16")):
+                    row["plain_ms"] = time_ms(
+                        lambda: dec.flash_decode_paged_plain(*args),
+                        iters=3, reps=3)
+                # B5 on the same tokens: the pages gathered into (B, S, K,
+                # D) caches beforehand (the copy not timed)
+                q, kp, vp, pt, ln = args
+                kc = kp[pt.long()].reshape(B, S, K, D)
+                vc = vp[pt.long()].reshape(B, S, K, D)
+                valid = torch.arange(S, device=dev)[None, :] \
+                    < ln.long()[:, None]
+                qh = q.reshape(B, 1, K * G, D)
+                row["flash_decode_device_ms"] = time_ms(
+                    lambda: dec.flash_decode(qh, kc, vc, valid), iters=20,
+                    hide_host=True)
+                del kc, vc
                 row["library_ms"] = None
-                ntok = sum(lengths)
-                nbytes = (4 * B * K * G * D * 2 + 2 * 4 * ntok * K * D
-                          + 4 * B * args[3].shape[1] + 4 * B)
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    nbytes, 4.0 * ntok * K * G * D, "float32")
-                out = row
+                row["bound_ms"], row["bound_by"] = _paged_bound(
+                    B, K, G, D, lengths, kp.element_size(), page)
+                out["timed"][f"{tag}_{name}"] = {
+                    k_: row[k_] for k_ in (
+                        "kernel_ms", "device_ms", "device_ms_tma",
+                        "plain_ms", "flash_decode_device_ms", "bound_ms",
+                        "bound_by") if k_ in row}
             emit(row)
+            del args, got, again, want
+    out["launches_by_route"] = {
+        "fast": dec.launches - n0 - (dec.paged_element_launches - e0),
+        "element": dec.paged_element_launches - e0}
+    check(out["launches_by_route"]["element"] == n_elem,
+          f"paged decode: {out['launches_by_route']}")
     return out
 
 
@@ -1000,7 +1094,7 @@ def phase_full(cfg):
         sess.submit(p, max_new=n_gen)
 
     bg.launches = 0
-    dec.launches = 0
+    dec.launches = dec.paged_element_launches = 0
     dec.flash_decode_launches = dec.flash_decode_element_launches = 0
     fa.launches = 0
     reset_body_counts()
@@ -1015,6 +1109,9 @@ def phase_full(cfg):
     # launch per layer each; every decode step's attention the flash-decode
     # kernel, one launch per layer
     launches = {"band_gemm": bg.launches, "paged_decode": dec.launches,
+                "paged_decode_by_route": {
+                    "fast": dec.launches - dec.paged_element_launches,
+                    "element": dec.paged_element_launches},
                 "flash_attention": fa.launches,
                 "flash_decode": dec.flash_decode_launches,
                 "flash_decode_by_route": {
@@ -1080,8 +1177,12 @@ def phase_full(cfg):
     # carried through 4 layers, stays well under 2% of the logits' norm
     check(rel_l2 <= 2e-2, f"full width: first-step logits rel L2 {rel_l2}")
     check(all(v > 0 for k_, v in launches.items()
-              if k_ != "flash_decode_by_route"),
+              if not k_.endswith("_by_route")),
           f"full width: a kernel was not launched: {launches}")
+    check(launches["paged_decode_by_route"] == {"fast": n_steps,
+                                                "element": 0},
+          f"full width: paged decode launches "
+          f"{launches['paged_decode_by_route']} in {n_steps} steps")
     check(launches["flash_decode_by_route"]["element"] == 0,
           f"full width: a flash-decode launch took the element route "
           f"{launches['flash_decode_by_route']}")
@@ -1885,8 +1986,42 @@ def split_decode():
         del q, k, v
 
 
+PAGED_SPLITS = (1024, 1536, 2048, 2560, 3072, 4096)
+
+
+def split_paged():
+    """B3 at the paged 32k cell (bf16, pages of 16) at each split size
+    (1024 to 4096 tokens, and the rule's own) and both copy feeds, each
+    held against the plain version cut alike, device times with the
+    host's gaps hidden."""
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tag, B, K, G, D, page, n_pages, lengths, _, _ = next(
+        c for c in PAGED_CASES if c[0] == "paged32k")
+    args = _paged_case(dev, gen, B, K, G, D, page, n_pages, lengths,
+                       torch.bfloat16)
+    rule = dec.paged_splits(B, K, args[3].shape[1] * page, G)[0]
+    row = {"phase": "split", "kernel": "paged_decode", "case": tag,
+           "rule_split": rule, "ms_by_split": {}}
+    for split in sorted(set(PAGED_SPLITS) | {rule}):
+        want = dec.flash_decode_paged_plain(*args, split=split)
+        for feed in ("bulk", "tma"):
+            got = dec.flash_decode_paged(*args, _split=split, _feed=feed)
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= BF16_OUT_TOL * float(want.float().abs().max()),
+                  f"split paged_decode {split} {feed}: err {err:.3g}")
+            row["ms_by_split"][f"{split}_{feed}"] = time_ms(
+                lambda: dec.flash_decode_paged(*args, _split=split,
+                                               _feed=feed),
+                iters=20, hide_host=True)
+    emit(row)
+
+
 def phase_split():
-    """B5's split sizes (:func:`split_decode`).  Then the device time of
+    """B5's and B3's split sizes (:func:`split_decode`,
+    :func:`split_paged`).  Then the device time of
     the bf16 body at each split count of the contraction (at most one slice per KSPAN span), beside the rule's own
     count and one ``torch.matmul``; every split held against the unsplit
     result (1e-5 relative).  Then the f32 body at each of its tilings and
@@ -1896,6 +2031,7 @@ def phase_split():
     import torch
     from repro_torch.kernels import block_gemm as bg
     split_decode()
+    split_paged()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for G, m, k, n, per_g in SPLIT_SHAPES:
@@ -2037,12 +2173,15 @@ def phase_f32sets(moe_cfg):
 
 
 def phase_attnsets():
-    """B5 and B6 at their timed shapes through calls every tree of the port
-    offers (``ops.gqa_flash_decode``, ``ops.wkv6``), by events (``ms``) and
-    with the host's gaps hidden (``device_ms``), so that ``--src`` times an
-    older tree beside this one: B5 at the 32k cell, llama's and granite's
-    serving shapes, each in f32 and bf16; B6 at the training, decode and
-    100-token prefill shapes in bf16."""
+    """B5, B6 and B3 at their timed shapes through calls every tree of the
+    port offers (``ops.gqa_flash_decode``, ``ops.wkv6``,
+    ``ops.gqa_flash_decode_paged``), by events (``ms``) and with the host's
+    gaps hidden (``device_ms``), so that ``--src`` times an older tree
+    beside this one: B5 at the 32k cell, llama's and granite's serving
+    shapes, each in f32 and bf16; B6 at the training, decode and 100-token
+    prefill shapes in bf16; B3 at the serving path's shapes (f32 pools),
+    the paged 32k cell (f32 and bf16) and its pages of 64 and 256 (bf16;
+    a tree whose kernel refuses the shape says so)."""
     import torch
     import repro_torch
     from repro_torch.kernels import ops
@@ -2074,6 +2213,28 @@ def phase_attnsets():
         out[f"wkv6_{tag}_bfloat16"] = {
             "ms": time_ms(kernel), "device_ms": time_ms(kernel,
                                                         hide_host=True)}
+    for tag, B, K, G, D, page, n_pages, lengths, dts, _ in PAGED_CASES:
+        if tag not in PAGED_TIMED:
+            continue
+        for name, dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+            if name[0] not in dts:
+                continue
+            q, kp, vp, pt, ln = _paged_case(dev, gen, B, K, G, D, page,
+                                            n_pages, lengths, dt)
+            qh = q.reshape(B, 1, K * G, D)
+
+            def kernel():
+                return ops.gqa_flash_decode_paged(qh, kp, vp, pt, ln)
+            try:
+                kernel()
+            except ValueError as e:      # an older tree's page limit
+                out[f"paged_decode_{tag}_{name}"] = {"raises": str(e)}
+                continue
+            out[f"paged_decode_{tag}_{name}"] = {
+                "ms": time_ms(kernel, iters=20),
+                "device_ms": time_ms(kernel, iters=20, hide_host=True)}
+            del q, kp, vp
     emit({"phase": "attnsets", **out})
 
 
@@ -2246,6 +2407,7 @@ def phase_moe_full(cfg):
     from repro_torch.api import Fleet, TorchCleaveRuntime
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.models import model as M
     from repro_torch.optim import adam
     dev = torch.device("cuda")
@@ -2336,6 +2498,7 @@ def phase_moe_full(cfg):
     for p in prompts:
         serve.submit(p, max_new=n_gen)
     n_b2 = bg.batched_launches
+    dec.launches = dec.paged_element_launches = 0
     reset_body_counts()
     t0 = time.perf_counter()
     with band_gemm_audit(verify=True, entry="block_gemm_batched") as saudit, \
@@ -2347,6 +2510,8 @@ def phase_moe_full(cfg):
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
     serve_b2 = bg.batched_launches - n_b2
+    paged = {"fast": dec.launches - dec.paged_element_launches,
+             "element": dec.paged_element_launches}
     serve_bodies = check_bf16_body("moe_full serving", saudit, sb1_audit)
     # every decode step's expert product met the bf16 weights as stored
     # (no f32 copy), with the bits of the launch on an f32 copy; prefills
@@ -2424,6 +2589,7 @@ def phase_moe_full(cfg):
            "serve_failed_ids": list(srep.failed_ids),
            "serve_recovered": srep.n_recovered,
            "paged_read_checks": serve.paged_read_checks,
+           "paged_decode_by_route": paged,
            "bgemm_launches_serving": serve_b2,
            "bgemm_serving_checked_against_plain": saudit["checked"],
            "first_decode_vs_monolithic": cmp}
@@ -2457,6 +2623,8 @@ def phase_moe_full(cfg):
           "moe_full: serving unverified, or the failure did not recover")
     check(serve.paged_read_checks == n_steps, "moe_full: paged read checks "
           f"{serve.paged_read_checks} != steps {n_steps}")
+    check(paged == {"fast": n_steps, "element": 0}, f"moe_full: paged "
+          f"decode launches {paged} in {n_steps} steps")
     check(train_b2 > 0 and serve_b2 > 0
           and saudit["checked"] == serve_b2,
           f"moe_full: batched GEMM launches training {train_b2}, serving "
@@ -2467,6 +2635,7 @@ def phase_moe_full(cfg):
           f"{rel_l2} against the monolithic decode with the same routing "
           f"{cmp}")
     return {"training": train_b2, "serving": serve_b2,
+            "paged_decode": paged["fast"],
             "max_abs_err": max(a["max_abs_err"] for a in audits + [saudit]),
             "bodies": body_counts(*audits, saudit)}
 
@@ -2535,6 +2704,7 @@ def main(argv=None) -> int:
         train_launches, gset = train
         dec_serve, dec_long = (decode["timed"]["serving_float32"],
                                decode["timed"]["cache32k_bfloat16"])
+        paged_main = paged["timed"]["main_path_float32"]
         timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")
         # the block GEMM sets with the host's gaps between calls hidden
@@ -2574,11 +2744,23 @@ def main(argv=None) -> int:
             {"name": "paged_decode", "route": "cuda",
              "source": "src/repro_torch/csrc/paged_decode.cu",
              "replaces": "src/repro/kernels/decode_attention.py:97",
+             "redesigned": "splits over the card, a producer warp feeding "
+                           "an mbarrier ring, each key scored once for all "
+                           "G rows, pages of any size",
              "launches": launches["paged_decode"],
-             "ms_of": "one launch at the serving path's shape",
-             "max_abs_err": paged["max_abs_err"], "ms": paged["kernel_ms"],
-             "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
-             "bound_by": paged["bound_by"], "library_ms": None},
+             "launches_serving_moe": moe["paged_decode"],
+             "launches_by_route": launches["paged_decode_by_route"],
+             "ms_of": "one launch at the serving path's shape (4 requests "
+                      "of 23 tokens, pages of 16, f32 pools)",
+             "max_abs_err": paged["max_abs_err"],
+             "ms": paged_main["kernel_ms"],
+             "plain_ms": paged_main["plain_ms"],
+             "bound_ms": paged_main["bound_ms"],
+             "bound_by": paged_main["bound_by"], "library_ms": None,
+             "device_ms": paged_main["device_ms"],
+             "cache_32k_bf16": paged["timed"]["paged32k_bfloat16"],
+             **{k_: v_ for k_, v_ in paged["timed"].items()
+                if k_ not in ("main_path_float32", "paged32k_bfloat16")}},
             {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:64",

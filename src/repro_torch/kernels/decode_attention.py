@@ -8,8 +8,8 @@ Ports of the Pallas ``flash_decode``
 kernel, ``csrc/flash_decode.cu`` or ``csrc/paged_decode.cu`` (or raises);
 on a CPU tensor it runs its plain version: :func:`flash_decode_plain`, the
 same split online softmax in plain PyTorch, or
-:func:`flash_decode_paged_plain`, which gathers the pages and runs dense
-masked softmax attention.
+:func:`flash_decode_paged_plain`, which gathers the pages and runs that
+split online softmax cut as the paged kernel cuts.
 """
 from __future__ import annotations
 
@@ -19,87 +19,12 @@ import math
 
 import torch
 
-from repro_torch.kernels.ref import NEG_INF, paged_decode_ref
+from repro_torch.kernels.ref import NEG_INF
 
 launches = 0                 # paged kernel launches since the last reset
+paged_element_launches = 0   # of which took the paged element route
 flash_decode_launches = 0    # contiguous-cache kernel launches, likewise
 flash_decode_element_launches = 0   # of which took the element route
-
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_SMEM_LIMIT = 48 * 1024
-
-
-def flash_decode_paged_plain(q, k_pool, v_pool, page_table, lengths):
-    """Plain version (gather + dense masked softmax), output in the pool
-    dtype."""
-    return paged_decode_ref(q, k_pool, v_pool, page_table, lengths)
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel(dtype):
-    from repro_torch.kernels import _build
-    lib = _build.load("paged_decode")
-    fn = lib.paged_decode_bf16 if dtype == torch.bfloat16 \
-        else lib.paged_decode_f32
-    fn.argtypes = _ARGS
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
-                       v_pool: torch.Tensor, page_table: torch.Tensor,
-                       lengths: torch.Tensor) -> torch.Tensor:
-    """q: (B, K, G, D) grouped queries; k_pool/v_pool: (P, page, K, D) one
-    layer's pools (float32 or bfloat16); page_table: (B, maxp) int32 page
-    ids (entries past a request's pages are masked); lengths: (B,) int32
-    occupied tokens.  Returns (B, K, G, D) in the pool dtype."""
-    global launches
-    B, K, G, D = q.shape
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
-            or k_pool.shape[2:] != (K, D):
-        raise ValueError(f"pools {tuple(k_pool.shape)}/"
-                         f"{tuple(v_pool.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
-    if page_table.dim() != 2 or page_table.shape[0] != B \
-            or tuple(lengths.shape) != (B,):
-        raise ValueError("page_table must be (B, maxp) and lengths (B,)")
-    devs = {t.device for t in (q, k_pool, v_pool, page_table, lengths)}
-    if len(devs) != 1:
-        raise ValueError(f"operands on several devices: {devs}")
-    if q.device.type == "cpu":
-        return flash_decode_paged_plain(q, k_pool, v_pool, page_table,
-                                        lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged decode runs on cuda or cpu, not {q.device}")
-    if k_pool.dtype != v_pool.dtype \
-            or k_pool.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"pools must be float32 or bfloat16 of one type; "
-                         f"got {k_pool.dtype}/{v_pool.dtype}")
-    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError("page_table and lengths must be int32")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()
-            and page_table.is_contiguous() and lengths.is_contiguous()):
-        raise ValueError("pools, page_table and lengths must be contiguous")
-    page, maxp = k_pool.shape[1], page_table.shape[1]
-    smem = 4 * (2 * G * D + 2 * page * D + G * page + 3 * G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged decode needs {smem} B of shared memory "
-                         f"(limit {_SMEM_LIMIT}); use smaller pages")
-    qf = q.float().contiguous()      # the TPU kernel takes q in f32 too
-    out = torch.empty((B, K, G, D), dtype=k_pool.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _kernel(k_pool.dtype)(
-            qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, K, G, D, page, maxp, 1.0 / math.sqrt(D), smem,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
-                           f"{err}")
-    launches += 1
-    return out
-
 
 # ------------------------------------------------- contiguous-cache decode --
 
@@ -312,4 +237,197 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                            f"{err}")
     flash_decode_launches += 1
     flash_decode_element_launches += not async16
+    return out
+
+
+# -------------------------------------------------------------- paged decode --
+
+# shared with csrc/paged_decode.cu
+PAGED_CWARPS = 8             # consumer warps of a block
+PAGED_THREADS = 32 * PAGED_CWARPS + 32   # and one producer warp
+PAGED_STAGES = 3             # the K/V ring's depth
+PAGED_STAGE_BYTES = 16384    # bytes a stage holds
+PAGED_TILE_MAX = 128         # rows a stage holds at most
+PAGED_D_MAX = 256            # head dims the fast route takes
+PAGED_ELEM_THREADS = 256     # threads of a block of the element route
+# the split rule's
+PAGED_BLOCKS = 264           # blocks to aim for: two per SM of an H100
+PAGED_SCORE_BYTES = 61440    # a split's f32 scores at most, so that two
+                             # blocks of the fast route fit an SM
+_PAGED_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_FEEDS = {"bulk": 1, "tma": 2}   # the fast route's two copy engines
+
+
+def _score_stride(G: int) -> int:
+    """f32 scores a token keeps in shared memory: the fast route's group
+    bucket, or G on the element route."""
+    return group_bucket(G) if G <= GROUPS_MAX else G
+
+
+def paged_splits(B: int, K: int, S: int, G: int):
+    """``(split, nsplit)``: the token axis of a paged table of ``S`` tokens
+    (``maxp * page``) is cut into ``nsplit`` splits of ``split`` tokens (the
+    last one ragged), about :data:`PAGED_BLOCKS` blocks over the B·K
+    (request, kv head) pairs, each a multiple of :data:`SPLIT_QUANTUM`
+    tokens whatever the page size, and no longer than lets a split's f32
+    scores fit :data:`PAGED_SCORE_BYTES`.  The kernel and
+    :func:`flash_decode_paged_plain` cut alike, so they round alike."""
+    q = SPLIT_QUANTUM
+    cap = max(q, PAGED_SCORE_BYTES // (4 * _score_stride(G)) // q * q)
+    want = max(1, -(-PAGED_BLOCKS // max(B * K, 1)))
+    ns = max(1, min(want, -(-S // q)))
+    split = min(-(-(-(-S // ns)) // q) * q, cap)
+    return split, max(1, -(-S // split))
+
+
+def paged_pages(split: int, page: int) -> int:
+    """Page ids a split of ``split`` tokens can touch."""
+    return (split - 1) // page + 2
+
+
+def paged_smem(G: int, D: int, element_size: int, split: int,
+               page: int) -> int:
+    """Dynamic shared-memory bytes of a block of the fast route: the ring of
+    PAGED_STAGES stages (whose space later sums the p·V shares), the
+    split's scores (split x GB f32), the scaled queries (GB x D f32), the
+    warps' maxima and sums, the ring's mbarriers and the split's page
+    ids."""
+    GB = group_bucket(G)
+    region = max(PAGED_STAGES * PAGED_STAGE_BYTES,
+                 32 * PAGED_CWARPS * 16 * G)
+    return region + 4 * (split * GB + GB * D + 2 * PAGED_CWARPS * GB) \
+        + 16 * PAGED_STAGES + 4 * paged_pages(split, page)
+
+
+def paged_element_smem(G: int, D: int, split: int, page: int) -> int:
+    """Dynamic shared-memory bytes of a block of the element route: the
+    scaled queries, the split's scores, the rows' maxima and sums, the
+    split's page ids."""
+    return 4 * (G * D + split * G + 2 * G + paged_pages(split, page))
+
+
+def _paged_fast_route(k_pool, v_pool, G: int, D: int) -> bool:
+    """The fast route's rule: G <= GROUPS_MAX, D <= PAGED_D_MAX, rows of D
+    elements a multiple of 16 bytes and both pools 16-byte aligned;
+    otherwise the element route."""
+    return G <= GROUPS_MAX and D <= PAGED_D_MAX \
+        and (D * k_pool.element_size()) % 16 == 0 \
+        and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0
+
+
+def flash_decode_paged_plain(q, k_pool, v_pool, page_table, lengths, *,
+                             split=None):
+    """Plain version of :func:`flash_decode_paged` (same arguments): the
+    pages gathered into a contiguous (B, maxp·page, K, D) view, then the
+    split online softmax of :func:`flash_decode_plain` cut as the kernel
+    cuts (:func:`paged_splits`, or ``split`` tokens): per split, scores of
+    the f32-scaled query in f32, p = exp(s - m_split) for tokens below the
+    request's length, rounded to the pool type before the p·V product, the
+    splits combined in order; output in the pool type."""
+    B, K, G, D = q.shape
+    page = k_pool.shape[1]
+    S = page_table.shape[1] * page
+    if split is None:
+        split, _ = paged_splits(B, K, S, G)
+    pt = page_table.long()
+    k = k_pool[pt].reshape(B, S, K, D)
+    v = v_pool[pt].reshape(B, S, K, D)
+    valid = torch.arange(S, device=q.device)[None, :] \
+        < lengths.long()[:, None]
+    out = flash_decode_plain(q.reshape(B, 1, K * G, D), k, v, valid,
+                             split=split)
+    return out.reshape(B, K, G, D)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(dtype):
+    from repro_torch.kernels import _build
+    lib = _build.load("paged_decode")
+    fn = lib.paged_decode_bf16 if dtype == torch.bfloat16 \
+        else lib.paged_decode_f32
+    fn.argtypes = _PAGED_ARGS
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, page_table: torch.Tensor,
+                       lengths: torch.Tensor, *, _split=None,
+                       _feed="bulk") -> torch.Tensor:
+    """q: (B, K, G, D) grouped queries; k_pool/v_pool: (P, page, K, D) one
+    layer's pools (float32 or bfloat16), pages of any size; page_table:
+    (B, maxp) int32 page ids (entries past a request's pages are never
+    read); lengths: (B,) int32 occupied tokens.  Returns (B, K, G, D) in
+    the pool dtype; a request of length 0 gives zeros.  Pools that meet
+    :func:`_paged_fast_route` take the producer-warp kernel, others the
+    element route (counted in :data:`paged_element_launches`).
+    ``_split`` (tokens a split) overrides :func:`paged_splits` and
+    ``_feed`` picks the fast route's copies (``"bulk"``: one
+    ``cp.async.bulk`` a row; ``"tma"``: one tensor-map box a page chunk),
+    for the measurements only."""
+    global launches, paged_element_launches
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, K, G, D); got {tuple(q.shape)}")
+    B, K, G, D = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
+            or k_pool.shape[2:] != (K, D):
+        raise ValueError(f"pools {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != B \
+            or tuple(lengths.shape) != (B,):
+        raise ValueError("page_table must be (B, maxp) and lengths (B,)")
+    devs = {t.device for t in (q, k_pool, v_pool, page_table, lengths)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k_pool, v_pool, page_table,
+                                        lengths, split=_split)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged decode runs on cuda or cpu, not {q.device}")
+    if k_pool.dtype != v_pool.dtype \
+            or k_pool.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"pools must be float32 or bfloat16 of one type; "
+                         f"got {k_pool.dtype}/{v_pool.dtype}")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("page_table and lengths must be int32")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()
+            and page_table.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("pools, page_table and lengths must be contiguous")
+    if _feed not in _FEEDS:
+        raise ValueError(f"feed must be one of {sorted(_FEEDS)}")
+    P, page, maxp = k_pool.shape[0], k_pool.shape[1], page_table.shape[1]
+    S = max(1, maxp * page)
+    if B > 65535 or K > 65535 or P * page >= 2 ** 31:
+        raise ValueError(f"paged decode needs B, K <= 65535 and fewer than "
+                         f"2^31 pool rows; got B={B}, K={K}, "
+                         f"{P * page} rows")
+    if _split is None:
+        split, ns = paged_splits(B, K, S, G)
+    else:
+        split, ns = _split, -(-S // _split)
+    fast = _paged_fast_route(k_pool, v_pool, G, D)
+    smem = paged_smem(G, D, k_pool.element_size(), split, page) if fast \
+        else paged_element_smem(G, D, split, page)
+    if smem > SMEM_MAX or split % SPLIT_QUANTUM:
+        raise ValueError(f"paged decode: a split of {split} tokens needs "
+                         f"{smem} B of shared memory (limit {SMEM_MAX}) "
+                         f"and must be a multiple of {SPLIT_QUANTUM}")
+    qf = q.float().contiguous()      # the TPU kernel takes q in f32 too
+    out = torch.empty((B, K, G, D), dtype=k_pool.dtype, device=q.device)
+    part = torch.empty((B * K * ns * (G * D + 2 * G),), dtype=torch.float32,
+                       device=q.device) if ns > 1 else out
+    with torch.cuda.device(q.device):
+        err = _kernel(k_pool.dtype)(
+            qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part.data_ptr(), B, K, G, D, page, maxp, P, split, ns,
+            1.0 / math.sqrt(D), _FEEDS[_feed] if fast else 0, smem,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    paged_element_launches += not fast
     return out

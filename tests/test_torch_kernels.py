@@ -638,9 +638,281 @@ def test_paged_decode_kernel_on_card(cuda, dtype, rng):
     got = dec.flash_decode_paged(*args)
     want = dec.flash_decode_paged_plain(*args)
     assert dec.launches == n0 + 1
-    tol = 2e-4 if dtype == "float32" else 1e-2
-    assert float((got.float() - want.float()).abs().max()) <= tol
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
     assert not got[1].any()
+
+
+def _paged_tables(rng, B, page, lengths, spare=3):
+    """Page tables of ``lengths`` shuffled over a pool with ``spare`` pages
+    more than the requests hold; a request's unused entries point at its
+    last page."""
+    maxp = max(1, -(-max(lengths) // page))
+    n_pages = B * maxp + spare
+    perm = rng.permutation(n_pages)
+    return perm[:B * maxp].reshape(B, maxp).astype(np.int32), n_pages
+
+
+@pytest.mark.parametrize("split", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("page", [4, 16, 64])
+def test_paged_decode_plain_forced_split_matches_pallas(page, dtype, split,
+                                                        rng):
+    """The plain version cut at a forced split, against the Pallas
+    ``flash_decode_paged`` in interpret mode: shuffled tables, ragged
+    lengths (on and off the page and split grids) and a request of length
+    0.  f32: sums in another order, 2e-4 (the reference's tolerance).
+    bf16: the TPU kernel rounds p against each page's running max, the
+    plain version against the split's, and both round the output: 2^-7 of
+    the largest output (``FLASH_TOL``)."""
+    B, K, G, D = 4, 2, 4, 32
+    lengths = [0, 3 * page + 5, 200, 130]
+    pt, n_pages = _paged_tables(rng, B, page, lengths)
+    q = rng.standard_normal((B, K, G, D)).astype(np.float32)
+    kp, vp = (rng.standard_normal((n_pages, page, K, D)).astype(np.float32)
+              for _ in range(2))
+    ln = np.asarray(lengths, np.int32)
+    from repro.kernels import decode_attention as jdec
+    want = np.asarray(jdec.flash_decode_paged(
+        jnp.asarray(q), jnp.asarray(kp).astype(JAX_DT[dtype]),
+        jnp.asarray(vp).astype(JAX_DT[dtype]), jnp.asarray(pt),
+        jnp.asarray(ln), interpret=True).astype(jnp.float32))
+    got = dec.flash_decode_paged(
+        torch.from_numpy(q), torch.from_numpy(kp).to(TORCH_DT[dtype]),
+        torch.from_numpy(vp).to(TORCH_DT[dtype]), torch.from_numpy(pt),
+        torch.from_numpy(ln), _split=split)
+    assert got.dtype == TORCH_DT[dtype]
+    assert not got[0].any()
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    else:
+        assert _rel_err(got.float().numpy(), want) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("page", [1, 3, 16, 100])
+def test_paged_decode_plain_matches_dense_oracle(page, rng):
+    """Pages of any size: the plain version at the split rule's cut against
+    the dense gather oracle ``ref.paged_decode_ref`` (one softmax over the
+    whole request), f32, 1e-5 of the largest output (the splits' combine is
+    exact up to f32 rounding)."""
+    B, K, G, D = 3, 2, 2, 16
+    lengths = [301, 1, 150]
+    pt, n_pages = _paged_tables(rng, B, page, lengths)
+    q = torch.from_numpy(rng.standard_normal((B, K, G, D)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (n_pages, page, K, D)).astype(np.float32)) for _ in range(2))
+    args = (q, kp, vp, torch.from_numpy(pt),
+            torch.as_tensor(lengths, dtype=torch.int32))
+    got = dec.flash_decode_paged(*args)
+    want = ref.paged_decode_ref(*args)
+    assert dec.paged_splits(B, K, pt.shape[1] * page, G)[1] > 1
+    assert _rel_err(got.numpy(), want.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("B,K,S,G", [(4, 8, 32768, 4), (4, 8, 32, 4),
+                                     (4, 8, 32, 2), (1, 1, 100000, 16),
+                                     (64, 8, 200, 4), (2, 2, 5000, 8),
+                                     (1, 8, 131072, 1), (4, 8, 32768, 24)])
+def test_paged_splits_properties(B, K, S, G):
+    """The split rule: splits are multiples of SPLIT_QUANTUM tokens, cover
+    the table with the last one ragged (no empty split), hold their scores
+    in PAGED_SCORE_BYTES, and give no more blocks than the aim
+    (PAGED_BLOCKS) unless the score cap forces it, nor fewer than the aim
+    unless the table runs out of 64-token splits; with G <= 8 and pages of
+    16, two blocks of the fast route fit an SM."""
+    split, ns = dec.paged_splits(B, K, S, G)
+    assert split % dec.SPLIT_QUANTUM == 0 and split > 0
+    assert split * ns >= S > split * (ns - 1)
+    stride = dec.group_bucket(G) if G <= dec.GROUPS_MAX else G
+    assert split == dec.SPLIT_QUANTUM \
+        or 4 * split * stride <= dec.PAGED_SCORE_BYTES
+    capped = 4 * (split + dec.SPLIT_QUANTUM) * stride \
+        > dec.PAGED_SCORE_BYTES
+    want = -(-dec.PAGED_BLOCKS // (B * K))
+    assert ns <= want or capped
+    aim = min(want, -(-S // dec.SPLIT_QUANTUM))
+    assert (split - dec.SPLIT_QUANTUM) * aim < S or capped
+    if G <= dec.GROUPS_MAX:
+        for D, esz in ((64, 2), (128, 2), (128, 4), (256, 4), (8, 2)):
+            smem = dec.paged_smem(G, D, esz, split, 16)
+            assert smem <= dec.SMEM_MAX
+            if G <= 8 and D * esz <= 256:
+                assert 2 * (smem + 1024) <= 233472   # an SM's 228 KB
+
+
+def test_paged_shared_constants_match_the_cuda_source():
+    """The constants the paged wrapper shares with ``csrc/paged_decode.cu``
+    (warps, ring depth and stage size, the fast route's caps, the shared-
+    memory limit) and its shared-memory carve-up, read from the source as
+    text."""
+    import re
+    from pathlib import Path
+    src = (Path(dec.__file__).resolve().parents[1] / "csrc"
+           / "paged_decode.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("CWARPS") == dec.PAGED_CWARPS
+    assert 32 * const("CWARPS") + 32 == dec.PAGED_THREADS
+    assert const("STAGES") == dec.PAGED_STAGES
+    assert const("STAGE_BYTES") == dec.PAGED_STAGE_BYTES
+    assert const("TILE_MAX") == dec.PAGED_TILE_MAX
+    assert const("GROUPS_MAX") == dec.GROUPS_MAX
+    assert const("D_MAX") == dec.PAGED_D_MAX
+    assert const("ELEM_THREADS") == dec.PAGED_ELEM_THREADS
+    assert const("SMEM_MAX") == dec.SMEM_MAX
+    assert re.search(r"enum Route \{ ELEMENT = 0, BULK = (\d), TMA = (\d) \}",
+                     src).groups() == (str(dec._FEEDS["bulk"]),
+                                       str(dec._FEEDS["tma"]))
+    # the fast route: region, then (split, GB) + (GB, D) + 2 (CWARPS, GB)
+    # floats, 2 STAGES mbarriers, the split's page ids
+    assert "max(STAGES * STAGE_BYTES, CTHREADS * 16 * G)" in src
+    assert "reinterpret_cast<float4*>(sc + split * GB)" in src
+    assert "float* wred = reinterpret_cast<float*>(qs4) + GB * D;" in src
+    assert "float* lred = wred + CWARPS * GB;" in src
+    assert "reinterpret_cast<uint64_t*>(lred + CWARPS * GB)" in src
+    assert "reinterpret_cast<int*>(bars + 2 * STAGES)" in src
+    # the element route: (G, D) + (split, G) + 2 G floats, the page ids
+    assert "float* sc = qs + G * D;" in src
+    assert "float* mg = sc + split * G;" in src
+    assert "reinterpret_cast<int*>(lg + G)" in src
+    # a split touches at most (split - 1) / page + 2 pages
+    for split in (64, 128, 3648):
+        for page in (1, 3, 16, 64, 256):
+            spans = {(t0 + n - 1) // page - t0 // page + 1
+                     for t0 in range(0, 4 * page + split, 64)
+                     for n in (1, split)}
+            assert max(spans) <= dec.paged_pages(split, page)
+
+
+def test_paged_route_rule_and_any_page_size():
+    """The fast route takes 16-byte rows of aligned pools with G <= 16 and
+    D <= 256; anything else goes to the element route.  Pages of 256
+    tokens (refused before: 48 KB) fit either route at llama's heads."""
+    def pools(dtype, D, offset=0):
+        buf = torch.zeros(2 * 4 * 2 * D + offset, dtype=dtype)
+        return buf[offset:].view(2, 4, 2, D)
+    kp = pools(torch.bfloat16, 128)
+    assert dec._paged_fast_route(kp, kp, 4, 128)
+    assert dec._paged_fast_route(kp, kp, 16, 128)
+    assert not dec._paged_fast_route(kp, kp, 17, 128)
+    assert not dec._paged_fast_route(pools(torch.bfloat16, 128, 1),
+                                     pools(torch.bfloat16, 128, 1), 4, 128)
+    assert not dec._paged_fast_route(pools(torch.float32, 6),
+                                     pools(torch.float32, 6), 4, 6)
+    assert not dec._paged_fast_route(pools(torch.float32, 260),
+                                     pools(torch.float32, 260), 4, 260)
+    split, _ = dec.paged_splits(4, 8, 32768, 4)
+    for page in (16, 64, 256, 1):
+        assert dec.paged_smem(4, 128, 2, split, page) <= dec.SMEM_MAX
+        assert dec.paged_element_smem(4, 128, split, page) <= dec.SMEM_MAX
+
+
+def test_paged_decode_wrapper_never_falls_back(monkeypatch):
+    """On a device other than the CPU the wrapper launches or raises: the
+    plain version is never its way out."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+    monkeypatch.setattr(dec, "flash_decode_paged_plain", refuse)
+    q = torch.empty((2, 2, 4, 16), device="meta")
+    kv = torch.empty((8, 16, 2, 16), device="meta")
+    pt = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    ln = torch.zeros((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        dec.flash_decode_paged(q, kv, kv, pt, ln)
+    with pytest.raises(ValueError):      # pools that do not fit q
+        dec.flash_decode_paged(q, kv[..., :8], kv[..., :8], pt, ln)
+    with pytest.raises(ValueError):      # operands on two devices
+        dec.flash_decode_paged(torch.zeros(2, 2, 4, 16), kv, kv, pt, ln)
+
+
+def _paged_case_on(dev, gen, B, K, G, D, page, lengths, dtype, spare=5,
+                   offset=0):
+    """Card inputs: tables shuffled over a pool of ``spare`` pages more
+    than the requests hold; ``offset`` elements shift both pools off the
+    16-byte grid."""
+    maxp = max(1, -(-max(lengths) // page))
+    n_pages = B * maxp + spare
+    pt = torch.randperm(n_pages, generator=gen, device=dev)[:B * maxp] \
+        .reshape(B, maxp).to(torch.int32).contiguous()
+    q = torch.randn((B, K, G, D), generator=gen, device=dev)
+    n = n_pages * page * K * D
+
+    def pool():
+        buf = torch.randn((n + offset,), generator=gen, device=dev).to(dtype)
+        return buf[offset:].view(n_pages, page, K, D)
+    ln = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    return q, pool(), pool(), pt, ln
+
+
+def _check_paged_on_card(args, dtype, element=False, split=None, feed="bulk"):
+    """The kernel against the plain version cut alike (FLASH_TOL), two
+    launches equal bit for bit, both counted on the expected route."""
+    n0, e0 = dec.launches, dec.paged_element_launches
+    got = dec.flash_decode_paged(*args, _split=split, _feed=feed)
+    again = dec.flash_decode_paged(*args, _split=split, _feed=feed)
+    assert dec.launches == n0 + 2
+    assert dec.paged_element_launches == e0 + 2 * element
+    want = dec.flash_decode_paged_plain(*args, split=split)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_TOL[dtype] * float(want.float().abs().max())
+    assert torch.equal(got, again)
+    for b in range(args[4].shape[0]):
+        if int(args[4][b]) == 0:
+            assert not got[b].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feed", ["bulk", "tma"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("page", [1, 3, 16, 64, 100, 256])
+def test_paged_decode_pages_on_card(cuda, page, dtype, feed):
+    """B3 at pages of any size (a tile spans several pages or part of
+    one), both copy feeds, ragged lengths over several splits and a
+    request of length 0."""
+    gen = torch.Generator(device=cuda).manual_seed(page)
+    args = _paged_case_on(cuda, gen, 4, 8, 4, 128, page,
+                          [1000, 0, 3 * page + 7, 2500], TORCH_DT[dtype])
+    _check_paged_on_card(args, dtype, feed=feed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 256])
+def test_paged_decode_groups_dims_on_card(cuda, D, G, dtype):
+    """The fast route at G 1-16 and D 32-256 (80: rows of 10 or 20
+    chunks), f32 and bf16, one split and several."""
+    gen = torch.Generator(device=cuda).manual_seed(G * D)
+    args = _paged_case_on(cuda, gen, 3, 2, G, D, 16, [40, 3000, 1],
+                          TORCH_DT[dtype])
+    _check_paged_on_card(args, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["misaligned", "groups24", "d6", "d260"])
+def test_paged_decode_element_route_on_card(cuda, case, dtype):
+    """Pools off the fast route's rule take the element route: pools off
+    the 16-byte grid, G over 16, rows under 16 bytes, D over 256; the same
+    results as the plain version, counted on that route."""
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    G, D, offset = {"misaligned": (4, 128, 1), "groups24": (24, 64, 0),
+                    "d6": (4, 6, 0), "d260": (2, 260, 0)}[case]
+    args = _paged_case_on(cuda, gen, 3, 2, G, D, 16, [700, 0, 33],
+                          TORCH_DT[dtype], offset=offset)
+    _check_paged_on_card(args, dtype, element=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [64, 256, 1024, 3648])
+def test_paged_decode_forced_split_on_card(cuda, split):
+    """The split sweep's knob: every forced split against the plain version
+    cut alike (bf16, G 4, D 128, pages of 16)."""
+    gen = torch.Generator(device=cuda).manual_seed(split)
+    args = _paged_case_on(cuda, gen, 2, 4, 4, 128, 16, [6000, 4097],
+                          torch.bfloat16)
+    _check_paged_on_card(args, "bfloat16", split=split)
 
 
 # ---------------------------------------------------------- flash attention --
