@@ -18,8 +18,15 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               launches of each split-K shape, bf16 and f32, bitwise equal;
               the decode shapes timed beside the plain version, one
               ``torch.matmul`` and their bound.
-3. paged   -- the paged decode kernel against its plain version (shuffled
-              page tables, ragged lengths, a length-0 request), timed.
+3. paged   -- the paged decode kernel (B3) against its plain version cut
+              at the same splits (shuffled page tables, ragged lengths, a
+              length-0 request) at llama's and granite's serving shapes,
+              a 32k context (f32 and bf16) and its pages of 64 and 256,
+              and two cases off the fast route's rule (the element route,
+              its launches counted); two launches bit for bit; timed at
+              the serving shapes and the 32k context by events and with
+              the host's gaps hidden, beside the bound, the plain version
+              and the flash-decode kernel (B5) on the same tokens.
 4. flash   -- the flash-attention kernel against its plain version at the
               training shape, a serving prefill, a sliding window, a
               wide GQA case and a head dim off the kernel's grid, in f32
@@ -53,7 +60,8 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               through four kernels (the prefills run flash attention, every
               decode step's attention the flash-decode kernel) with a
               device failure at step 2 and the paged read checked every
-              step; launch counts read around this run.  Then one
+              step (one paged decode launch a step, on the fast route);
+              launch counts read around this run.  Then one
               full-width GEMM with a poisoning device must be caught and
               corrected.
 9. train_reduced -- fleet training of ``llama3-8b.reduced()`` under the f32
@@ -129,7 +137,10 @@ subset (for bring-up); the result line needs all of them.
 Three more phases run only when named.  ``--phases build,split``: the
 flash-decode kernel at split sizes of 256 to 4096 slots (the 32k cell, a
 4k-token cache, llama's and granite's serving shapes) beside the split
-rule's own (``decode_splits``); the band GEMM's bf16 body at each split count of the contraction,
+rule's own (``decode_splits``); the paged decode kernel at split sizes of
+1024 to 4096 tokens at the paged 32k cell beside its rule's own
+(``paged_splits``); the band GEMM's bf16 body at each split count of the
+contraction,
 for the decode products of llama3-8b and granite-moe-1b-a400m, the LM
 head's training dA and a product that fills the card, each split held
 against the unsplit result and timed with the host's gaps hidden, beside
@@ -141,8 +152,9 @@ two full-width f32 buckets, beside the rule's pick
 shape.  ``--phases build,f32sets``: the f32 kernels' sets as the paths
 run them, through calls every tree of the port offers.  ``--phases
 build,attnsets``: the flash-decode kernel at the decode phase's timed
-shapes and the WKV kernel at its, likewise through calls every tree
-offers (``ops.gqa_flash_decode``, ``ops.wkv6``).  With ``--src DIR`` the
+shapes, the WKV kernel at its and the paged decode kernel at the paged
+phase's, likewise through calls every tree offers
+(``ops.gqa_flash_decode``, ``ops.wkv6``, ``ops.gqa_flash_decode_paged``).  With ``--src DIR`` the
 script imports ``repro_torch`` from DIR (the ``src`` of another tree,
 e.g. the parent unpacked with ``git archive`` into the ignored
 ``build/``), which builds its own sources, so two trees are timed in one
@@ -572,8 +584,7 @@ def phase_paged():
     ``PAGED_CASES`` (f32 within 2e-4 of max(1, largest output), bf16
     within 2^-7 of the largest output), two launches bit for bit, each
     launch counted on the route the pools pick; timed at PAGED_TIMED by
-    events and with the host's gaps hidden, on both copy feeds, beside the
-    bound, the plain version (main_path f32, paged32k bf16) and B5 on the
+    events and with the host's gaps hidden, beside the bound, the plain version (main_path f32, paged32k bf16) and B5 on the
     same tokens gathered into contiguous caches."""
     import torch
     from repro_torch import ieee_f32
@@ -624,12 +635,10 @@ def phase_paged():
             if name == "float32":
                 out["max_abs_err"] = max(out["max_abs_err"], err)
             if tag in PAGED_TIMED:
-                def kernel(feed="bulk"):
-                    return dec.flash_decode_paged(*args, _feed=feed)
+                def kernel():
+                    return dec.flash_decode_paged(*args)
                 row["kernel_ms"] = time_ms(kernel, iters=20)
                 row["device_ms"] = time_ms(kernel, iters=20, hide_host=True)
-                row["device_ms_tma"] = time_ms(lambda: kernel("tma"),
-                                               iters=20, hide_host=True)
                 if (tag, name) in (("main_path", "float32"),
                                    ("paged32k", "bfloat16")):
                     row["plain_ms"] = time_ms(
@@ -652,8 +661,7 @@ def phase_paged():
                     B, K, G, D, lengths, kp.element_size(), page)
                 out["timed"][f"{tag}_{name}"] = {
                     k_: row[k_] for k_ in (
-                        "kernel_ms", "device_ms", "device_ms_tma",
-                        "plain_ms", "flash_decode_device_ms", "bound_ms",
+                        "kernel_ms", "device_ms", "plain_ms", "flash_decode_device_ms", "bound_ms",
                         "bound_by") if k_ in row}
             emit(row)
             del args, got, again, want
@@ -1991,9 +1999,8 @@ PAGED_SPLITS = (1024, 1536, 2048, 2560, 3072, 4096)
 
 def split_paged():
     """B3 at the paged 32k cell (bf16, pages of 16) at each split size
-    (1024 to 4096 tokens, and the rule's own) and both copy feeds, each
-    held against the plain version cut alike, device times with the
-    host's gaps hidden."""
+    (1024 to 4096 tokens, and the rule's own), each held against the plain
+    version cut alike, device times with the host's gaps hidden."""
     import torch
     from repro_torch.kernels import decode_attention as dec
     dev = torch.device("cuda")
@@ -2007,15 +2014,13 @@ def split_paged():
            "rule_split": rule, "ms_by_split": {}}
     for split in sorted(set(PAGED_SPLITS) | {rule}):
         want = dec.flash_decode_paged_plain(*args, split=split)
-        for feed in ("bulk", "tma"):
-            got = dec.flash_decode_paged(*args, _split=split, _feed=feed)
-            err = float((got.float() - want.float()).abs().max())
-            check(err <= BF16_OUT_TOL * float(want.float().abs().max()),
-                  f"split paged_decode {split} {feed}: err {err:.3g}")
-            row["ms_by_split"][f"{split}_{feed}"] = time_ms(
-                lambda: dec.flash_decode_paged(*args, _split=split,
-                                               _feed=feed),
-                iters=20, hide_host=True)
+        got = dec.flash_decode_paged(*args, _split=split)
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= BF16_OUT_TOL * float(want.float().abs().max()),
+              f"split paged_decode {split}: err {err:.3g}")
+        row["ms_by_split"][split] = time_ms(
+            lambda: dec.flash_decode_paged(*args, _split=split), iters=20,
+            hide_host=True)
     emit(row)
 
 

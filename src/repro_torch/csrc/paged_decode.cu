@@ -27,10 +27,11 @@
 // table into shared memory once: token t of the split is pool row
 // pt[t / page]·page + t % page at kv head kh, D·esz contiguous bytes. One
 // producer warp streams the split's K tiles and then its V tiles into a
-// ring of STAGES 16 KB stages, with "full" and "empty" mbarriers: each row
-// is one `cp.async.bulk` copy (or, with the tensor-map feed, each page
-// chunk of a tile is one TMA box of a 3-D map over the pool), so a tile
-// may span several pages or part of one. Eight consumer warps wait on
+// ring of STAGES 16 KB stages, with "full" and "empty" mbarriers: each
+// page chunk of a tile is one TMA box of a 3-D tensor map over the pool
+// (P·page rows, K heads, D), so a tile may span several pages or part of
+// one (one `cp.async.bulk` copy a row instead ran 1.65x slower at the
+// paged 32k cell, PERF.md). Eight consumer warps wait on
 // "full", read the stage and release it through "empty": no block-wide
 // barrier per tile. Each key row is scored once for all G query rows: QT
 // lanes (at most 8) share a key, each taking 16-byte chunks of it, so the
@@ -44,15 +45,13 @@
 // shares are added through the ring's space at the end. With one split the
 // block writes the output; with several it writes (acc, m, l) and a second
 // kernel combines them in split order. Pools whose rows are not 16-byte
-// multiples, are not 16-byte aligned, or whose G or D exceed the fast
-// route's take the element route: the same splits and roundings, from
-// ordinary loads.
+// multiples, are not 16-byte aligned, whose G or D exceed the fast route's,
+// or whose boxes would not start on 128 bytes of shared memory take the
+// element route: the same splits and roundings, from ordinary loads.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <cstring>
 
 namespace {
 
@@ -70,7 +69,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr int ERR_TMAP = 10000;            // + the CUresult of the encode
 constexpr int ERR_NO_ENCODE = 20000;       // no encoder in the CUDA driver
 
-enum Route { ELEMENT = 0, BULK = 1, TMA = 2 };
+enum Route { ELEMENT = 0, TMA = 1 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -113,17 +112,6 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   for (uint32_t n = 0; !mbar_try_wait(bar, parity); ++n)
     if (n == (1u << 26)) __trap();
-}
-
-// `bytes` (a multiple of 16) from global to shared memory, completing on
-// the mbarrier's transaction count
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,
@@ -251,7 +239,7 @@ struct Geo {
   }
 };
 
-template <typename T, int GB, int FEED>
+template <typename T, int GB>
 __global__ void __launch_bounds__(THREADS, GB <= 8 ? 2 : 1)
 paged_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ pt,
@@ -321,28 +309,16 @@ paged_split_kernel(const float* __restrict__ q, const T* __restrict__ kp,
       const int rows = min(geo.tk, n - base);
       const uint32_t dst = ring0 + s * STAGE_BYTES;
       const uint32_t bar = full0 + 8 * s;
-      if (FEED == TMA) {
-        // boxes of `box` rows never cross a page: box divides the page and
-        // the offset of every tile
-        const int nb = (rows + box - 1) / box;
-        if (lane == 0) mbar_expect_tx(bar, nb * box * geo.rowb);
-        __syncwarp();
-        for (int x = lane; x < nb; x += 32) {
-          const int t = t0 + base + x * box;
-          const int r = pids[t / page - p0] * page + t % page;
-          tma_load_3d(dst + x * box * geo.rowb, isv ? &tmV : &tmK, bar, 0,
-                      kh, r);
-        }
-      } else {
-        if (lane == 0) mbar_expect_tx(bar, rows * geo.rowb);
-        __syncwarp();
-        const T* pool = isv ? vp : kp;
-        for (int j = lane; j < rows; j += 32) {
-          const int t = t0 + base + j;
-          const long long r = (long long)pids[t / page - p0] * page + t % page;
-          bulk_load(dst + j * geo.rowb, pool + (r * Kh + kh) * D, geo.rowb,
-                    bar);
-        }
+      // boxes of `box` rows never cross a page: box divides the page and
+      // the offset of every tile
+      const int nb = (rows + box - 1) / box;
+      if (lane == 0) mbar_expect_tx(bar, nb * box * geo.rowb);
+      __syncwarp();
+      for (int x = lane; x < nb; x += 32) {
+        const int t = t0 + base + x * box;
+        const int r = pids[t / page - p0] * page + t % page;
+        tma_load_3d(dst + x * box * geo.rowb, isv ? &tmV : &tmK, bar, 0, kh,
+                    r);
       }
     }
     return;
@@ -663,36 +639,19 @@ int allow_smem(K kernel, bool* ready) {
   return 0;
 }
 
-template <typename T, int GB, int FEED>
+template <typename T, int GB>
 int launch_fast(dim3 grid, int smem, cudaStream_t stream, const float* q,
                 const T* kp, const T* vp, const int* pt, const int* lens,
                 T* out, float* part, int Kh, int G, int D, int page,
                 int maxp, int split, int nsplit, float scale, int box,
                 const CUtensorMap& tk, const CUtensorMap& tv) {
   static bool ready[64] = {};
-  const int err = allow_smem(paged_split_kernel<T, GB, FEED>, ready);
+  const int err = allow_smem(paged_split_kernel<T, GB>, ready);
   if (err) return err;
-  paged_split_kernel<T, GB, FEED><<<grid, THREADS, smem, stream>>>(
+  paged_split_kernel<T, GB><<<grid, THREADS, smem, stream>>>(
       q, kp, vp, pt, lens, out, part, Kh, G, D, page, maxp, split, nsplit,
       scale, box, tk, tv);
   return (int)cudaGetLastError();
-}
-
-template <typename T, int FEED>
-int launch_feed(dim3 grid, int smem, cudaStream_t stream, const float* q,
-                const T* kp, const T* vp, const int* pt, const int* lens,
-                T* out, float* part, int Kh, int G, int D, int page,
-                int maxp, int split, int nsplit, float scale, int box,
-                const CUtensorMap& tk, const CUtensorMap& tv) {
-#define PAGED_LAUNCH(GB)                                                     \
-  launch_fast<T, GB, FEED>(grid, smem, stream, q, kp, vp, pt, lens, out,    \
-                           part, Kh, G, D, page, maxp, split, nsplit, scale, \
-                           box, tk, tv)
-  if (G <= 2) return PAGED_LAUNCH(2);
-  if (G <= 4) return PAGED_LAUNCH(4);
-  if (G <= 8) return PAGED_LAUNCH(8);
-  return PAGED_LAUNCH(16);
-#undef PAGED_LAUNCH
 }
 
 template <typename T>
@@ -724,29 +683,27 @@ int launch(const void* q_, const void* kp_, const void* vp_, const void* pt_,
     err = (int)cudaGetLastError();
   } else {
     const Geo geo(D, (int)sizeof(T));
-    if (G > GROUPS_MAX || D > D_MAX || geo.rowb % 16)
-      return (int)cudaErrorInvalidValue;
     // boxes of `box` rows: a divisor of the page and of every tile's
-    // offset, so that no box crosses a page
+    // offset, so that no box crosses a page; each starts on 128 bytes
     const int box = gcd_int(page, geo.tk < 64 ? geo.tk : 64);
+    if (G > GROUPS_MAX || D > D_MAX || geo.rowb % 16
+        || (box * geo.rowb) % 128)
+      return (int)cudaErrorInvalidValue;
+    const EncodeTiled enc = encoder();
+    if (enc == nullptr) return ERR_NO_ENCODE;
     CUtensorMap tk, tv;
-    memset(&tk, 0, sizeof(tk));
-    memset(&tv, 0, sizeof(tv));
-    if (route == TMA) {
-      const EncodeTiled enc = encoder();
-      if (enc == nullptr) return ERR_NO_ENCODE;
-      const long long rows = (long long)P * page;
-      err = encode_pool<T>(enc, &tk, kp, D, Kh, rows, box);
-      if (err == 0) err = encode_pool<T>(enc, &tv, vp, D, Kh, rows, box);
-      if (err) return err;
-      err = launch_feed<T, TMA>(grid, smem, st, q, kp, vp, pt, lens, out,
-                                part, Kh, G, D, page, maxp, split, nsplit,
-                                scale, box, tk, tv);
-    } else {
-      err = launch_feed<T, BULK>(grid, smem, st, q, kp, vp, pt, lens, out,
-                                 part, Kh, G, D, page, maxp, split, nsplit,
-                                 scale, box, tk, tv);
-    }
+    const long long rows = (long long)P * page;
+    err = encode_pool<T>(enc, &tk, kp, D, Kh, rows, box);
+    if (err == 0) err = encode_pool<T>(enc, &tv, vp, D, Kh, rows, box);
+    if (err) return err;
+#define PAGED_LAUNCH(GB)                                                     \
+  launch_fast<T, GB>(grid, smem, st, q, kp, vp, pt, lens, out, part, Kh, G, \
+                     D, page, maxp, split, nsplit, scale, box, tk, tv)
+    if (G <= 2) err = PAGED_LAUNCH(2);
+    else if (G <= 4) err = PAGED_LAUNCH(4);
+    else if (G <= 8) err = PAGED_LAUNCH(8);
+    else err = PAGED_LAUNCH(16);
+#undef PAGED_LAUNCH
   }
   if (err || nsplit == 1) return err;
   paged_combine_kernel<T><<<dim3(Kh, B), 256, 0, st>>>(part, out, Kh, G, D,
@@ -760,8 +717,8 @@ int launch(const void* q_, const void* kp_, const void* vp_, const void* pt_,
 // or bfloat16, contiguous; pt: (B, maxp) int32 page ids; lens: (B,) int32;
 // out: (B, Kh, G, D) in the pool type; part: nsplit > 1 scratch of
 // B·Kh·nsplit·(G·D + 2G) floats; split, nsplit: the wrapper's
-// `paged_splits`; route: 0 the element route, 1 the fast route fed by
-// cp.async.bulk rows, 2 fed by tensor-map boxes; smem: the wrapper's
+// `paged_splits`; route: 0 the element route, 1 the fast route (TMA);
+// P: the pool's pages; smem: the wrapper's
 // `paged_smem` (fast) or `paged_element_smem` (element).
 extern "C" int paged_decode_f32(const void* q, const void* kp, const void* vp,
                                 const void* pt, const void* lens, void* out,

@@ -256,7 +256,6 @@ PAGED_SCORE_BYTES = 61440    # a split's f32 scores at most, so that two
                              # blocks of the fast route fit an SM
 _PAGED_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-_FEEDS = {"bulk": 1, "tma": 2}   # the fast route's two copy engines
 
 
 def _score_stride(G: int) -> int:
@@ -307,12 +306,26 @@ def paged_element_smem(G: int, D: int, split: int, page: int) -> int:
     return 4 * (G * D + split * G + 2 * G + paged_pages(split, page))
 
 
+def paged_box(page: int, D: int, element_size: int) -> int:
+    """Rows of the fast route's TMA box: a divisor of the page and of every
+    tile's offset (tiles of a power of two of rows, at most PAGED_TILE_MAX,
+    filling a PAGED_STAGE_BYTES stage, from multiples of 64 tokens), so that
+    no box crosses a page."""
+    fit = min(PAGED_TILE_MAX, PAGED_STAGE_BYTES // (D * element_size))
+    tile = 1 << (fit.bit_length() - 1)
+    return math.gcd(page, min(tile, 64))
+
+
 def _paged_fast_route(k_pool, v_pool, G: int, D: int) -> bool:
     """The fast route's rule: G <= GROUPS_MAX, D <= PAGED_D_MAX, rows of D
-    elements a multiple of 16 bytes and both pools 16-byte aligned;
-    otherwise the element route."""
-    return G <= GROUPS_MAX and D <= PAGED_D_MAX \
-        and (D * k_pool.element_size()) % 16 == 0 \
+    elements a multiple of 16 bytes, both pools 16-byte aligned and not
+    empty, and boxes (:func:`paged_box`) that start on 128 bytes of shared
+    memory, as TMA needs; otherwise the element route."""
+    P, page = k_pool.shape[0], k_pool.shape[1]
+    rowb = D * k_pool.element_size()
+    return G <= GROUPS_MAX and D <= PAGED_D_MAX and rowb % 16 == 0 \
+        and P * page > 0 \
+        and paged_box(page, D, k_pool.element_size()) * rowb % 128 == 0 \
         and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0
 
 
@@ -353,19 +366,16 @@ def _kernel(dtype):
 
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, page_table: torch.Tensor,
-                       lengths: torch.Tensor, *, _split=None,
-                       _feed="bulk") -> torch.Tensor:
+                       lengths: torch.Tensor, *, _split=None) -> torch.Tensor:
     """q: (B, K, G, D) grouped queries; k_pool/v_pool: (P, page, K, D) one
     layer's pools (float32 or bfloat16), pages of any size; page_table:
-    (B, maxp) int32 page ids (entries past a request's pages are never
-    read); lengths: (B,) int32 occupied tokens.  Returns (B, K, G, D) in
+    (B, maxp) int32 page ids (entries past a request's pages are masked;
+    the kernel never reads them); lengths: (B,) int32 occupied tokens.  Returns (B, K, G, D) in
     the pool dtype; a request of length 0 gives zeros.  Pools that meet
     :func:`_paged_fast_route` take the producer-warp kernel, others the
     element route (counted in :data:`paged_element_launches`).
-    ``_split`` (tokens a split) overrides :func:`paged_splits` and
-    ``_feed`` picks the fast route's copies (``"bulk"``: one
-    ``cp.async.bulk`` a row; ``"tma"``: one tensor-map box a page chunk),
-    for the measurements only."""
+    ``_split`` (tokens a split) overrides :func:`paged_splits`, for the
+    split sweep only."""
     global launches, paged_element_launches
     if q.dim() != 4:
         raise ValueError(f"q must be (B, K, G, D); got {tuple(q.shape)}")
@@ -395,14 +405,12 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()
             and page_table.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("pools, page_table and lengths must be contiguous")
-    if _feed not in _FEEDS:
-        raise ValueError(f"feed must be one of {sorted(_FEEDS)}")
     P, page, maxp = k_pool.shape[0], k_pool.shape[1], page_table.shape[1]
     S = max(1, maxp * page)
-    if B > 65535 or K > 65535 or P * page >= 2 ** 31:
+    if B > 65535 or K > 65535 or max(P, maxp) * page >= 2 ** 31:
         raise ValueError(f"paged decode needs B, K <= 65535 and fewer than "
-                         f"2^31 pool rows; got B={B}, K={K}, "
-                         f"{P * page} rows")
+                         f"2^31 pool rows and table tokens; got B={B}, "
+                         f"K={K}, {P * page} rows, {maxp * page} tokens")
     if _split is None:
         split, ns = paged_splits(B, K, S, G)
     else:
@@ -423,7 +431,7 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
             qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             part.data_ptr(), B, K, G, D, page, maxp, P, split, ns,
-            1.0 / math.sqrt(D), _FEEDS[_feed] if fast else 0, smem,
+            1.0 / math.sqrt(D), int(fast), smem,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "

@@ -761,9 +761,11 @@ def test_paged_shared_constants_match_the_cuda_source():
     assert const("D_MAX") == dec.PAGED_D_MAX
     assert const("ELEM_THREADS") == dec.PAGED_ELEM_THREADS
     assert const("SMEM_MAX") == dec.SMEM_MAX
-    assert re.search(r"enum Route \{ ELEMENT = 0, BULK = (\d), TMA = (\d) \}",
-                     src).groups() == (str(dec._FEEDS["bulk"]),
-                                       str(dec._FEEDS["tma"]))
+    assert "enum Route { ELEMENT = 0, TMA = 1 };" in src
+    # the TMA box: a divisor of the page and of the tiles' offsets
+    assert "const int box = gcd_int(page, geo.tk < 64 ? geo.tk : 64);" in src
+    assert "int t = STAGE_BYTES / rowb;" in src
+    assert "if (t > TILE_MAX) t = TILE_MAX;" in src
     # the fast route: region, then (split, GB) + (GB, D) + 2 (CWARPS, GB)
     # floats, 2 STAGES mbarriers, the split's page ids
     assert "max(STAGES * STAGE_BYTES, CTHREADS * 16 * G)" in src
@@ -787,7 +789,8 @@ def test_paged_shared_constants_match_the_cuda_source():
 
 def test_paged_route_rule_and_any_page_size():
     """The fast route takes 16-byte rows of aligned pools with G <= 16 and
-    D <= 256; anything else goes to the element route.  Pages of 256
+    D <= 256 whose TMA boxes start on 128 bytes; anything else goes to the
+    element route.  Pages of 256
     tokens (refused before: 48 KB) fit either route at llama's heads."""
     def pools(dtype, D, offset=0):
         buf = torch.zeros(2 * 4 * 2 * D + offset, dtype=dtype)
@@ -802,6 +805,16 @@ def test_paged_route_rule_and_any_page_size():
                                      pools(torch.float32, 6), 4, 6)
     assert not dec._paged_fast_route(pools(torch.float32, 260),
                                      pools(torch.float32, 260), 4, 260)
+    # TMA boxes start on 128 bytes: rows of 160 bytes need boxes of 4 rows
+    kp80 = torch.zeros((2, 16, 2, 80), dtype=torch.bfloat16)
+    assert dec.paged_box(16, 80, 2) == 16
+    assert dec._paged_fast_route(kp80, kp80, 4, 80)
+    kp80 = torch.zeros((40, 1, 2, 80), dtype=torch.bfloat16)
+    assert dec.paged_box(1, 80, 2) == 1
+    assert not dec._paged_fast_route(kp80, kp80, 4, 80)
+    assert [dec.paged_box(p, 128, 2) for p in (1, 3, 16, 64, 100, 256)] \
+        == [1, 1, 16, 64, 4, 64]
+    assert dec.paged_box(256, 128, 4) == 32
     split, _ = dec.paged_splits(4, 8, 32768, 4)
     for page in (16, 64, 256, 1):
         assert dec.paged_smem(4, 128, 2, split, page) <= dec.SMEM_MAX
@@ -845,12 +858,12 @@ def _paged_case_on(dev, gen, B, K, G, D, page, lengths, dtype, spare=5,
     return q, pool(), pool(), pt, ln
 
 
-def _check_paged_on_card(args, dtype, element=False, split=None, feed="bulk"):
+def _check_paged_on_card(args, dtype, element=False, split=None):
     """The kernel against the plain version cut alike (FLASH_TOL), two
     launches equal bit for bit, both counted on the expected route."""
     n0, e0 = dec.launches, dec.paged_element_launches
-    got = dec.flash_decode_paged(*args, _split=split, _feed=feed)
-    again = dec.flash_decode_paged(*args, _split=split, _feed=feed)
+    got = dec.flash_decode_paged(*args, _split=split)
+    again = dec.flash_decode_paged(*args, _split=split)
     assert dec.launches == n0 + 2
     assert dec.paged_element_launches == e0 + 2 * element
     want = dec.flash_decode_paged_plain(*args, split=split)
@@ -863,17 +876,16 @@ def _check_paged_on_card(args, dtype, element=False, split=None, feed="bulk"):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("feed", ["bulk", "tma"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("page", [1, 3, 16, 64, 100, 256])
-def test_paged_decode_pages_on_card(cuda, page, dtype, feed):
+def test_paged_decode_pages_on_card(cuda, page, dtype):
     """B3 at pages of any size (a tile spans several pages or part of
-    one), both copy feeds, ragged lengths over several splits and a
-    request of length 0."""
+    one), ragged lengths over several splits and a request of length 0,
+    all on the fast route."""
     gen = torch.Generator(device=cuda).manual_seed(page)
     args = _paged_case_on(cuda, gen, 4, 8, 4, 128, page,
                           [1000, 0, 3 * page + 7, 2500], TORCH_DT[dtype])
-    _check_paged_on_card(args, dtype, feed=feed)
+    _check_paged_on_card(args, dtype)
 
 
 @pytest.mark.gpu
@@ -891,15 +903,19 @@ def test_paged_decode_groups_dims_on_card(cuda, D, G, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["misaligned", "groups24", "d6", "d260"])
+@pytest.mark.parametrize("case", ["misaligned", "groups24", "d6", "d260",
+                                  "box160"])
 def test_paged_decode_element_route_on_card(cuda, case, dtype):
     """Pools off the fast route's rule take the element route: pools off
-    the 16-byte grid, G over 16, rows under 16 bytes, D over 256; the same
-    results as the plain version, counted on that route."""
+    the 16-byte grid, G over 16, rows under 16 bytes, D over 256, TMA boxes
+    off 128 bytes (one-token pages of D 80); the same results as the plain
+    version, counted on that route."""
     gen = torch.Generator(device=cuda).manual_seed(len(case))
-    G, D, offset = {"misaligned": (4, 128, 1), "groups24": (24, 64, 0),
-                    "d6": (4, 6, 0), "d260": (2, 260, 0)}[case]
-    args = _paged_case_on(cuda, gen, 3, 2, G, D, 16, [700, 0, 33],
+    G, D, offset, page = {
+        "misaligned": (4, 128, 1, 16), "groups24": (24, 64, 0, 16),
+        "d6": (4, 6, 0, 16), "d260": (2, 260, 0, 16),
+        "box160": (4, 80, 0, 1)}[case]
+    args = _paged_case_on(cuda, gen, 3, 2, G, D, page, [700, 0, 33],
                           TORCH_DT[dtype], offset=offset)
     _check_paged_on_card(args, dtype, element=True)
 
