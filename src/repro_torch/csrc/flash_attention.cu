@@ -48,6 +48,21 @@
 // changes. Ragged Sq, Sk and D are masked, not padded. Operands are
 // addressed through strides, so the (B, S, H, D) layout of the model is
 // read in place.
+//
+// q and k may be wider than v (MLA: Dk = 192 of nope and rope columns, Dv
+// = 128): the kernel is templated on the two padded widths, Q and K tiles
+// of DPK columns, V tiles and the accumulator of DPV, with the scale
+// 1/sqrt(Dk). At (192, 128) a block of BQ = 64 rows takes 144 KB of shared
+// memory, so one block of 128 threads fits an SM; BQ = 32 takes 112 KB
+// and fits two, BQ = 128 208 KB and one of 256 threads. MLA's training
+// shape (B 8, S 128, 128 heads over 128 kv heads, causal, f32) has G = 1,
+// so a K/V tile serves BQ positions of one head only; its 335 MB of
+// operands and output against 5.4 GFLOP of useful products make it bound
+// by bytes (0.100 ms against 0.081 ms). There the path takes BQ = 128
+// (BQ_MLA), one block of 8 warps an SM: in chip_smoke.py's split sweep on
+// an H100 it ran 0.370 ms against 0.458 (BQ 64) and 0.510 (BQ 32) in
+// f32, 0.559 against 0.933 and 1.310 in bf16, whose operands are widened
+// by plain loads, not cp.async, and so wait in line with the arithmetic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,6 +71,9 @@
 namespace {
 
 constexpr int BQ_PATH = 64;    // rows of a block: flash_attention.BLOCK_Q
+// the rows a block the wrapper passes at (192, 128):
+// flash_attention.BLOCK_Q_MLA
+constexpr int BQ_MLA = 128;
 constexpr int BK = 64;         // key tile: flash_attention.BLOCK_K
 constexpr float NEG_INF = -1e30f;
 
@@ -217,28 +235,29 @@ __device__ __forceinline__ void scale_q(float* Qs, float scale) {
   }
 }
 
-template <int DP, int BQ>
+template <int DPK, int DPV, int BQ>
 constexpr int smem_bytes() {
-  return 4 * (BQ * DP + 2 * BK * DP + BK * BQ);
+  return 4 * (BQ * DPK + BK * DPK + BK * DPV + BK * BQ);
 }
 
-// DP: the head dim rounded up to 32; BQ: query rows of a block, 2 BQ
-// threads (BQ / 4 row groups of 8 key lanes)
-template <typename T, int DP, int BQ>
+// DPK, DPV: the q/k and the v head dims rounded up to 32; BQ: query rows
+// of a block, 2 BQ threads (BQ / 4 row groups of 8 key lanes)
+template <typename T, int DPK, int DPV, int BQ>
 __global__ void __launch_bounds__(2 * BQ, BQ <= 64 ? 2 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int G, int Hk,
-                 int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs,
-                 Strides os, int causal, int window, int q_offset,
-                 float scale, int vec) {
+                 int Sq, int Sk, int Dk, int Dv, Strides qs, Strides ks,
+                 Strides vs, Strides os, int causal, int window,
+                 int q_offset, float scale, int vec) {
   constexpr int NT = 2 * BQ;       // threads
-  constexpr int C4 = DP / 4;       // float4 columns of a row
-  constexpr int DJ = DP / 32;      // accumulator float4s a thread, per row
+  constexpr int C4 = DPK / 4;      // float4 columns of a q or k row
+  constexpr int CV4 = DPV / 4;     // float4 columns of a v row
+  constexpr int DJ = DPV / 32;     // accumulator float4s a thread, per row
   extern __shared__ __align__(16) float sm[];
-  float* Qs = sm;                  // [BQ][DP] scaled queries
-  float* Ks = Qs + BQ * DP;        // [BK][DP] keys, swizzled
-  float* Vs = Ks + BK * DP;        // [BK][DP] values
-  float* Pt = Vs + BK * DP;        // [BK][BQ] rounded p, swizzled
+  float* Qs = sm;                  // [BQ][DPK] scaled queries
+  float* Ks = Qs + BQ * DPK;       // [BK][DPK] keys, swizzled
+  float* Vs = Ks + BK * DPK;       // [BK][DPV] values
+  float* Pt = Vs + BK * DPV;       // [BK][BQ] rounded p, swizzled
   const float4* Q4 = reinterpret_cast<const float4*>(Qs);
   const float4* K4 = reinterpret_cast<const float4*>(Ks);
   const float4* V4 = reinterpret_cast<const float4*>(Vs);
@@ -266,15 +285,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int kbeg = 0;
   if (window > 0) kbeg = max(0, qlo - window + 1) / BK * BK;
   if (kbeg < kend) {
-    stage_q<T, DP, BQ, NT>(Qs, qb, qs, R0, G, Sq, D, vec, scale);
+    stage_q<T, DPK, BQ, NT>(Qs, qb, qs, R0, G, Sq, Dk, vec, scale);
     cp_async_commit();
-    stage_kv<T, DP, NT>(Ks, kb, ks.s, kbeg, Sk, D, vec, true);
+    stage_kv<T, DPK, NT>(Ks, kb, ks.s, kbeg, Sk, Dk, vec, true);
     cp_async_commit();
-    stage_kv<T, DP, NT>(Vs, vb, vs.s, kbeg, Sk, D, vec, false);
+    stage_kv<T, DPV, NT>(Vs, vb, vs.s, kbeg, Sk, Dv, vec, false);
     cp_async_commit();
     if constexpr (sizeof(T) == 4) {
       cp_async_wait<2>();    // this thread's query copies have landed
-      scale_q<DP, BQ, NT>(Qs, scale);
+      scale_q<DPK, BQ, NT>(Qs, scale);
     }
   }
 
@@ -321,7 +340,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
     __syncthreads();    // every QKᵀ read of Ks is done: load the next tile
-    if (more) stage_kv<T, DP, NT>(Ks, kb, ks.s, k0 + BK, Sk, D, vec, true);
+    if (more) stage_kv<T, DPK, NT>(Ks, kb, ks.s, k0 + BK, Sk, Dk, vec, true);
     cp_async_commit();
 
     float corr[4], pr[4][8];
@@ -378,7 +397,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p4[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj) {
-        const float4 vv = V4[c * C4 + kl + 8 * jj];
+        const float4 vv = V4[c * CV4 + kl + 8 * jj];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[i][4 * jj] = fmaf(p4[i], vv.x, acc[i][4 * jj]);
@@ -389,7 +408,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();    // every read of Vs and Pt is done
-    if (more) stage_kv<T, DP, NT>(Vs, vb, vs.s, k0 + BK, Sk, D, vec, false);
+    if (more) stage_kv<T, DPV, NT>(Vs, vb, vs.s, k0 + BK, Sk, Dv, vec, false);
     cp_async_commit();
   }
 
@@ -405,26 +424,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float x[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) x[e] = acc[i][4 * jj + e] / den;
-      store4(orow + d, x, d, D, vec);
+      store4(orow + d, x, d, Dv, vec);
     }
   }
 }
 
-template <typename T, int DP, int BQ>
+template <typename T, int DPK, int DPV, int BQ>
 int launch_dp(const T* q, const T* k, const T* v, T* o, int B, int H,
-              int Hk, int Sq, int Sk, int D, Strides qs, Strides ks,
-              Strides vs, Strides os, int causal, int window, int q_offset,
-              float scale, int vec, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<DP, BQ>();
+              int Hk, int Sq, int Sk, int Dk, int Dv, Strides qs,
+              Strides ks, Strides vs, Strides os, int causal, int window,
+              int q_offset, float scale, int vec, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<DPK, DPV, BQ>();
   static bool ready[64] = {};   // the attributes, once per device
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 64 || !ready[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DP, BQ>,
+        flash_fwd_kernel<T, DPK, DPV, BQ>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP, BQ>,
+      err = cudaFuncSetAttribute(flash_fwd_kernel<T, DPK, DPV, BQ>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  100);
     if (err != cudaSuccess) return (int)err;
@@ -434,21 +453,26 @@ int launch_dp(const T* q, const T* k, const T* v, T* o, int B, int H,
   const long long tiles = ((long long)G * Sq + BQ - 1) / BQ;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid(B * Hk, (unsigned)tiles);
-  flash_fwd_kernel<T, DP, BQ><<<grid, 2 * BQ, smem, stream>>>(
-      q, k, v, o, G, Hk, Sq, Sk, D, qs, ks, vs, os, causal, window,
+  flash_fwd_kernel<T, DPK, DPV, BQ><<<grid, 2 * BQ, smem, stream>>>(
+      q, k, v, o, G, Hk, Sq, Sk, Dk, Dv, qs, ks, vs, os, causal, window,
       q_offset, scale, vec);
   return (int)cudaGetLastError();
 }
 
-// block_q: the path's BQ_PATH rows a block; 32 and 128 also exist for f32
-// at D > 96, to measure the block shape (chip_smoke.py's split phase)
+// The instantiated (DPK, DPV) pairs: equal dims up to 128, (64, 32) for
+// MLA's reduced 48 / 32, and (192, 128) for MLA's 192 / 128, which also
+// takes any Dk <= 192 with Dv <= 128 (columns past the dims are zeros).
+// block_q: the rows a block, as flash_attention.block_q picks them
+// (BQ_PATH, or BQ_MLA at (192, 128)); 32 and 128 also exist for f32 at
+// (128, 128), and 32 and 64 for both types at (192, 128), to measure the
+// block shape (chip_smoke.py's split phase).
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hk, int Sq, int Sk, int D, const long long* st,
-           int causal, int window, int q_offset, float scale, int block_q,
-           void* stream) {
+           int H, int Hk, int Sq, int Sk, int Dk, int Dv,
+           const long long* st, int causal, int window, int q_offset,
+           float scale, int block_q, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaGetLastError();
-  if (Hk <= 0 || H % Hk != 0 || D <= 0 || D > 128)
+  if (Hk <= 0 || H % Hk != 0 || Dk <= 0 || Dv <= 0 || Dk > 192 || Dv > 128)
     return (int)cudaErrorInvalidValue;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
@@ -464,18 +488,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
   cudaStream_t s = (cudaStream_t)stream;
-#define FLASH_LAUNCH(DP, BQ)                                                \
-  launch_dp<T, DP, BQ>(qp, kp, vp, op, B, H, Hk, Sq, Sk, D, qs, ks, vs, os, \
-                       causal, window, q_offset, scale, vec, s)
-  if (block_q == BQ_PATH) {
-    if (D <= 32) return FLASH_LAUNCH(32, BQ_PATH);
-    if (D <= 64) return FLASH_LAUNCH(64, BQ_PATH);
-    if (D <= 96) return FLASH_LAUNCH(96, BQ_PATH);
-    return FLASH_LAUNCH(128, BQ_PATH);
+#define FLASH_LAUNCH(DPK, DPV, BQ)                                          \
+  launch_dp<T, DPK, DPV, BQ>(qp, kp, vp, op, B, H, Hk, Sq, Sk, Dk, Dv, qs, \
+                             ks, vs, os, causal, window, q_offset, scale, \
+                             vec, s)
+  const int pk = (Dk + 31) / 32 * 32, pv = (Dv + 31) / 32 * 32;
+  if (pk == pv && block_q == BQ_PATH) {
+    if (pk == 32) return FLASH_LAUNCH(32, 32, BQ_PATH);
+    if (pk == 64) return FLASH_LAUNCH(64, 64, BQ_PATH);
+    if (pk == 96) return FLASH_LAUNCH(96, 96, BQ_PATH);
+    return FLASH_LAUNCH(128, 128, BQ_PATH);
+  }
+  if (pk == 64 && pv == 32 && block_q == BQ_PATH)
+    return FLASH_LAUNCH(64, 32, BQ_PATH);
+  if (pk != pv && !(pk == 64 && pv == 32)) {
+    if (block_q == 32) return FLASH_LAUNCH(192, 128, 32);
+    if (block_q == 64) return FLASH_LAUNCH(192, 128, 64);
+    if (block_q == 128) return FLASH_LAUNCH(192, 128, 128);
   }
   if constexpr (sizeof(T) == 4) {
-    if (D > 96 && block_q == 32) return FLASH_LAUNCH(128, 32);
-    if (D > 96 && block_q == 128) return FLASH_LAUNCH(128, 128);
+    if (pk == 128 && pv == 128 && block_q == 32)
+      return FLASH_LAUNCH(128, 128, 32);
+    if (pk == 128 && pv == 128 && block_q == 128)
+      return FLASH_LAUNCH(128, 128, 128);
   }
   return (int)cudaErrorInvalidValue;
 #undef FLASH_LAUNCH
@@ -484,24 +519,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // strides: 12 element strides (batch, head, seq) of q, k, v and o, each
-// viewed as (B, heads, S, D) with unit stride along D
+// viewed as (B, heads, S, D) with unit stride along D; q and k have Dk
+// columns, v and o have Dv
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
-                                   int Hk, int Sq, int Sk, int D,
+                                   int Hk, int Sq, int Sk, int Dk, int Dv,
                                    const long long* strides, int causal,
                                    int window, int q_offset, float scale,
                                    int block_q, void* stream) {
-  return launch<float>(q, k, v, o, B, H, Hk, Sq, Sk, D, strides, causal,
-                       window, q_offset, scale, block_q, stream);
+  return launch<float>(q, k, v, o, B, H, Hk, Sq, Sk, Dk, Dv, strides,
+                       causal, window, q_offset, scale, block_q, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
-                                    int Hk, int Sq, int Sk, int D,
+                                    int Hk, int Sq, int Sk, int Dk, int Dv,
                                     const long long* strides, int causal,
                                     int window, int q_offset, float scale,
                                     int block_q, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, Sq, Sk, D, strides,
-                               causal, window, q_offset, scale, block_q,
-                               stream);
+  return launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, Sq, Sk, Dk, Dv,
+                               strides, causal, window, q_offset, scale,
+                               block_q, stream);
 }

@@ -6,7 +6,8 @@ Port of the Pallas ``flash_attention``
 wrapper launches the hand-written Hopper kernel in
 ``csrc/flash_attention.cu`` (or raises); on a CPU tensor it runs
 :func:`flash_attention_plain`, the same online softmax over key tiles in
-plain PyTorch.
+plain PyTorch.  q and k may be wider than v (MLA's 192 / 128): the kernel
+takes q/k head dims up to ``MAX_DK`` and v head dims up to ``MAX_DV``.
 """
 from __future__ import annotations
 
@@ -22,15 +23,35 @@ launches = 0                 # kernel launches since the last reset
 
 BLOCK_K = 64                 # key tile of the kernel and the plain version
 BLOCK_Q = 64                 # (position, head) rows of a kernel block
-MAX_D = 128                  # head dims the kernel is built for
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+BLOCK_Q_MLA = 128            # the same at the (192, 128) tiles
+MAX_DK, MAX_DV = 192, 128    # head dims the kernel is built for
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
     + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
+def tile_dims(dk: int, dv: int) -> tuple:
+    """The kernel's padded (q/k, v) tile widths for head dims dk, dv:
+    both rounded up to 32 where they then agree, (64, 32) for MLA's
+    reduced 48 / 32, else (192, 128), which takes any dk <= 192 with dv
+    <= 128 (the launcher in ``csrc/flash_attention.cu`` has the same
+    rule)."""
+    pk, pv = -(-dk // 32) * 32, -(-dv // 32) * 32
+    if pk == pv or (pk, pv) == (64, 32):
+        return pk, pv
+    return MAX_DK, MAX_DV
+
+
+def block_q(dk: int, dv: int) -> int:
+    """The kernel's (position, head) rows a block for head dims dk, dv."""
+    return BLOCK_Q_MLA if tile_dims(dk, dv) == (MAX_DK, MAX_DV) \
+        else BLOCK_Q
+
+
 def _attend_plain(q, k, v, *, causal, window, q_offset):
-    """(B, H, Sq, D) x (B, Hk, Sk, D) -> (B, H, Sq, D) in q's dtype; query
-    head h reads kv head h // (H // Hk)."""
+    """(B, H, Sq, Dk) x (B, Hk, Sk, Dk), (B, Hk, Sk, Dv) -> (B, H, Sq, Dv)
+    in q's dtype, scaled by 1/sqrt(Dk); query head h reads kv head
+    h // (H // Hk)."""
     B, H, Sq, D = q.shape
     Hk, Sk = k.shape[1], k.shape[2]
     G = H // Hk
@@ -84,24 +105,28 @@ def _kernel(dtype):
 
 
 def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
-           _block_q=BLOCK_Q):
-    """Write attention of ``q`` over ``k``/``v`` into ``out``.  All four
-    are (B, heads, S, D) views with unit stride along D (any other
-    strides; the model's (B, S, H, D) tensors pass as
-    ``x.transpose(1, 2)``); k and v have Hk heads with H % Hk == 0.  Query
-    row i sits at position ``q_offset + i``.  ``_block_q`` is for the
-    block-shape sweep of ``chip_smoke.py --phases build,split`` alone: the
-    kernel's rows a block, 32 and 128 built for f32 at D > 96 only (the
-    CPU path ignores it)."""
+           _block_q=None):
+    """Write attention of ``q`` over ``k``/``v`` into ``out``.  q is (B, H,
+    Sq, Dk), k (B, Hk, Sk, Dk), v (B, Hk, Sk, Dv) and out (B, H, Sq, Dv),
+    all views with unit stride along the head dim (any other strides; the
+    model's (B, S, H, D) tensors pass as ``x.transpose(1, 2)``), with H %
+    Hk == 0.  Query row i sits at position ``q_offset + i``; the scale is
+    1/sqrt(Dk).  ``_block_q`` is for the block-shape sweep of
+    ``chip_smoke.py --phases build,split`` alone: the kernel's rows a
+    block (default :func:`block_q`; 32, 64 and 128 are built for f32 at
+    (128, 128) tiles and for both types at (192, 128); the CPU path
+    ignores it)."""
     global launches
-    B, H, Sq, D = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
-            or k.shape[3] != D or H % k.shape[1] != 0 \
-            or tuple(out.shape) != (B, H, Sq, D):
-        raise ValueError(f"flash attention needs q (B,H,Sq,D), k/v "
-                         f"(B,Hk,Sk,D) with H % Hk == 0 and out like q; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}, {tuple(out.shape)}")
+    B, H, Sq, Dk = q.shape
+    if k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3] \
+            or k.shape[0] != B or k.shape[3] != Dk or H % k.shape[1] != 0 \
+            or tuple(out.shape) != (B, H, Sq, v.shape[3]):
+        raise ValueError(f"flash attention needs q (B,H,Sq,Dk), k "
+                         f"(B,Hk,Sk,Dk), v (B,Hk,Sk,Dv) with H % Hk == 0 "
+                         f"and out (B,H,Sq,Dv); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(out.shape)}")
+    Dv = v.shape[3]
     devs = {t.device for t in (q, k, v, out)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
@@ -118,18 +143,20 @@ def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
                          f"operands of one type; got {dts}")
     if any(t.stride(3) != 1 for t in (q, k, v, out)):
         raise ValueError("flash attention needs unit stride along D")
-    if D > MAX_D:
-        raise ValueError(f"flash attention is built for head dims up to "
-                         f"{MAX_D}, not {D}")
-    tiles = -(-(H // k.shape[1]) * Sq // _block_q)
+    if Dk > MAX_DK or Dv > MAX_DV:
+        raise ValueError(f"flash attention is built for q/k head dims up "
+                         f"to {MAX_DK} and v head dims up to {MAX_DV}, not "
+                         f"{Dk} and {Dv}")
+    bq = block_q(Dk, Dv) if _block_q is None else int(_block_q)
+    tiles = -(-(H // k.shape[1]) * Sq // bq)
     if tiles > 65535:
         raise ValueError(f"flash attention launches one grid row per "
-                         f"{_block_q} (position, head) rows: {tiles} > 65535")
+                         f"{bq} (position, head) rows: {tiles} > 65535")
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-            k.shape[1], Sq, k.shape[2], D, strides, int(bool(causal)),
-            int(window), int(q_offset), 1.0 / math.sqrt(D), int(_block_q))
+            k.shape[1], Sq, k.shape[2], Dk, Dv, strides, int(bool(causal)),
+            int(window), int(q_offset), 1.0 / math.sqrt(Dk), bq)
     # as the block GEMM's launch: the raw stream, and no device switch when
     # the card is already current
     idx = q.device.index
@@ -149,14 +176,18 @@ def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     groups: int = 1) -> torch.Tensor:
-    """q: (BH, Sq, D); k, v: (BH // groups, Sk, D), float32 or bfloat16.
-    Query row bh reads kv row bh // groups (heads flattened batch-major, as
-    ``ops.mha_flash`` lays them out).  Returns (BH, Sq, D) in q's dtype."""
-    if q.dim() != 3 or k.dim() != 3 or q.shape[0] != k.shape[0] * groups:
-        raise ValueError(f"flash attention needs q (BH,Sq,D) and k/v "
+    """q: (BH, Sq, Dk); k: (BH // groups, Sk, Dk); v: (BH // groups, Sk,
+    Dv), float32 or bfloat16.  Query row bh reads kv row bh // groups
+    (heads flattened batch-major, as ``ops.mha_flash`` lays them out).
+    Returns (BH, Sq, Dv) in q's dtype."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 \
+            or q.shape[0] != k.shape[0] * groups:
+        raise ValueError(f"flash attention needs q (BH,Sq,Dk) and k/v "
                          f"(BH/groups,Sk,D); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)} with groups={groups}")
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+                         f"{tuple(k.shape)}, {tuple(v.shape)} with "
+                         f"groups={groups}")
+    out = torch.empty(q.shape[:2] + v.shape[2:], dtype=q.dtype,
+                      device=q.device)
     attend(q[None], k[None], v[None], out[None], causal=causal,
            window=window, q_offset=q_offset)
     return out

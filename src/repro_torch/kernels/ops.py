@@ -482,11 +482,12 @@ def plan_gemm(a, b, rects, *, block=128, kernel="auto", compute_dtype=None,
 
 
 def mha_flash(q, k, v, *, causal=True, window=0, q_offset=0):
-    """GQA flash attention.  q: (B,Sq,H,D); k,v: (B,Sk,K,D) with H % K ==
-    0.  Returns (B,Sq,H,D) in q's dtype.  Query head h reads kv head
-    h // (H // K) by index (no repeated copy of k and v), and the kernel
-    reads the (B, S, heads, D) layout in place."""
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    """GQA flash attention.  q: (B,Sq,H,Dk); k: (B,Sk,K,Dk); v: (B,Sk,K,Dv)
+    with H % K == 0.  Returns (B,Sq,H,Dv) in q's dtype.  Query head h reads
+    kv head h // (H // K) by index (no repeated copy of k and v), and the
+    kernel reads the (B, S, heads, D) layout in place."""
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                      device=q.device)
     _fa.attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                out.transpose(1, 2), causal=causal, window=window,
                q_offset=q_offset)

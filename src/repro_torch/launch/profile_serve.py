@@ -1,20 +1,23 @@
 """Where a fleet decode step's time goes on the card.
 
 Builds the full-width serving session of ``chip_smoke.py`` (``--arch``,
-llama3-8b or granite-moe-1b-a400m, at ``--layers`` depth, bf16, 4 slots,
-16-device fleet), runs one warm-up step, times ``--steps`` decode steps
-untraced, then traces as many with ``torch.profiler`` and prints one JSON
-object: wall time per step (untraced and traced), device kernel time per
-step, the device's idle share, the kernel time launched under the
-``fleet.fwd``, ``ops.stage_copy``, ``moe.experts`` and ``moe.dispatch``
-ranges (MoE: the expert products on the batched block GEMM, and routing,
-sort, scatter and combine), the batched block GEMM's launches per step,
-and the kernels that take the device time, each with its time and
+llama3-8b, granite-moe-1b-a400m or deepseek-v2-236b, at ``--layers``
+depth, bf16, 4 slots, 16-device fleet), runs one warm-up step, times
+``--steps`` decode steps untraced, then traces as many with
+``torch.profiler`` and prints one JSON object: wall time per step
+(untraced and traced), device kernel time per step, the device's idle
+share, the kernel time launched under the
+``fleet.fwd``, ``ops.stage_copy``, ``moe.experts``, ``moe.dispatch`` and
+``mla.decode`` ranges (MoE: the expert products on the batched block GEMM,
+and routing, sort, scatter and combine; MLA: the absorbed decode's
+einsums against the latent cache), the batched block GEMM's launches per
+step, and the kernels that take the device time, each with its time and
 launches per step.
 
 Usage (on a machine with a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-      [--arch granite-moe-1b-a400m] [--layers 4] [--steps 3] \
+      [--arch granite-moe-1b-a400m|deepseek-v2-236b] [--layers 4] \
+      [--steps 3] \
       [--out profile_serve.json]
 """
 from __future__ import annotations
@@ -24,7 +27,8 @@ import dataclasses
 import json
 import time
 
-RANGES = ("fleet.fwd", "ops.stage_copy", "moe.experts", "moe.dispatch")
+RANGES = ("fleet.fwd", "ops.stage_copy", "moe.experts", "moe.dispatch",
+          "mla.decode")
 
 
 def _device_us(evt) -> float:
@@ -38,7 +42,8 @@ def _device_us(evt) -> float:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b",
-                    choices=("llama3-8b", "granite-moe-1b-a400m"))
+                    choices=("llama3-8b", "granite-moe-1b-a400m",
+                             "deepseek-v2-236b"))
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--slots", type=int, default=4)

@@ -1,8 +1,9 @@
 """Where a fleet training step's time goes on the card.
 
 Builds the full-width training session of ``chip_smoke.py`` (``--arch``,
-llama3-8b, rwkv6-7b or granite-moe-1b-a400m, at ``--layers`` depth, bf16
-params and policy, batch 8 x 128, 16-device fleet), runs one warm-up step
+llama3-8b, rwkv6-7b, granite-moe-1b-a400m or deepseek-v2-236b, at
+``--layers`` depth, bf16 params and policy, batch 8 x 128, 16-device
+fleet, params and moments updated in place), runs one warm-up step
 (cold plan solves), times ``--steps`` steps untraced, traces as many with
 ``torch.profiler``, times every band GEMM, WKV and batched block GEMM
 (MoE experts) launch of as many more with CUDA events, and prints one
@@ -26,7 +27,8 @@ kernel name.
 
 Usage (on a machine with a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-      [--arch rwkv6-7b|granite-moe-1b-a400m] [--layers 4] [--steps 2] \\
+      [--arch rwkv6-7b|granite-moe-1b-a400m|deepseek-v2-236b] \\
+      [--layers 4] [--steps 2] \\
       [--out profile_train.json]
 """
 from __future__ import annotations
@@ -39,7 +41,7 @@ import time
 
 RANGES = ("fleet.fwd", "fleet.dA", "fleet.dW", "ops.stage_copy", "ps.adam",
           "rwkv.wkv_backward", "moe.experts", "moe.dispatch")
-ARCHS = ("llama3-8b", "rwkv6-7b", "granite-moe-1b-a400m")
+ARCHS = ("llama3-8b", "rwkv6-7b", "granite-moe-1b-a400m", "deepseek-v2-236b")
 # one H100 SXM at 700 W (NVIDIA data sheet): memory rate, dense bf16 rate
 PEAK_BW, PEAK_BF16 = 3.35e12, 989e12
 
@@ -181,7 +183,9 @@ def main(argv=None):
         nonlocal params, opt
         reps = []
         for b in steps:
-            params, opt, met = sess.step(params, opt, b)
+            # in place: deepseek-v2-236b's layer would not fit the card
+            # with a second copy of its params and moments
+            params, opt, met = sess.step(params, opt, b, donate=True)
             reps.append(met["fleet"])
         return reps
 

@@ -16,6 +16,8 @@ Usage:
       --no-reduced --layers 4 --batch 4 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch granite-moe-1b-a400m --no-reduced --layers 4 --edge-plan 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-236b --no-reduced --layers 1 --edge-plan 16
   (``--no-reduced --layers 4`` runs full width at 4 layers;
   ``--device cpu`` runs the plain CPU path.)
 """
@@ -88,7 +90,7 @@ def main(argv=None):
             logits, cache = M.decode_step(cfg, params, cache,
                                           prompts[:, t:t + 1])
     else:
-        for nm in ("k", "v"):
+        for nm in ("k", "v", "ckv", "kpe"):
             if nm in cache:
                 cache[nm][:, :, :P] = pre_cache[nm].to(cache[nm].dtype)
         cache["pos"] = pre_cache["pos"]

@@ -19,10 +19,13 @@ from repro_torch.optim import adam
 
 def make_train_step(cfg, opt_cfg: Optional[adam.AdamConfig] = None, *,
                     q_chunk=256, k_chunk=512, loss_chunk=256,
-                    microbatches: int = 1):
+                    microbatches: int = 1, donate: bool = False):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
     With ``microbatches > 1`` the batch is split along its first axis and
-    the gradients accumulate in f32 (activation memory / microbatches)."""
+    the gradients accumulate in f32 (activation memory / microbatches).
+    ``donate`` updates the caller's params and moments in place
+    (``adam.apply(donate=True)``), as the reference's driver jits the step
+    with ``donate_argnums=(0, 1)``."""
     opt_cfg = opt_cfg or adam.AdamConfig()
     chunks = dict(q_chunk=q_chunk, k_chunk=k_chunk, loss_chunk=loss_chunk)
 
@@ -50,7 +53,7 @@ def make_train_step(cfg, opt_cfg: Optional[adam.AdamConfig] = None, *,
             metrics = {k: torch.mean(torch.stack([m[k] for m in ms]))
                        for k in ms[0]}
         params2, opt2, opt_metrics = adam.apply(params, grads, opt_state,
-                                                opt_cfg)
+                                                opt_cfg, donate=donate)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

@@ -20,12 +20,19 @@ Usage (from the repository root)::
       --layers 4 --backend fleet --steps 3 --fail-step 1 --fail-ids 3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --layers 4 --backend fleet --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-v2-236b --layers 1 --backend fleet --steps 3
 
 For RWKV-6, as in the reference, only the LM head's GEMMs reach the fleet;
 the time mix (the WKV kernel) and the channel mix run on the PS.  For MoE
 the router's GEMMs reach the fleet beside the attention projections and
 the LM head; the routed experts run on the PS, on the batched block GEMM
-kernel.
+kernel.  For MLA (deepseek-v2-236b) the latent and up-projections reach
+the fleet too; the attention runs on the flash kernel at q/k 192, v 128.
+Each step updates the params and the optimizer moments in place, as the
+reference's driver donates them (``donate_argnums=(0, 1)``): one
+full-width deepseek-v2-236b layer would not fit the card with a second
+copy.
 """
 from __future__ import annotations
 
@@ -162,7 +169,7 @@ def main(argv=None):
         step_fn = None
     else:
         step_fn = make_train_step(cfg, opt_cfg, q_chunk=64, k_chunk=64,
-                                  loss_chunk=64)
+                                  loss_chunk=64, donate=True)
 
     history = []
     t0 = time.perf_counter()
@@ -173,7 +180,7 @@ def main(argv=None):
             fid = fail_ids if step == args.fail_step else ()
             params, opt_state, metrics = fleet_session.step(
                 params, opt_state, batch, fail_ids=fid,
-                fail_at_gemm=args.fail_at_gemm)
+                fail_at_gemm=args.fail_at_gemm, donate=True)
         else:
             params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])

@@ -1,8 +1,9 @@
-"""GQA/MHA attention in PyTorch: prefill/training attention through the
-flash-attention kernel, decode attention against (per-request) KV caches,
-qk-norm and QKV bias (port of the GQA path of
-``src/repro/models/attention.py``).  MLA, M-RoPE, Hymba meta tokens and
-cross-attention belong to later slices of the port.
+"""GQA/MHA and MLA attention in PyTorch: prefill/training attention
+through the flash-attention kernel, decode attention against
+(per-request) KV caches, qk-norm and QKV bias, and DeepSeek-V2's
+multi-head latent attention with its absorbed decode (port of the GQA and
+MLA paths of ``src/repro/models/attention.py``).  M-RoPE, Hymba meta
+tokens and cross-attention belong to later slices of the port.
 
 Every contraction runs in f32 on the operands' values (the reference's
 ``preferred_element_type=float32``); bf16 operands are upcast, which is
@@ -235,7 +236,7 @@ def attention_decode(cfg, p, x, pos, cache_k, cache_v, slot, valid):
 
 
 def _write_slot(cache, kv, slot):
-    """A copy of ``cache`` (B,Smax,K,hd) with ``kv`` (B,1,K,hd) written at
+    """A copy of ``cache`` (B,Smax,...) with ``kv`` (B,1,...) written at
     sequence index ``slot`` (scalar: same for the batch; (B,) vector: one
     index per slot)."""
     out = cache.clone()
@@ -247,3 +248,122 @@ def _write_slot(cache, kv, slot):
         s = int(slot)
         out[:, s:s + 1] = kv.to(cache.dtype)
     return out
+
+
+# ----------------------------------------------------------------- MLA -------
+
+def init_mla(cfg, gen, lead=()):
+    """MLA params in the reference's layout: the low-rank query path
+    (``w_dq``, ``q_norm``, ``w_uq``; ``w_q`` when ``q_lora_rank`` is 0),
+    the joint latent and rope-key projection ``w_dkv``, ``kv_norm``, the
+    key and value up-projections ``w_uk``/``w_uv`` and ``wo``."""
+    d, H = cfg.d_model, cfg.n_heads
+    hd, rd, r, vd = (cfg.head_dim, cfg.rope_head_dim, cfg.kv_lora_rank,
+                     cfg.v_dim)
+    dt = L.pdtype_of(cfg)
+    dev = gen.device
+    p = {}
+    if cfg.q_lora_rank:
+        p["w_dq"] = L.dense_init(gen, d, cfg.q_lora_rank, dt, lead=lead)
+        p["q_norm"] = L.init_rmsnorm(cfg.q_lora_rank, dt, dev, lead)
+        p["w_uq"] = L.dense_init(gen, cfg.q_lora_rank, H * (hd + rd), dt,
+                                 lead=lead)
+    else:
+        p["w_q"] = L.dense_init(gen, d, H * (hd + rd), dt, lead=lead)
+    p["w_dkv"] = L.dense_init(gen, d, r + rd, dt, lead=lead)
+    p["kv_norm"] = L.init_rmsnorm(r, dt, dev, lead)
+    p["w_uk"] = L.dense_init(gen, r, H * hd, dt, lead=lead)
+    p["w_uv"] = L.dense_init(gen, r, H * vd, dt, lead=lead)
+    p["wo"] = L.dense_init(gen, H * vd, d, dt, lead=lead)
+    return p
+
+
+def _mla_q(cfg, p, x):
+    """(q_nope (B,S,H,hd), q_pe (B,S,H,rd)), q_pe not yet rotated."""
+    B, S, _ = x.shape
+    H, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        qc = L.rmsnorm(p["q_norm"], L.pdot(x, p["w_dq"]), cfg.norm_eps)
+        q = L.pdot(qc, p["w_uq"])
+    else:
+        q = L.pdot(x, p["w_q"])
+    q = q.reshape(B, S, H, hd + rd)
+    return q[..., :hd], q[..., hd:]
+
+
+def _mla_ckv(cfg, p, x, positions):
+    """The normed latent c_kv (B,S,r) and the rotated rope key k_pe
+    (B,S,rd), shared by every head."""
+    r = cfg.kv_lora_rank
+    ckv_kpe = L.pdot(x, p["w_dkv"])
+    c_kv = L.rmsnorm(p["kv_norm"], ckv_kpe[..., :r], cfg.norm_eps)
+    k_pe = L.apply_rope(ckv_kpe[..., None, r:], positions, cfg.rope_theta)
+    return c_kv, k_pe[:, :, 0]
+
+
+def mla_block(cfg, p, x, positions, *, window=0, q_chunk=256, k_chunk=512):
+    """MLA training/prefill attention on materialised K/V: q and k of hd +
+    rd columns (the rope key broadcast over heads), v of vd, through the
+    flash-attention kernel at Dk = hd + rd, Dv = vd.  Returns
+    ``(out, (c_kv, k_pe))``, the latent cache entries."""
+    B, S, _ = x.shape
+    H, hd, rd, vd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, cfg.v_dim
+    q_nope, q_pe = _mla_q(cfg, p, x)
+    q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)
+    c_kv, k_pe = _mla_ckv(cfg, p, x, positions)
+    k_nope = L.pdot(c_kv, p["w_uk"]).reshape(B, S, H, hd)
+    v = L.pdot(c_kv, p["w_uv"]).reshape(B, S, H, vd)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None].expand(B, S, H, rd)], dim=-1)
+    out = chunked_attention(q, k, v, causal=True, window=window,
+                            q_chunk=q_chunk, k_chunk=k_chunk)
+    out = out.reshape(B, S, H * vd)
+    return L.pdot(out, p["wo"]), (c_kv, k_pe)
+
+
+def mla_decode(cfg, p, x, pos, cache_ckv, cache_kpe, slot, valid):
+    """Absorbed MLA decode: the queries are projected into the latent space
+    (q·W_uk) and score the cached c_kv directly, and the context is
+    lifted by W_uv after the probability product, so a step reads (r +
+    rd) values a cached position.  x: (B,1,d); cache_ckv (B,Smax,r) and
+    cache_kpe (B,Smax,rd) are the layer's cache slices (read, not
+    modified).  Returns ``(out, c_kv_new (B,1,r), k_pe_new (B,1,rd))`` in
+    the cache dtype for the caller to write back.  The reference's
+    roundings are kept: q_c formed in f32 and cast to the cache dtype for
+    the score product, the probabilities normalised and then cast to it,
+    the context and its product with W_uv in f32, the output cast to x's
+    dtype.  Every einsum runs in f32 on upcast operands (IEEE f32 on the
+    card), as the reference's ``preferred_element_type``; none reaches a
+    Pallas kernel there, so none is a kernel here."""
+    B = x.shape[0]
+    H, hd, rd, r, vd = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
+                        cfg.kv_lora_rank, cfg.v_dim)
+    positions = _decode_positions(cfg, pos, B)
+    q_nope, q_pe = _mla_q(cfg, p, x)
+    q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)      # (B,1,H,rd)
+    c_kv_new, k_pe_new = _mla_ckv(cfg, p, x, positions)
+    cache_ckv = _write_slot(cache_ckv, c_kv_new, slot)
+    cache_kpe = _write_slot(cache_kpe, k_pe_new, slot)
+    if x.is_cuda:
+        ieee_f32()
+    with torch.profiler.record_function("mla.decode"):
+        dt = cache_ckv.dtype
+        ckv = cache_ckv.float()
+        w_uk = p["w_uk"].reshape(r, H, hd).float()
+        q_c = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk)
+        scale = 1.0 / np.sqrt(hd + rd)
+        s = (torch.einsum("bqhr,bsr->bhqs", q_c.to(dt).float(), ckv)
+             + torch.einsum("bqhd,bsd->bhqs", q_pe.to(dt).float(),
+                            cache_kpe.float())) * scale
+        vmask = valid[:, None, None, :] if valid.dim() == 2 \
+            else valid[None, None, None, :]
+        s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
+        m = s.max(dim=-1, keepdim=True).values
+        pw = torch.exp(s - m)
+        pw = pw / pw.sum(dim=-1, keepdim=True)
+        ctx = torch.einsum("bhqs,bsr->bqhr", pw.to(dt).float(), ckv)
+        w_uv = p["w_uv"].reshape(r, H, vd).float()
+        out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
+    out = out.reshape(B, 1, H * vd).to(x.dtype)
+    return (L.pdot(out, p["wo"]), c_kv_new.to(cache_ckv.dtype),
+            k_pe_new.to(cache_kpe.dtype))

@@ -1,5 +1,5 @@
 """Decoder-only LM in PyTorch (port of ``src/repro/models/model.py``, the
-dense GQA, MoE and RWKV-6 families).  Parameters keep the reference's
+dense GQA, MoE, MLA and RWKV-6 families).  Parameters keep the reference's
 layout, with the layers stacked on a leading axis, so
 ``interop.from_jax_params`` maps the reference's params one to one.  The
 layer loop is a Python loop.
@@ -24,7 +24,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 
-_LATER = (("mla", "MLA"), ("ssm", "SSM"),
+_LATER = (("ssm", "SSM"),
           ("hybrid_parallel", "hybrid"), ("enc_dec", "encoder-decoder"),
           ("attn_free", "attention-free"), ("m_rope", "M-RoPE"),
           ("n_meta_tokens", "Hymba meta-token"))
@@ -32,14 +32,14 @@ _LATER = (("mla", "MLA"), ("ssm", "SSM"),
 
 def require_ported(cfg) -> None:
     """Raise for families the port does not cover yet: it runs the dense
-    GQA family, MoE (GQA attention, routed experts) and RWKV-6
-    (attention-free by design)."""
+    GQA family, MoE (routed experts), MLA (DeepSeek-V2's latent attention)
+    and RWKV-6 (attention-free by design)."""
     for flag, name in _LATER:
         if getattr(cfg, flag) and not (cfg.rwkv and flag == "attn_free"):
             raise NotImplementedError(
                 f"arch {cfg.name!r}: the {name} family comes with a later "
-                "slice of the port; the port runs the dense GQA, MoE and "
-                "RWKV-6 families")
+                "slice of the port; the port runs the dense GQA, MoE, MLA "
+                "and RWKV-6 families")
     if cfg.modality != "text":
         raise NotImplementedError(f"arch {cfg.name!r}: {cfg.modality} "
                                   "inputs come with a later slice")
@@ -62,7 +62,8 @@ def init_layer(cfg, gen, lead=()):
         }
     p = {
         "ln1": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
-        "attn": A.init_attention(cfg, gen, lead),
+        "attn": (A.init_mla(cfg, gen, lead) if cfg.mla
+                 else A.init_attention(cfg, gen, lead)),
         "ln2": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
     }
     if cfg.moe:
@@ -98,8 +99,9 @@ def layer_params(params, i: int):
 def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
                   k_chunk=512, causal=True):
     """One decoder layer over a full sequence.  Returns (x, aux, (k, v)),
-    or for RWKV (x, aux, (s_last, tm_last, cm_last)): the layer's final WKV
-    state and the last normed inputs of its two token shifts.  ``aux`` is
+    for MLA (x, aux, (c_kv, k_pe)), the latent cache entries, or for RWKV
+    (x, aux, (s_last, tm_last, cm_last)): the layer's final WKV state and
+    the last normed inputs of its two token shifts.  ``aux`` is
     the MoE load-balancing loss (f32 zero for the other families)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.rwkv:
@@ -119,9 +121,13 @@ def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
         cm, cm_last = R.channel_mix(cfg, p["channel_mix"], h2, zt)
         return x + cm, aux, (s_last, tm_last, cm_last)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    ao, kv = A.attention_block(cfg, p["attn"], h, positions, causal=causal,
-                               window=window, q_chunk=q_chunk,
-                               k_chunk=k_chunk)
+    if cfg.mla:
+        ao, kv = A.mla_block(cfg, p["attn"], h, positions, window=window,
+                             q_chunk=q_chunk, k_chunk=k_chunk)
+    else:
+        ao, kv = A.attention_block(cfg, p["attn"], h, positions,
+                                   causal=causal, window=window,
+                                   q_chunk=q_chunk, k_chunk=k_chunk)
     x = x + ao
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.moe:
@@ -144,8 +150,8 @@ def forward(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
             collect_kv=False):
     """Full forward to the final hidden states.  Returns (x, aux, kv): the
     layers' summed MoE load-balancing loss, and the layers' ``(k, v)`` --
-    for RWKV ``(wkv_state, tm_prev, cm_prev)`` -- stacked over layers when
-    ``collect_kv``."""
+    for MLA ``(c_kv, k_pe)``, for RWKV ``(wkv_state, tm_prev, cm_prev)``
+    -- stacked over layers when ``collect_kv``."""
     x, positions = fuse_inputs(cfg, params, batch)
     per_layer = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -230,8 +236,10 @@ def value_and_grad(cfg, params, batch, **chunks):
 
 def init_cache(cfg, batch, cache_len, *, kv_quant=False, device="cuda"):
     """Decode cache, stacked over layers.  ``kv_quant`` stores K/V int8 with
-    per-(token, head) float16 scales.  RWKV keeps its recurrent states
-    instead: ``wkv_state`` (L,B,H,hd,hd) f32 and the token-shift inputs
+    per-(token, head) float16 scales.  MLA caches the latent ``ckv``
+    (L,B,S,r) and the rope key ``kpe`` (L,B,S,rd) instead (``kv_quant``
+    does not apply, as in the reference); RWKV keeps its recurrent states:
+    ``wkv_state`` (L,B,H,hd,hd) f32 and the token-shift inputs
     ``tm_prev``/``cm_prev`` (L,B,d)."""
     require_ported(cfg)
     dt = L.dtype_of(cfg)
@@ -247,6 +255,12 @@ def init_cache(cfg, batch, cache_len, *, kv_quant=False, device="cuda"):
         c["cm_prev"] = torch.zeros_like(c["tm_prev"])
         return c
     Lc, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if cfg.mla:
+        c["ckv"] = torch.zeros((Lc, batch, cache_len, cfg.kv_lora_rank),
+                               dtype=dt, device=device)
+        c["kpe"] = torch.zeros((Lc, batch, cache_len, cfg.rope_head_dim),
+                               dtype=dt, device=device)
+        return c
     kv_dt = torch.int8 if kv_quant else dt
     c["k"] = torch.zeros((Lc, batch, cache_len, K, hd), dtype=kv_dt,
                          device=device)
@@ -275,8 +289,9 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
     position of the incoming token (scalar, or a (B,) vector for
     continuous batching); slot = pos % cache_len.  Returns
     ``(logits (B,1,V_padded) f32, new_cache)``; the input cache is not
-    modified.  RWKV runs the recurrence one step (``time_mix`` with
-    ``chunk=1``) and replaces its states wholesale."""
+    modified.  MLA runs the absorbed decode against the latent cache;
+    RWKV runs the recurrence one step (``time_mix`` with ``chunk=1``) and
+    replaces its states wholesale."""
     require_ported(cfg)
     if cfg.rwkv:
         return _rwkv_decode_step(cfg, params, cache, tokens)
@@ -284,7 +299,7 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
     x = L.embed_tokens(params["embed"], tokens, cfg)
     pos = cache["pos"]
     vec_pos = pos.dim() == 1
-    cache_len = cache["k"].shape[2]
+    cache_len = cache["ckv" if cfg.mla else "k"].shape[2]
     slot = pos % cache_len
     n_valid = torch.clamp(pos + 1, max=cache_len)
     ar = torch.arange(cache_len, device=x.device)
@@ -298,10 +313,16 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        ao, nk, nv = A.attention_decode(cfg, lp["attn"], h, pos,
-                                        cache["k"][i], cache["v"][i], slot,
-                                        valid)
-        news.append({"k": nk, "v": nv})           # (B,1,K,hd) new entries
+        if cfg.mla:
+            ao, nckv, nkpe = A.mla_decode(cfg, lp["attn"], h, pos,
+                                          cache["ckv"][i], cache["kpe"][i],
+                                          slot, valid)
+            news.append({"ckv": nckv, "kpe": nkpe})   # (B,1,·) new entries
+        else:
+            ao, nk, nv = A.attention_decode(cfg, lp["attn"], h, pos,
+                                            cache["k"][i], cache["v"][i],
+                                            slot, valid)
+            news.append({"k": nk, "v": nv})       # (B,1,K,hd) new entries
         x = x + ao
         h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         if cfg.moe:
@@ -357,14 +378,16 @@ def _rwkv_decode_step(cfg, params, cache, tokens):
 
 def prefill(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512):
     """Forward over a full prompt: last-position logits and the filled
-    decode cache (RWKV: the final recurrent states)."""
+    decode cache (MLA: the latent ``ckv``/``kpe``; RWKV: the final
+    recurrent states)."""
     x, _, kv = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
                        k_chunk=k_chunk, collect_kv=True)
     logits = L.lm_logits(_head(params), params["embed"], x[:, -1:], cfg)
     logits = logits.float() + _vocab_mask(cfg, x.device)
     B, S = batch["tokens"].shape
     cache = init_cache(cfg, B, S, device=x.device)
-    names = ("wkv_state", "tm_prev", "cm_prev") if cfg.rwkv else ("k", "v")
+    names = (("wkv_state", "tm_prev", "cm_prev") if cfg.rwkv
+             else ("ckv", "kpe") if cfg.mla else ("k", "v"))
     for nm, t in zip(names, kv):
         cache[nm] = t.to(cache[nm].dtype)
     cache["pos"] = torch.full((), S, dtype=torch.int32, device=x.device)

@@ -278,9 +278,12 @@ class ServeSession:
         The plain version is called by name: on the card
         ``decode_attention`` is the flash-decode kernel, and this check
         holds one kernel against plain PyTorch, not against another
-        kernel."""
+        kernel.  MLA returns at once, as in the reference: the paged
+        kernel reads K/V pools (the GQA layout), not latent ones."""
         from repro_torch.kernels import ops
         from repro_torch.models.attention import decode_attention_plain
+        if self.cfg.mla:
+            return
         pt, ln = self.kv.page_table_array(rids)
         if not ln.any():
             return

@@ -1,10 +1,12 @@
 """PS-hosted paged KV cache for fleet-backed decode serving, with the pools
 as tensors on the session's device (port of
-``src/repro/serving/kv_cache.py``, GQA K/V pools).
+``src/repro/serving/kv_cache.py``).
 
-One pool of fixed-size pages per cached tensor, stacked over layers::
+One pool of fixed-size pages per cached tensor (K/V for GQA families,
+the latent c_kv and rope key k_pe for MLA), stacked over layers::
 
     k pool: (L, n_pages, page, K, hd)      v pool: same
+    ckv pool: (L, n_pages, page, r)        kpe pool: (L, n_pages, page, rd)
 
 Each live request holds a page table (ordered page ids) and a token count.
 Pages are reserved at admission for the request's whole budget and return
@@ -63,9 +65,9 @@ class PagedKVCache:
             raise ValueError(
                 f"arch {cfg.name!r}: paged serving needs a KV-cache family "
                 "(GQA/MHA or MLA); recurrent/enc-dec states are not paged")
-        if cfg.mla:
-            raise NotImplementedError("MLA latent pools come with the MLA "
-                                      "slice of the port")
+        if kv_int8 and cfg.mla:
+            raise ValueError("kv_int8 applies to K/V caches; MLA caches "
+                             "the compressed c_kv/k_pe instead")
         self.cfg = cfg
         self.page = int(page_size)
         self.n_pages = int(n_pages)
@@ -74,10 +76,13 @@ class PagedKVCache:
         L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         shp = (L, self.n_pages, self.page)
         kv_dt = torch.int8 if kv_int8 else dtype
+        if cfg.mla:
+            widths = {"ckv": (cfg.kv_lora_rank,), "kpe": (cfg.rope_head_dim,)}
+        else:
+            widths = {"k": (K, hd), "v": (K, hd)}
         self.pools: Dict[str, torch.Tensor] = {
-            "k": torch.zeros(shp + (K, hd), dtype=kv_dt, device=self.device),
-            "v": torch.zeros(shp + (K, hd), dtype=kv_dt, device=self.device),
-        }
+            nm: torch.zeros(shp + w, dtype=kv_dt, device=self.device)
+            for nm, w in widths.items()}
         if kv_int8:
             for nm in ("k_scale", "v_scale"):
                 self.pools[nm] = torch.zeros(shp + (K,), dtype=torch.float16,

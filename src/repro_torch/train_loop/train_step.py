@@ -255,13 +255,18 @@ class FleetTrainSession:
     # ---------------------------------------------------------------- step --
 
     def step(self, params, opt_state, batch, *,
-             fail_ids: Sequence[int] = (), fail_at_gemm: int = 0):
+             fail_ids: Sequence[int] = (), fail_at_gemm: int = 0,
+             donate: bool = False):
         """One fleet-executed train step.  Returns
         ``(params, opt_state, metrics)`` like the monolithic step; metrics
         additionally carries ``metrics["fleet"]`` (a
         :class:`FleetStepReport`).  ``params`` is a nested dict of tensors
         on the runtime's device and ``batch`` holds ``tokens``/``labels``
-        tensors there; neither is modified.
+        tensors there; neither is modified unless ``donate``, which
+        updates params and the optimizer moments in place
+        (``adam.apply(donate=True)``, the reference's
+        ``donate_argnums=(0, 1)``): the returned trees then hold the
+        caller's tensors.
 
         ``fail_ids`` injects a mid-step device failure at the
         ``fail_at_gemm``-th fleet GEMM (counted across the forward and the
@@ -284,7 +289,8 @@ class FleetTrainSession:
                     self.cfg, params, batch, **self.chunks)
                 with torch.profiler.record_function("ps.adam"):
                     params2, opt2, opt_metrics = adam.apply(
-                        params, grads, opt_state, self.opt_cfg)
+                        params, grads, opt_state, self.opt_cfg,
+                        donate=donate)
                 del grads
         finally:
             # drain unconditionally: an exception mid-step must not leak a

@@ -458,7 +458,8 @@ def test_shared_constants_match_the_cuda_sources():
     """The constants that Python and CUDA share, read from the sources as
     text: the two-level sum's span and the slice cap of the band GEMM, the
     f32 body's tiling numbers, and flash attention's key tile (the plain
-    version's online-softmax tile) and the path's block rows."""
+    version's online-softmax tile) and the path's block rows (at equal
+    head dims and at MLA's (192, 128) tiles)."""
     import re
     from pathlib import Path
     csrc = Path(bg.__file__).resolve().parents[1] / "csrc"
@@ -476,6 +477,7 @@ def test_shared_constants_match_the_cuda_sources():
                        "WIDE_128": bg.WIDE_128}
     assert const(flash, "BK") == fa.BLOCK_K
     assert const(flash, "BQ_PATH") == fa.BLOCK_Q
+    assert const(flash, "BQ_MLA") == fa.BLOCK_Q_MLA
 
 
 @pytest.mark.parametrize("grad", [False, True])

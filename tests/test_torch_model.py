@@ -114,12 +114,18 @@ def test_qk_norm_and_bias_families_match_reference(rng):
                                   "qwen2-vl-72b"])
 def test_later_families_raise(arch):
     """Families the port does not cover yet raise at init; the MoE family
-    (granite-moe-1b-a400m), ported since, initialises instead (its parity
-    with the reference: tests/test_torch_moe.py)."""
+    (granite-moe-1b-a400m) and the MLA family (deepseek-v2-236b, MoE and
+    MLA), ported since, initialise instead (their parity with the
+    reference: tests/test_torch_moe.py, tests/test_torch_mla.py)."""
     cfg = get_config(arch).reduced()
     if arch == "granite-moe-1b-a400m":
         params = M.init_params(cfg, torch.Generator().manual_seed(0))
         assert "moe" in params["layers"] and "mlp" not in params["layers"]
+        return
+    if arch == "deepseek-v2-236b":
+        params = M.init_params(cfg, torch.Generator().manual_seed(0))
+        assert "moe" in params["layers"]
+        assert {"w_dkv", "w_uk", "w_uv"} <= set(params["layers"]["attn"])
         return
     with pytest.raises(NotImplementedError):
         M.init_params(cfg, torch.Generator().manual_seed(0))

@@ -307,10 +307,12 @@ def test_decode_token_by_token_equals_prefill(ref, rng):
 
 
 def test_deepseek_still_raises_for_mla():
-    """The MoE family is ported; MLA is not, so deepseek-v2-236b (MoE and
-    MLA) still raises, naming MLA."""
-    with pytest.raises(NotImplementedError, match="MLA"):
-        M.require_ported(get_config("deepseek-v2-236b"))
+    """The MoE family is ported, and since the MLA slice so is
+    deepseek-v2-236b (MoE and MLA); a family still unported, qwen2-vl-72b,
+    raises, naming M-RoPE."""
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        M.require_ported(get_config("qwen2-vl-72b"))
+    M.require_ported(get_config("deepseek-v2-236b"))
     M.require_ported(get_config(ARCH))
 
 

@@ -290,10 +290,10 @@ def test_unported_training_options_raise(ref):
         rt.train_session(n_ps=2)
     with pytest.raises(NotImplementedError, match="A.4"):
         rt.train_session(checkpoint="ckpts")
-    # MoE trains since the MoE slice; deepseek-v2-236b (MoE and MLA) still
-    # raises, for MLA
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TorchCleaveRuntime(arch="deepseek-v2-236b",
+    # MoE trains since the MoE slice and MLA since the MLA slice;
+    # qwen2-vl-72b still raises, for M-RoPE
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        TorchCleaveRuntime(arch="qwen2-vl-72b",
                            fleet=Fleet.sample(4, seed=0),
                            device="cpu").train_session()
 
