@@ -175,7 +175,7 @@ the split rule's own count (``block_gemm.split_plan``) and
 the MoE decode products (f32 A, bf16 B), f32-policy cells' buckets and
 two full-width f32 buckets, beside the rule's pick
 (``block_gemm.fma_plan``); flash attention's block shapes (32, 64 and 128
-rows) at llama's training shape (f32) and MLA's (f32 and bf16).  ``--phases build,f32sets``: the f32 kernels' sets as the paths
+rows) at llama's training shape (f32).  ``--phases build,f32sets``: the f32 kernels' sets as the paths
 run them, through calls every tree of the port offers.  ``--phases
 build,attnsets``: the flash-decode kernel at the decode phase's timed
 shapes, the WKV kernel at its and the paged decode kernel at the paged
@@ -772,8 +772,7 @@ def phase_flash():
             row = {"phase": "flash", "case": tag, "dtype": name, "B": B,
                    "S": S, "H": H, "K": K, "Dk": Dk, "Dv": Dv,
                    "causal": causal, "window": window,
-                   "tiles": list(fa.tile_dims(Dk, Dv)),
-                   "block_q": fa.block_q(Dk, Dv), "max_abs_err": err,
+                   "plan": list(fa.plan(Dk, Dv)), "max_abs_err": err,
                    "rel_err": rel}
             if (tag, name) in FLASH_TIMED:
                 # the model's (B, S, H, D) layout, read in place
@@ -2152,36 +2151,22 @@ def phase_split():
         emit({"phase": "split", **row})
         del a, b, bf, c, want
 
-    # flash attention's rows a block at llama's training shape (f32) and
-    # at MLA's (Dk 192, Dv 128, G 1; f32 and bf16)
+    # flash attention's rows a block at the training shape (f32); at MLA's
+    # (192, 128) tiles only the sweep's winner, 128 rows, is built
     from repro_torch.kernels import flash_attention as fa
-    for tag, H, K, Dk, Dv, types in (
-            ("flash_block_q", 32, 8, 128, 128, ("float32",)),
-            ("flash_block_q_mla", 128, 128, 192, 128,
-             ("float32", "bfloat16"))):
-        B, S_ = 8, 128
-        for name in types:
-            dt = getattr(torch, name)
-            q = torch.randn((B, H, S_, Dk), generator=gen, device=dev).to(dt)
-            k_ = torch.randn((B, K, S_, Dk), generator=gen,
-                             device=dev).to(dt)
-            v = torch.randn((B, K, S_, Dv), generator=gen, device=dev).to(dt)
-            want = fa._attend_plain(q, k_, v, causal=True, window=0,
-                                    q_offset=0)
-            out = torch.empty_like(want)
-            row = {"case": tag, "dtype": name, "ms": {}}
-            tol = 1e-5 if name == "float32" else 2.0 ** -7
-            for bq in (32, 64, 128):
-                fa.attend(q, k_, v, out, _block_q=bq)
-                rel = float((out.float() - want.float()).abs().max()
-                            / want.float().abs().max())
-                check(rel <= tol, f"{tag} {name} {bq}: rel err {rel:.3g}")
-                row["ms"][bq] = time_ms(
-                    lambda: fa.attend(q, k_, v, out, _block_q=bq),
-                    hide_host=True)
-            emit({"phase": "split", "path_block_q": fa.block_q(Dk, Dv),
-                  **row})
-            del q, k_, v, want, out
+    B, S_, H, K, D = 8, 128, 32, 8, 128
+    q = torch.randn((B, H, S_, D), generator=gen, device=dev)
+    k_ = torch.randn((B, K, S_, D), generator=gen, device=dev)
+    v = torch.randn((B, K, S_, D), generator=gen, device=dev)
+    want = fa._attend_plain(q, k_, v, causal=True, window=0, q_offset=0)
+    out, row = torch.empty_like(q), {"case": "flash_block_q", "ms": {}}
+    for bq in (32, 64, 128):
+        fa.attend(q, k_, v, out, _block_q=bq)
+        rel = float((out - want).abs().max() / want.abs().max())
+        check(rel <= 1e-5, f"flash block_q {bq}: rel err {rel:.3g}")
+        row["ms"][bq] = time_ms(
+            lambda: fa.attend(q, k_, v, out, _block_q=bq), hide_host=True)
+    emit({"phase": "split", "path_block_q": fa.plan(D, D)[2], **row})
 
 
 def phase_f32sets(moe_cfg):
@@ -2830,7 +2815,7 @@ def phase_mla_full(cfg):
     with routing_log() as mono_routes:
         (loss_m, met_m), grads = M.value_and_grad(cfg, params, batches[0],
                                                   **chunks)
-    gnorm_m = float(adam.global_norm(grads))
+    gnorm_m = float(adam.global_norm(grads, sliced=True))
     del grads
     torch.cuda.synchronize()
     t_mono = time.perf_counter() - t0

@@ -42,7 +42,8 @@
 // the next V tile under the next QKᵀ; bf16 operands are widened and
 // scaled as they are staged. Shared memory (112 KB at D = 128) and 222
 // registers a thread leave room for two blocks an SM. Rows a block of 32
-// or 128 exist to measure the choice (chip_smoke.py's split phase). Key
+// or 128 exist for f32 at D = 128 to measure the choice (chip_smoke.py's
+// split phase). Key
 // tiles that the causal or window mask hides from every row of the block
 // are skipped: they add nothing to the online softmax, so no value
 // changes. Ragged Sq, Sk and D are masked, not padded. Operands are
@@ -52,17 +53,17 @@
 // q and k may be wider than v (MLA: Dk = 192 of nope and rope columns, Dv
 // = 128): the kernel is templated on the two padded widths, Q and K tiles
 // of DPK columns, V tiles and the accumulator of DPV, with the scale
-// 1/sqrt(Dk). At (192, 128) a block of BQ = 64 rows takes 144 KB of shared
-// memory, so one block of 128 threads fits an SM; BQ = 32 takes 112 KB
-// and fits two, BQ = 128 208 KB and one of 256 threads. MLA's training
-// shape (B 8, S 128, 128 heads over 128 kv heads, causal, f32) has G = 1,
-// so a K/V tile serves BQ positions of one head only; its 335 MB of
-// operands and output against 5.4 GFLOP of useful products make it bound
-// by bytes (0.100 ms against 0.081 ms). There the path takes BQ = 128
-// (BQ_MLA), one block of 8 warps an SM: in chip_smoke.py's split sweep on
-// an H100 it ran 0.370 ms against 0.458 (BQ 64) and 0.510 (BQ 32) in
+// 1/sqrt(Dk). At (192, 128) a block of BQ = 64 rows would take 144 KB of
+// shared memory, so one block of 128 threads fits an SM; BQ = 32 112 KB
+// and two, BQ = 128 208 KB and one of 256 threads. MLA's training shape
+// (B 8, S 128, 128 heads over 128 kv heads, causal, f32) has G = 1, so a
+// K/V tile serves BQ positions of one head only; its 335 MB of operands
+// and output against 5.4 GFLOP of useful products make it bound by bytes
+// (0.100 ms against 0.081 ms). There BQ = 128, one block of 8 warps an
+// SM, ran 0.370 ms on an H100 against 0.458 (BQ 64) and 0.510 (BQ 32) in
 // f32, 0.559 against 0.933 and 1.310 in bf16, whose operands are widened
-// by plain loads, not cp.async, and so wait in line with the arithmetic.
+// by plain loads, not cp.async, and so wait in line with the arithmetic;
+// only BQ = 128 is built at (192, 128).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -70,10 +71,6 @@
 
 namespace {
 
-constexpr int BQ_PATH = 64;    // rows of a block: flash_attention.BLOCK_Q
-// the rows a block the wrapper passes at (192, 128):
-// flash_attention.BLOCK_Q_MLA
-constexpr int BQ_MLA = 128;
 constexpr int BK = 64;         // key tile: flash_attention.BLOCK_K
 constexpr float NEG_INF = -1e30f;
 
@@ -459,20 +456,18 @@ int launch_dp(const T* q, const T* k, const T* v, T* o, int B, int H,
   return (int)cudaGetLastError();
 }
 
-// The instantiated (DPK, DPV) pairs: equal dims up to 128, (64, 32) for
-// MLA's reduced 48 / 32, and (192, 128) for MLA's 192 / 128, which also
-// takes any Dk <= 192 with Dv <= 128 (columns past the dims are zeros).
-// block_q: the rows a block, as flash_attention.block_q picks them
-// (BQ_PATH, or BQ_MLA at (192, 128)); 32 and 128 also exist for f32 at
-// (128, 128), and 32 and 64 for both types at (192, 128), to measure the
-// block shape (chip_smoke.py's split phase).
+// The instantiated (DPK, DPV, BQ) triples: the wrapper's plan
+// (flash_attention.plan: equal widths up to 128 and MLA's reduced (64, 32)
+// at 64 rows, (192, 128) at 128), and for f32 (128, 128) at 32 and 128
+// rows, to measure the block shape (chip_smoke.py's split phase). The
+// caller names the triple; columns past Dk or Dv are zeros.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hk, int Sq, int Sk, int Dk, int Dv,
            const long long* st, int causal, int window, int q_offset,
-           float scale, int block_q, void* stream) {
+           float scale, int dpk, int dpv, int bq, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaGetLastError();
-  if (Hk <= 0 || H % Hk != 0 || Dk <= 0 || Dv <= 0 || Dk > 192 || Dv > 128)
+  if (Hk <= 0 || H % Hk != 0 || Dk <= 0 || Dv <= 0 || Dk > dpk || Dv > dpv)
     return (int)cudaErrorInvalidValue;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
@@ -488,32 +483,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
   cudaStream_t s = (cudaStream_t)stream;
-#define FLASH_LAUNCH(DPK, DPV, BQ)                                          \
-  launch_dp<T, DPK, DPV, BQ>(qp, kp, vp, op, B, H, Hk, Sq, Sk, Dk, Dv, qs, \
-                             ks, vs, os, causal, window, q_offset, scale, \
-                             vec, s)
-  const int pk = (Dk + 31) / 32 * 32, pv = (Dv + 31) / 32 * 32;
-  if (pk == pv && block_q == BQ_PATH) {
-    if (pk == 32) return FLASH_LAUNCH(32, 32, BQ_PATH);
-    if (pk == 64) return FLASH_LAUNCH(64, 64, BQ_PATH);
-    if (pk == 96) return FLASH_LAUNCH(96, 96, BQ_PATH);
-    return FLASH_LAUNCH(128, 128, BQ_PATH);
-  }
-  if (pk == 64 && pv == 32 && block_q == BQ_PATH)
-    return FLASH_LAUNCH(64, 32, BQ_PATH);
-  if (pk != pv && !(pk == 64 && pv == 32)) {
-    if (block_q == 32) return FLASH_LAUNCH(192, 128, 32);
-    if (block_q == 64) return FLASH_LAUNCH(192, 128, 64);
-    if (block_q == 128) return FLASH_LAUNCH(192, 128, 128);
-  }
+#define FLASH_CASE(DPK, DPV, BQ)                                          \
+  if (dpk == DPK && dpv == DPV && bq == BQ)                               \
+    return launch_dp<T, DPK, DPV, BQ>(qp, kp, vp, op, B, H, Hk, Sq, Sk, Dk, \
+                                      Dv, qs, ks, vs, os, causal, window,   \
+                                      q_offset, scale, vec, s);
+  FLASH_CASE(32, 32, 64)
+  FLASH_CASE(64, 64, 64)
+  FLASH_CASE(96, 96, 64)
+  FLASH_CASE(128, 128, 64)
+  FLASH_CASE(64, 32, 64)
+  FLASH_CASE(192, 128, 128)
   if constexpr (sizeof(T) == 4) {
-    if (pk == 128 && pv == 128 && block_q == 32)
-      return FLASH_LAUNCH(128, 128, 32);
-    if (pk == 128 && pv == 128 && block_q == 128)
-      return FLASH_LAUNCH(128, 128, 128);
+    FLASH_CASE(128, 128, 32)
+    FLASH_CASE(128, 128, 128)
   }
   return (int)cudaErrorInvalidValue;
-#undef FLASH_LAUNCH
+#undef FLASH_CASE
 }
 
 }  // namespace
@@ -526,9 +512,10 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int Hk, int Sq, int Sk, int Dk, int Dv,
                                    const long long* strides, int causal,
                                    int window, int q_offset, float scale,
-                                   int block_q, void* stream) {
+                                   int dpk, int dpv, int bq, void* stream) {
   return launch<float>(q, k, v, o, B, H, Hk, Sq, Sk, Dk, Dv, strides,
-                       causal, window, q_offset, scale, block_q, stream);
+                       causal, window, q_offset, scale, dpk, dpv, bq,
+                       stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
@@ -536,8 +523,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int Hk, int Sq, int Sk, int Dk, int Dv,
                                     const long long* strides, int causal,
                                     int window, int q_offset, float scale,
-                                    int block_q, void* stream) {
+                                    int dpk, int dpv, int bq, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, Sq, Sk, Dk, Dv,
                                strides, causal, window, q_offset, scale,
-                               block_q, stream);
+                               dpk, dpv, bq, stream);
 }

@@ -27,25 +27,20 @@ BLOCK_Q_MLA = 128            # the same at the (192, 128) tiles
 MAX_DK, MAX_DV = 192, 128    # head dims the kernel is built for
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
     + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3 \
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def tile_dims(dk: int, dv: int) -> tuple:
-    """The kernel's padded (q/k, v) tile widths for head dims dk, dv:
-    both rounded up to 32 where they then agree, (64, 32) for MLA's
-    reduced 48 / 32, else (192, 128), which takes any dk <= 192 with dv
-    <= 128 (the launcher in ``csrc/flash_attention.cu`` has the same
-    rule)."""
+def plan(dk: int, dv: int) -> tuple:
+    """The kernel's (q/k tile, v tile, rows a block) for head dims dk, dv:
+    both widths rounded up to 32 where they then agree, and (64, 32) for
+    MLA's reduced 48 / 32, at ``BLOCK_Q`` rows; else (192, 128), which
+    takes any dk <= 192 with dv <= 128, at ``BLOCK_Q_MLA``.  The launcher
+    in ``csrc/flash_attention.cu`` is built for these triples and takes no
+    other (apart from the f32 sweep's, :func:`attend`)."""
     pk, pv = -(-dk // 32) * 32, -(-dv // 32) * 32
     if pk == pv or (pk, pv) == (64, 32):
-        return pk, pv
-    return MAX_DK, MAX_DV
-
-
-def block_q(dk: int, dv: int) -> int:
-    """The kernel's (position, head) rows a block for head dims dk, dv."""
-    return BLOCK_Q_MLA if tile_dims(dk, dv) == (MAX_DK, MAX_DV) \
-        else BLOCK_Q
+        return pk, pv, BLOCK_Q
+    return MAX_DK, MAX_DV, BLOCK_Q_MLA
 
 
 def _attend_plain(q, k, v, *, causal, window, q_offset):
@@ -113,9 +108,8 @@ def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
     Hk == 0.  Query row i sits at position ``q_offset + i``; the scale is
     1/sqrt(Dk).  ``_block_q`` is for the block-shape sweep of
     ``chip_smoke.py --phases build,split`` alone: the kernel's rows a
-    block (default :func:`block_q`; 32, 64 and 128 are built for f32 at
-    (128, 128) tiles and for both types at (192, 128); the CPU path
-    ignores it)."""
+    block in place of :func:`plan`'s (32 and 128 are also built, for f32
+    at (128, 128) tiles; the CPU path ignores it)."""
     global launches
     B, H, Sq, Dk = q.shape
     if k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3] \
@@ -147,7 +141,9 @@ def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
         raise ValueError(f"flash attention is built for q/k head dims up "
                          f"to {MAX_DK} and v head dims up to {MAX_DV}, not "
                          f"{Dk} and {Dv}")
-    bq = block_q(Dk, Dv) if _block_q is None else int(_block_q)
+    dpk, dpv, bq = plan(Dk, Dv)
+    if _block_q is not None:
+        bq = int(_block_q)
     tiles = -(-(H // k.shape[1]) * Sq // bq)
     if tiles > 65535:
         raise ValueError(f"flash attention launches one grid row per "
@@ -156,7 +152,7 @@ def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
             k.shape[1], Sq, k.shape[2], Dk, Dv, strides, int(bool(causal)),
-            int(window), int(q_offset), 1.0 / math.sqrt(Dk), bq)
+            int(window), int(q_offset), 1.0 / math.sqrt(Dk), dpk, dpv, bq)
     # as the block GEMM's launch: the raw stream, and no device switch when
     # the card is already current
     idx = q.device.index

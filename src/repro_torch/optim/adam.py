@@ -59,7 +59,7 @@ def lr_schedule(cfg: AdamConfig, step) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-# elements of a leaf that the update and the norm touch at once
+# elements of a leaf that the donated update and its norm touch at once
 SLICE = 1 << 23
 
 
@@ -76,64 +76,73 @@ def _slices(t: torch.Tensor) -> list:
     return [t[i:i + n] for i in range(0, t.shape[0], n)]
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, summed in f32 slice by
-    slice (:func:`_slices`), so that an f32 copy of a slice, not of a
-    whole bf16 leaf, exists at a time."""
+def global_norm(grads, *, sliced: bool = False) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, summed in f32; with
+    ``sliced`` slice by slice (:func:`_slices`), so that an f32 copy of a
+    slice, not of a whole bf16 leaf, exists at a time."""
+    parts = (s for g in T.leaves(grads)
+             for s in (_slices(g) if sliced else (g,)))
     return torch.sqrt(sum(torch.sum(torch.square(s.to(torch.float32)))
-                          for g in T.leaves(grads) for s in _slices(g)))
+                          for s in parts))
 
 
 def apply(params, grads, state: AdamState, cfg: AdamConfig = AdamConfig(),
           *, donate: bool = False):
     """Returns ``(new_params, new_state, metrics)``.
 
-    Every leaf is updated slice by slice (:func:`_slices`), so the step's
-    temporaries are one slice's: one expert's 7.9 M elements at
-    deepseek-v2-236b's width, not the 1.26 B of a stacked ``w_gate``.
     With ``donate=False`` the inputs are not modified, as in the
-    reference: each slice is written into new tensors, and the caller
+    reference: each leaf is updated whole into new tensors, and the caller
     holds the old tree beside the new one until it drops the old (at
     llama3-8b's width with 4 layers, 1.92 B params, a fleet step then
     peaks at 44 GB: ``chip_smoke.py`` train_full,
-    ``torch.cuda.max_memory_allocated`` on an H100).  With ``donate=True``
-    params, ``mu`` and ``nu`` are updated in place and returned, as the
-    reference's monolithic step donates its params and optimizer state
-    (``donate_argnums=(0, 1)``): a full-width deepseek-v2-236b layer (5.0
-    B params with the embedding and head) would need about 110 GB out of
-    place.  Both give the same values bit for bit."""
+    ``torch.cuda.max_memory_allocated`` on an H100).  Each leaf's
+    temporaries are freed before the next leaf, so the peak adds a few
+    temporaries of the largest leaf, not of the whole tree.
+
+    With ``donate=True`` params, ``mu`` and ``nu`` are updated in place
+    and returned, as the reference's monolithic step donates its params
+    and optimizer state (``donate_argnums=(0, 1)``): a full-width
+    deepseek-v2-236b layer (5.0 B params with the embedding and head)
+    would need about 110 GB out of place.  The update and the norm then
+    go slice by slice (:func:`_slices`), so the temporaries are one
+    slice's: one expert's 7.9 M elements, not the 1.26 B of a stacked
+    ``w_gate``.  The update is elementwise, so both modes give the same
+    values bit for bit where no leaf exceeds :data:`SLICE` elements;
+    above it the norm sums the leaf's squares in another order."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sliced=donate)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0) \
         if cfg.grad_clip else None
     lr = float(lr_schedule(cfg, step))
     b1c = float(1 - _f32(cfg.b1) ** _f32(step))
     b2c = float(1 - _f32(cfg.b2) ** _f32(step))
 
-    def upd(p, g, m, v, po, mo, vo):
-        # one slice: reads p, g, m, v and writes po, mo, vo (the same
-        # tensors when donated)
+    def upd(p, g, m, v):
+        # new tensors, or p, m, v themselves when donated
         g = g.to(torch.float32, copy=True)
         if scale is not None:
             g.mul_(scale)
-        torch.mul(m, cfg.b1, out=mo).add_(g, alpha=1 - cfg.b1)
-        torch.mul(v, cfg.b2, out=vo).addcmul_(g, g, value=1 - cfg.b2)
+        m = (m.mul_ if donate else m.mul)(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        v = (v.mul_ if donate else v.mul)(cfg.b2).addcmul_(
+            g, g, value=1 - cfg.b2)
         del g
-        u = vo.div(b2c).sqrt_().add_(cfg.eps)
-        u = mo.div(b1c).div_(u)
+        u = v.div(b2c).sqrt_().add_(cfg.eps)
+        u = m.div(b1c).div_(u)
         p32 = p.to(torch.float32, copy=True)
         u.add_(p32, alpha=cfg.weight_decay)
-        po.copy_(p32.sub_(u, alpha=lr))
+        p32.sub_(u, alpha=lr)
+        return (p.copy_(p32) if donate else p32.to(p.dtype)), m, v
 
     keys = T.paths(params)
-    out = []
-    for p, g, m, v in zip(T.leaves(params), T.leaves(grads),
-                          T.leaves(state.mu), T.leaves(state.nu)):
-        new = (p, m, v) if donate else tuple(
-            torch.empty_like(t) for t in (p, m, v))
-        for sl in zip(*(_slices(t) for t in (p, g, m, v) + new)):
-            upd(*sl)
-        out.append(new)
+    leaves = list(zip(T.leaves(params), T.leaves(grads),
+                      T.leaves(state.mu), T.leaves(state.nu)))
+    if donate:
+        for leaf in leaves:
+            for sl in zip(*(_slices(t) for t in leaf)):
+                upd(*sl)
+        out = [(p, m, v) for p, _, m, v in leaves]
+    else:
+        out = [upd(*leaf) for leaf in leaves]
     new_p = T.unflatten(keys, [o[0] for o in out])
     new_m = T.unflatten(keys, [o[1] for o in out])
     new_v = T.unflatten(keys, [o[2] for o in out])

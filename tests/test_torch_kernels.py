@@ -458,8 +458,10 @@ def test_shared_constants_match_the_cuda_sources():
     """The constants that Python and CUDA share, read from the sources as
     text: the two-level sum's span and the slice cap of the band GEMM, the
     f32 body's tiling numbers, and flash attention's key tile (the plain
-    version's online-softmax tile) and the path's block rows (at equal
-    head dims and at MLA's (192, 128) tiles)."""
+    version's online-softmax tile) and its instantiations: every (q/k
+    tile, v tile, rows a block) that the wrapper's plan picks for head
+    dims up to 192 / 128 is built for both types, and the f32 sweep's
+    rows at (128, 128) besides."""
     import re
     from pathlib import Path
     csrc = Path(bg.__file__).resolve().parents[1] / "csrc"
@@ -476,8 +478,16 @@ def test_shared_constants_match_the_cuda_sources():
     assert tilings == {"SKINNY": bg.SKINNY, "WIDE_64": bg.WIDE_64,
                        "WIDE_128": bg.WIDE_128}
     assert const(flash, "BK") == fa.BLOCK_K
-    assert const(flash, "BQ_PATH") == fa.BLOCK_Q
-    assert const(flash, "BQ_MLA") == fa.BLOCK_Q_MLA
+    launcher = flash[flash.index("int launch("):]
+    both, f32 = launcher.split("if constexpr (sizeof(T) == 4)", 1)
+    case = r"^  +FLASH_CASE\((\d+), (\d+), (\d+)\)$"
+
+    def cases(src):
+        return {tuple(map(int, c)) for c in re.findall(case, src, re.M)}
+    plans = {fa.plan(dk, dv) for dk in range(1, fa.MAX_DK + 1)
+             for dv in range(1, fa.MAX_DV + 1)}
+    assert cases(both) == plans
+    assert cases(f32) == {(128, 128, 32), (128, 128, 128)}
 
 
 @pytest.mark.parametrize("grad", [False, True])

@@ -276,16 +276,16 @@ def test_flash_plain_dk_ne_dv_matches_reference(Dk, Dv, window, rng):
 
 
 def test_flash_tiles_cover_dk_up_to_192():
-    """The kernel's tile widths: equal dims keep their own, MLA's reduced
-    48 / 32 takes (64, 32), and every other pair up to 192 / 128 the
-    (192, 128) tiles; wider dims raise on any device."""
-    assert fa.tile_dims(128, 128) == (128, 128)
-    assert fa.tile_dims(80, 80) == (96, 96)
-    assert fa.tile_dims(48, 32) == (64, 32)
-    assert fa.tile_dims(192, 128) == (192, 128)
-    assert fa.tile_dims(40, 72) == (192, 128)
-    assert fa.block_q(192, 128) == fa.BLOCK_Q_MLA
-    assert fa.block_q(64, 64) == fa.BLOCK_Q
+    """The kernel's tiles and rows a block: equal dims keep their own,
+    MLA's reduced 48 / 32 takes (64, 32), at 64 rows, and every other pair
+    up to 192 / 128 the (192, 128) tiles at 128 rows; wider dims raise on
+    any device."""
+    assert fa.plan(128, 128) == (128, 128, fa.BLOCK_Q)
+    assert fa.plan(80, 80) == (96, 96, fa.BLOCK_Q)
+    assert fa.plan(48, 32) == (64, 32, fa.BLOCK_Q)
+    assert fa.plan(192, 128) == (192, 128, fa.BLOCK_Q_MLA)
+    assert fa.plan(40, 72) == (192, 128, fa.BLOCK_Q_MLA)
+    assert fa.BLOCK_Q == 64 and fa.BLOCK_Q_MLA == 128
     q = torch.empty((1, 2, 8, 200), device="meta")
     v = torch.empty((1, 2, 8, 64), device="meta")
     with pytest.raises(ValueError):
@@ -299,12 +299,13 @@ def test_flash_tiles_cover_dk_up_to_192():
 
 def test_adam_donate_is_bitwise_the_copying_update(rng, monkeypatch):
     """``adam.apply(donate=True)`` updates params and moments in place, and
-    its values equal ``donate=False``'s bit for bit, over leaves larger
-    than a slice (a stacked expert leaf, one expert a slice, and a 2-D
-    leaf whose rows are grouped), a 1-D leaf and a bf16 leaf (slices of
-    4096 elements here); ``donate=False`` leaves its inputs untouched."""
-    monkeypatch.setattr(adam, "SLICE", 4096)
-
+    its values equal ``donate=False``'s bit for bit: over leaves within one
+    slice, gradient clipping on; and, with slices of 4096 elements, over
+    leaves larger than a slice (a stacked expert leaf, one expert a slice,
+    and a 2-D leaf whose rows are grouped), a 1-D leaf and a bf16 leaf,
+    where the sliced norm sums in another order, so the clip is set above
+    it and the norms agree to f32 rounding.  ``donate=False`` leaves its
+    inputs untouched."""
     def tree(dt_big):
         return {"experts": torch.from_numpy(
                     rng.standard_normal((1, 3, 2048, 2))
@@ -313,30 +314,39 @@ def test_adam_donate_is_bitwise_the_copying_update(rng, monkeypatch):
                     rng.standard_normal((300, 40)).astype(np.float32)),
                 "norm": torch.from_numpy(
                     rng.standard_normal((64,)).astype(np.float32))}
-    params = tree(torch.bfloat16)
-    grads = tree(torch.bfloat16)
-    cfg = adam.AdamConfig(warmup_steps=1, total_steps=4)
-    state = adam.init(params, cfg)
-    state = state._replace(
-        mu=T.map_tree(lambda t: torch.randn_like(t) * 1e-3, state.mu),
-        nu=T.map_tree(lambda t: torch.rand_like(t) * 1e-6, state.nu))
-    assert len(adam._slices(params["experts"])) == 3
-    assert len(adam._slices(params["embed"])) == 3
-    before = [t.clone() for t in T.leaves(params) + T.leaves(state.mu)]
-    p1, s1, m1 = adam.apply(params, grads, state, cfg)
-    for a, b in zip(before, T.leaves(params) + T.leaves(state.mu)):
-        assert torch.equal(a, b)
-    keep = {"p": T.leaves(params), "mu": T.leaves(state.mu),
-            "nu": T.leaves(state.nu)}
-    p2, s2, m2 = adam.apply(params, grads, state, cfg, donate=True)
-    assert float(m1["grad_norm"]) == float(m2["grad_norm"])
-    for a, b in zip(T.leaves(p1) + T.leaves(s1.mu) + T.leaves(s1.nu),
-                    T.leaves(p2) + T.leaves(s2.mu) + T.leaves(s2.nu)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-    for mine, kept in zip(T.leaves(p2) + T.leaves(s2.mu) + T.leaves(s2.nu),
-                          keep["p"] + keep["mu"] + keep["nu"]):
-        assert mine is kept
-    assert int(s2.step) == int(s1.step) == 1
+
+    def check(cfg, sliced):
+        params = tree(torch.bfloat16)
+        grads = tree(torch.bfloat16)
+        state = adam.init(params, cfg)
+        state = state._replace(
+            mu=T.map_tree(lambda t: torch.randn_like(t) * 1e-3, state.mu),
+            nu=T.map_tree(lambda t: torch.rand_like(t) * 1e-6, state.nu))
+        n = 3 if sliced else 1
+        assert len(adam._slices(params["experts"])) == n
+        assert len(adam._slices(params["embed"])) == n
+        before = [t.clone() for t in T.leaves(params) + T.leaves(state.mu)]
+        p1, s1, m1 = adam.apply(params, grads, state, cfg)
+        for a, b in zip(before, T.leaves(params) + T.leaves(state.mu)):
+            assert torch.equal(a, b)
+        keep = {"p": T.leaves(params), "mu": T.leaves(state.mu),
+                "nu": T.leaves(state.nu)}
+        p2, s2, m2 = adam.apply(params, grads, state, cfg, donate=True)
+        g1, g2 = float(m1["grad_norm"]), float(m2["grad_norm"])
+        assert abs(g1 - g2) <= 1e-6 * g1 if sliced else g1 == g2
+        for a, b in zip(T.leaves(p1) + T.leaves(s1.mu) + T.leaves(s1.nu),
+                        T.leaves(p2) + T.leaves(s2.mu) + T.leaves(s2.nu)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for mine, kept in zip(
+                T.leaves(p2) + T.leaves(s2.mu) + T.leaves(s2.nu),
+                keep["p"] + keep["mu"] + keep["nu"]):
+            assert mine is kept
+        assert int(s2.step) == int(s1.step) == 1
+
+    check(adam.AdamConfig(warmup_steps=1, total_steps=4), sliced=False)
+    monkeypatch.setattr(adam, "SLICE", 4096)
+    check(adam.AdamConfig(warmup_steps=1, total_steps=4, grad_clip=1e9),
+          sliced=True)
 
 
 # ----------------------------------------------------------- model level --

@@ -116,7 +116,9 @@ def test_later_families_raise(arch):
     """Families the port does not cover yet raise at init; the MoE family
     (granite-moe-1b-a400m) and the MLA family (deepseek-v2-236b, MoE and
     MLA), ported since, initialise instead (their parity with the
-    reference: tests/test_torch_moe.py, tests/test_torch_mla.py)."""
+    reference: tests/test_torch_moe.py, tests/test_torch_mla.py).  Their
+    cases keep the parameter list, and so the names, they had while they
+    raised."""
     cfg = get_config(arch).reduced()
     if arch == "granite-moe-1b-a400m":
         params = M.init_params(cfg, torch.Generator().manual_seed(0))
