@@ -32,18 +32,24 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               wide GQA case and a head dim off the kernel's grid, and at
               MLA's q/k wider than v (deepseek-v2-236b's training shape
               and a prefill at Dk 192, Dv 128, a window, the reduced 48 /
-              32), in f32 and bf16, two launches bit for bit; timed at
-              llama's training shape (f32) and MLA's (f32 and bf16)
+              32), and at seamless-m4t-medium's (D 64, G 1: the
+              bidirectional encoder, the causal decoder, the
+              cross-attention over Sk = 2 Sq, a prefill's), in f32 and
+              bf16, two launches bit for bit; timed at llama's training
+              shape (f32), MLA's (f32 and bf16) and seamless's
+              cross-attention (bf16)
               beside the plain version and
               ``scaled_dot_product_attention`` (or its refusal), also
               with the host's gaps hidden.
 5. decode  -- the contiguous-cache flash-decode kernel against its plain
               version (and, in f32, the reference's ``decode_attention``)
               at the serving shape, with ragged per-request lengths, an
-              8-group GQA case, a 32k-token cache and granite's serving
-              shape, in f32 and bf16, two launches bit for bit, every
-              launch on the cp.async route; timed at llama's and
-              granite's serving shapes and the 32k cache, in f32 and bf16,
+              8-group GQA case, a 32k-token cache, granite's serving
+              shape and seamless's cross-attention over 32 all-valid
+              encoder slots, in f32 and bf16, two launches bit for bit,
+              every launch on the cp.async route; timed at llama's,
+              granite's and seamless's serving shapes and the 32k cache,
+              in f32 and bf16,
               by events and with the host's gaps hidden, beside the plain
               version, ``scaled_dot_product_attention`` with
               ``enable_gqa`` on the unrepeated caches (its device time
@@ -149,8 +155,47 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               launch), the first decode step against the monolithic
               ``decode_step`` given the session's routing; every serving
               block GEMM launch held against the plain version.
+18. mrope_reduced -- fleet training of ``qwen2-vl-72b.reduced()`` under
+              the f32 policy for 3 steps on batches with 8 patch
+              embeddings a row on a 2 x 4 M-RoPE grid, device 2 failing
+              in step 1's backward, against the monolithic step (loss,
+              grad_norm, moments within 1e-4, params in L2 beside a
+              bf16-policy control, 48 fleet GEMMs a step); then fleet
+              serving (M-RoPE decode positions, the paged read checked
+              every step) against token-by-token monolithic decoding,
+              tokens identical.
+19. mrope_full -- qwen2-vl-72b at full width (3 layers, bf16: 5.12 B
+              params, 61.5 GB with grads and moments), batch 8 x 128 with
+              32 patch embeddings a row on a 4 x 8 grid, 16-device fleet:
+              3 fleet steps updating params and moments in place, a
+              failure in step 1's backward, the first step against the
+              monolithic path, the peak memory; the first step's band
+              GEMM launch set held against the plain version on fresh
+              operands (against an f64 product where the plain version's
+              own f32 sums drift) and timed; then serving, 4 slots,
+              prompts of 16, 8 new tokens, pages of 16, a failure at step
+              2, the paged read checked every step (B3), the first decode
+              step against the monolithic ``decode_step``.
+20. encdec_reduced -- as mrope_reduced for
+              ``seamless-m4t-medium.reduced()``: 64 encoder frames a row,
+              130 fleet GEMMs a step (the encoder's recompute and the
+              discarded projections the reference runs); then the
+              monolithic serving path (the cross cache, a prefill, decode
+              steps against it) against a forward over the prompt and
+              token-by-token decoding.
+21. encdec_full -- seamless-m4t-medium at full depth (12 + 12 layers,
+              bf16, 0.98 B params), batch 8 x 128 with 256 encoder frames
+              a row: 3 fleet steps (750 GEMMs each), a failure in step 1's
+              backward, the first step against the monolithic path, the
+              peak memory, the first step's band GEMM set held against
+              the plain version and timed; then 4 prompts of 16 over 32
+              encoder frames, 8 greedy tokens on the monolithic path
+              (flash attention non-causal at Sk = 2 Sq, B5 over the
+              all-valid cross cache), the first decode step against a
+              forward over the prompt and the first new token.
 
-In ``full``, ``train_full``, ``rwkv_full``, ``moe_full`` and ``mla_full`` every bf16
+In ``full``, ``train_full``, ``rwkv_full``, ``moe_full``, ``mla_full``,
+``mrope_full`` and ``encdec_full`` every bf16
 launch of the block GEMMs must have run the wgmma/TMA body
 (``block_gemm.tc_launches``) with no aligned copy, and every f32 one the
 FMA body (``block_gemm.fma_launches``); in the f32-policy cells every
@@ -192,6 +237,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -204,7 +250,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
           "full", "train_reduced", "train_full", "rwkv_reduced", "rwkv_full",
-          "bgemm", "moe_reduced", "moe_full", "mla_reduced", "mla_full")
+          "bgemm", "moe_reduced", "moe_full", "mla_reduced", "mla_full",
+          "mrope_reduced", "mrope_full", "encdec_reduced", "encdec_full")
 EXTRA_PHASES = ("split", "f32sets", "attnsets")   # run only when named
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
@@ -699,38 +746,54 @@ def phase_paged():
     return out
 
 
-# flash attention cases: (tag, B, S, H, K, Dk, Dv, causal, window)
+# flash attention cases: (tag, B, Sq, Sk, H, K, Dk, Dv, causal, window)
 FLASH_CASES = (
-    ("train", 8, 128, 32, 8, 128, 128, True, 0),   # the training step's
-    ("prefill", 1, 15, 32, 8, 128, 128, True, 0),  # a serving prefill
-    ("window", 2, 256, 32, 8, 128, 128, True, 64),  # sliding window of 64
-    ("gqa", 2, 100, 16, 2, 64, 64, False, 0),    # 8 groups, ragged, no mask
+    ("train", 8, 128, 128, 32, 8, 128, 128, True, 0),   # the training step's
+    ("prefill", 1, 15, 15, 32, 8, 128, 128, True, 0),  # a serving prefill
+    ("window", 2, 256, 256, 32, 8, 128, 128, True, 64),  # sliding window of 64
+    ("gqa", 2, 100, 100, 16, 2, 64, 64, False, 0),    # 8 groups, ragged, no mask
     # granite-moe-1b-a400m: 16 heads over 8, D = 64 (moe_full's training
     # step and one serving prefill of 15)
-    ("granite_train", 8, 128, 16, 8, 64, 64, True, 0),
-    ("granite_prefill", 1, 15, 16, 8, 64, 64, True, 0),
+    ("granite_train", 8, 128, 128, 16, 8, 64, 64, True, 0),
+    ("granite_prefill", 1, 15, 15, 16, 8, 64, 64, True, 0),
     # no GQA, a head dim off the kernel's 32-column grid, a window
-    ("mha_d80", 2, 100, 4, 4, 80, 80, True, 40),
+    ("mha_d80", 2, 100, 100, 4, 4, 80, 80, True, 40),
     # deepseek-v2-236b's MLA: q/k of 128 + 64 columns, v of 128, 128 heads
     # each its own kv head (mla_full's training step and one serving
     # prefill of 15), a window off the tile grid, and the reduced config's
     # 48 / 32 (mla_reduced)
-    ("mla_train", 8, 128, 128, 128, 192, 128, True, 0),
-    ("mla_prefill", 1, 15, 128, 128, 192, 128, True, 0),
-    ("mla_window", 2, 100, 8, 8, 192, 128, True, 40),
-    ("mla_reduced", 2, 32, 4, 4, 48, 32, True, 0),
+    ("mla_train", 8, 128, 128, 128, 128, 192, 128, True, 0),
+    ("mla_prefill", 1, 15, 15, 128, 128, 192, 128, True, 0),
+    ("mla_window", 2, 100, 100, 8, 8, 192, 128, True, 40),
+    ("mla_reduced", 2, 32, 32, 4, 4, 48, 32, True, 0),
+    # seamless-m4t-medium: 16 heads, each its own kv head, D = 64
+    # (encdec_full's training step): the bidirectional encoder over 256
+    # frames, the decoder's causal self-attention, and its
+    # cross-attention over twice as many encoder frames, then a serving
+    # prefill of 16 over 32 frames
+    ("encdec_encoder", 8, 256, 256, 16, 16, 64, 64, False, 0),
+    ("encdec_decoder", 8, 128, 128, 16, 16, 64, 64, True, 0),
+    ("encdec_cross", 8, 128, 256, 16, 16, 64, 64, False, 0),
+    ("encdec_prefill_cross", 1, 16, 32, 16, 16, 64, 64, False, 0),
+    # qwen2-vl-72b: 64 heads over 8, D = 128, causal (mrope_full's
+    # training step and one serving prefill of 15)
+    ("mrope_train", 8, 128, 128, 64, 8, 128, 128, True, 0),
+    ("mrope_prefill", 1, 15, 15, 64, 8, 128, 128, True, 0),
 )
-# the cases timed: llama's training shape (f32) and MLA's (f32 and bf16)
+# the cases timed: llama's training shape (f32), MLA's (f32 and bf16),
+# seamless's cross-attention and qwen2-vl's training shape (bf16, as
+# encdec_full and mrope_full run them)
 FLASH_TIMED = (("train", "float32"), ("mla_train", "float32"),
-               ("mla_train", "bfloat16"))
+               ("mla_train", "bfloat16"), ("encdec_cross", "bfloat16"),
+               ("mrope_train", "bfloat16"))
 
 
-def _visible_keys(S, causal, window):
+def _visible_keys(Sq, Sk, causal, window):
     """Keys each query row attends to, summed over rows (one head)."""
     import numpy as np
-    q = np.arange(S)[:, None]
-    k = np.arange(S)[None, :]
-    ok = np.ones((S, S), bool)
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
     if causal:
         ok &= k <= q
     if window:
@@ -748,11 +811,11 @@ def phase_flash():
     gen = torch.Generator(device=dev).manual_seed(2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"max_abs_err": 0.0, "timed": {}}
-    for tag, B, S, H, K, Dk, Dv, causal, window in FLASH_CASES:
+    for tag, B, S, Sk, H, K, Dk, Dv, causal, window in FLASH_CASES:
         G = H // K
         q32 = torch.randn((B * H, S, Dk), generator=gen, device=dev)
-        k32 = torch.randn((B * K, S, Dk), generator=gen, device=dev)
-        v32 = torch.randn((B * K, S, Dv), generator=gen, device=dev)
+        k32 = torch.randn((B * K, Sk, Dk), generator=gen, device=dev)
+        v32 = torch.randn((B * K, Sk, Dv), generator=gen, device=dev)
         for name, dt in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
             q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
@@ -770,15 +833,15 @@ def phase_flash():
             tol = 1e-5 if name == "float32" else 2.0 ** -7
             check(rel <= tol, f"flash {tag} {name}: rel err {rel:.3g}")
             row = {"phase": "flash", "case": tag, "dtype": name, "B": B,
-                   "S": S, "H": H, "K": K, "Dk": Dk, "Dv": Dv,
+                   "S": S, "Sk": Sk, "H": H, "K": K, "Dk": Dk, "Dv": Dv,
                    "causal": causal, "window": window,
                    "plan": list(fa.plan(Dk, Dv)), "max_abs_err": err,
                    "rel_err": rel}
             if (tag, name) in FLASH_TIMED:
                 # the model's (B, S, H, D) layout, read in place
                 q4 = q.reshape(B, H, S, Dk).transpose(1, 2).contiguous()
-                k4 = k.reshape(B, K, S, Dk).transpose(1, 2).contiguous()
-                v4 = v.reshape(B, K, S, Dv).transpose(1, 2).contiguous()
+                k4 = k.reshape(B, K, Sk, Dk).transpose(1, 2).contiguous()
+                v4 = v.reshape(B, K, Sk, Dv).transpose(1, 2).contiguous()
                 via_ops = ops.mha_flash(q4, k4, v4, causal=causal)
                 check(torch.equal(
                     via_ops.transpose(1, 2).reshape(B * H, S, Dv), got),
@@ -792,8 +855,8 @@ def phase_flash():
                     lambda: ops.mha_flash(q4, k4, v4, causal=causal),
                     hide_host=True)
                 qh = q.reshape(B, H, S, Dk)
-                kh = k.reshape(B, K, S, Dk).repeat_interleave(G, dim=1)
-                vh = v.reshape(B, K, S, Dv).repeat_interleave(G, dim=1)
+                kh = k.reshape(B, K, Sk, Dk).repeat_interleave(G, dim=1)
+                vh = v.reshape(B, K, Sk, Dv).repeat_interleave(G, dim=1)
                 try:
                     row["library_ms"] = time_ms(
                         lambda: sdpa(qh, kh, vh, is_causal=causal))
@@ -804,9 +867,10 @@ def phase_flash():
                     row["library_ms"] = row["library_device_ms"] = None
                     row["library_refused"] = str(e)[:200]
                 esz = q.element_size()
-                nbytes = esz * (B * H * S * (Dk + Dv) + B * K * S * (Dk + Dv))
-                flops = 2.0 * (Dk + Dv) * B * H * _visible_keys(S, causal,
-                                                                window)
+                nbytes = esz * (B * H * S * (Dk + Dv)
+                                + B * K * Sk * (Dk + Dv))
+                flops = 2.0 * (Dk + Dv) * B * H * _visible_keys(
+                    S, Sk, causal, window)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     nbytes, flops, name)
                 out["timed"][f"{tag}_{name}"] = {k_: row.get(k_) for k_ in (
@@ -832,12 +896,20 @@ DECODE_CASES = (
     ("cache32k", 4, 32768, 32, 8, 128, [32768, 30000, 32768, 20000]),
     # moe_full's serving cell: granite-moe-1b-a400m, 16 heads over 8, D = 64
     ("granite_serving", 4, 32, 16, 8, 64, [17, 18, 19, 24]),
+    # encdec_full's decode: the cross-attention of 16 heads over 16, D =
+    # 64, over 32 encoder slots, all valid
+    ("encdec_cross", 4, 32, 16, 16, 64, [32, 32, 32, 32]),
+    # mrope_full's serving decode: qwen2-vl-72b, 64 heads over 8, D =
+    # 128, over the session's gathered cache (prompts of 16 and 8 new
+    # tokens: 24, rounded up to pages of 16), requests of 16..23 tokens
+    ("mrope_serving", 4, 32, 64, 8, 128, [16, 19, 22, 23]),
 )
 
 
 # the shapes at which B5 is timed (every dtype), and B6's: (tag, B, S, H,
 # hd, incoming state)
-DECODE_TIMED = ("serving", "granite_serving", "cache32k")
+DECODE_TIMED = ("serving", "granite_serving", "cache32k", "encdec_cross",
+                "mrope_serving")
 WKV_TIMED = (("train", 8, 128, 64, 64, False),
              ("decode", 4, 1, 64, 64, True),
              ("prompt100", 4, 100, 64, 64, True))
@@ -1294,7 +1366,12 @@ F32_CELLS = {"train_reduced": ("llama3-8b",
              "moe_reduced": ("granite-moe-1b-a400m",
                              dict(q_chunk=16, k_chunk=16, loss_chunk=16)),
              "mla_reduced": ("deepseek-v2-236b",
-                             dict(q_chunk=16, k_chunk=16, loss_chunk=16))}
+                             dict(q_chunk=16, k_chunk=16, loss_chunk=16)),
+             "mrope_reduced": ("qwen2-vl-72b",
+                               dict(q_chunk=16, k_chunk=16, loss_chunk=16)),
+             "encdec_reduced": ("seamless-m4t-medium",
+                                dict(q_chunk=16, k_chunk=16,
+                                     loss_chunk=16))}
 
 
 def f32_cell(cell: str):
@@ -2746,7 +2823,11 @@ def check_gemm_set(shapes, entry: str = "block_gemm_batched_shared"):
     of the largest output); returns the worst absolute and relative
     errors.  For a path whose own launches are too large to hold against
     the plain version in place (mla_full's training step: the plain
-    version of a 160-expert dW product needs 10 GB beside the step)."""
+    version of a 160-expert dW product needs 10 GB beside the step).
+    Where the two differ by more, both are held against the f64 product
+    of the same operands: the kernel must lie within 1e-5 of it and no
+    further from it than the plain version (whose f32 sums drift at
+    contractions of 10^5, the LM head's dA over the vocabulary)."""
     import torch
     from repro_torch.kernels import block_gemm as bg
     kernel, plain = getattr(bg, entry), getattr(bg, entry + "_plain")
@@ -2763,8 +2844,21 @@ def check_gemm_set(shapes, entry: str = "block_gemm_batched_shared"):
         want = plain(a, b)
         err = float((c - want).abs().max())
         rel = err / max(float(want.abs().max()), 1e-30)
-        check(rel <= 1e-5, f"{entry} at {ash} x {bsh} {dt}: rel err "
-              f"{rel:.3g} against the plain version")
+        if rel > 1e-5:
+            exact = torch.matmul(a.double(), b.double())
+            scale = float(exact.abs().max())
+            k_err = float((c.double() - exact).abs().max()) / scale
+            p_err = float((want.double() - exact).abs().max()) / scale
+            del exact
+            emit({"phase": "gemm_set_f64", "a": list(ash), "b": list(bsh),
+                  "dtype": dt, "rel_err_vs_plain": rel,
+                  "kernel_rel_err_vs_f64": k_err,
+                  "plain_rel_err_vs_f64": p_err})
+            check(k_err <= 1e-5 and k_err <= p_err,
+                  f"{entry} at {ash} x {bsh} {dt}: rel err {rel:.3g} "
+                  f"against the plain version; against f64 the kernel "
+                  f"{k_err:.3g}, the plain version {p_err:.3g}")
+            worst["f64_held"] = worst.get("f64_held", 0) + 1
         worst["max_abs_err"] = max(worst["max_abs_err"], err)
         worst["max_rel_err"] = max(worst["max_rel_err"], rel)
         worst["distinct"] += 1
@@ -2999,6 +3093,472 @@ def phase_mla_full(cfg):
                 + [saudit["max_abs_err"], sb1_audit["max_abs_err"]])}
 
 
+# --------------------------------------------- M-RoPE and encoder-decoder --
+
+def family_batch(cfg, data, step, dev, grid=None):
+    """A training batch of ``data`` with the stubbed frontends' inputs the
+    reference's driver makes (``modality_stubs``: seq // 4 patch
+    embeddings a row, or 2 x seq encoder frames) and, for M-RoPE, the
+    patches on a ``grid`` at t = 0 with the text after it
+    (``grid_positions``), on the card."""
+    import torch
+    from repro_torch.data.pipeline import grid_positions, modality_stubs
+    B, S = data.cfg.global_batch, data.cfg.seq_len
+    raw = data.batch(step)
+    raw.update(modality_stubs(cfg, B, S, step))
+    if cfg.m_rope:
+        raw["positions_mrope"] = grid_positions(B, S, grid)
+    return {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+
+
+def fleet_kinds(cfg, n_chunks: int) -> dict:
+    """The fleet GEMMs of one training step by kind, as the reference runs
+    them: 7 a layer (q, k, v, o, gate, up, down), and for the
+    encoder-decoder 6 more a decoder layer (the cross k and v over the
+    encoder output, and q and the discarded k and v of the decoder
+    stream, whose 2 have no backward) and 6 a layer of the encoder's
+    recompute in the backward (q, k, v, o, gate, up); the LM head once a
+    loss chunk."""
+    L_ = cfg.n_layers
+    if not cfg.enc_dec:
+        n = 7 * L_ + n_chunks
+        return {"fwd": n, "dA": n, "dW": n}
+    Le = cfg.n_enc_layers
+    back = 7 * Le + 11 * L_ + n_chunks
+    return {"fwd": 13 * Le + 13 * L_ + n_chunks, "dA": back, "dW": back}
+
+
+def flash_per_step(cfg) -> int:
+    """Flash-attention launches of one training step: one a layer's
+    attention, and for the encoder-decoder the encoder's twice (its
+    recompute) and each decoder layer's cross-attention."""
+    if cfg.enc_dec:
+        return 2 * cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def encdec_serve(cfg, params, toks, feats, n_new):
+    """The encoder-decoder's monolithic serving path: the cross K/V of
+    ``feats`` and one prefill of ``toks`` over them
+    (``encdec.decode_cache``), then ``n_new`` - 1 greedy decode steps.
+    Returns (the ``n_new`` tokens, the first decode step's logits)."""
+    import torch
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import model as M
+    V = cfg.vocab_size
+    lg, cache = ED.decode_cache(cfg, params, toks, feats,
+                                toks.shape[1] + n_new)
+    tok = lg[:, -1:, :V].argmax(-1)
+    out, firsts = [tok], []
+    with torch.no_grad():
+        for _ in range(n_new - 1):
+            lg, cache = M.decode_step(cfg, params, cache, tok)
+            firsts.append(lg)
+            tok = lg[:, -1:, :V].argmax(-1)
+            out.append(tok)
+    return torch.cat(out, 1), firsts[0]
+
+
+def encdec_references(cfg, params, toks, feats, first_tok, n_new, dev):
+    """Two other paths to what :func:`encdec_serve` gives: the last row of
+    a forward over the prompt and ``first_tok`` (the first decode step's
+    logits), and token-by-token decoding from an empty cache (its
+    ``n_new`` greedy tokens and its logits after ``first_tok``)."""
+    import torch
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    V = cfg.vocab_size
+    B, P = toks.shape
+    with torch.no_grad():
+        x, _, _ = M.forward(cfg, params, {
+            "tokens": torch.cat([toks, first_tok], 1),
+            "encoder_feats": feats})
+        fwd_last = L.lm_logits(M._head(params), params["embed"],
+                               x[:, -1:], cfg).float()
+        cache = M.init_cache(cfg, B, P + n_new, enc_len=feats.shape[1],
+                             device=dev)
+        cache["cross_k"], cache["cross_v"] = ED.prepare_cross_cache(
+            cfg, params, feats)
+        tbt = []
+        for t in range(P + n_new - 1):
+            nxt = toks[:, t:t + 1] if t < P else tbt[-1]
+            lg, cache = M.decode_step(cfg, params, cache, nxt)
+            if t == P:
+                first_tbt = lg
+            if t >= P - 1:
+                tbt.append(lg[:, -1:, :V].argmax(-1))
+    return torch.cat(tbt, 1), first_tbt, fwd_last
+
+
+def _encdec_compare(cfg, got, first, ref):
+    """The serving path's tokens and first decode logits against
+    :func:`encdec_references`' (relative L2 over the real vocabulary)."""
+    import torch
+    want, first_tbt, fwd_last = ref
+    V = cfg.vocab_size
+
+    def rel(a, b):
+        return float((a - b)[..., :V].float().norm()
+                     / b[..., :V].float().norm())
+    return {"rel_l2": rel(first, fwd_last),
+            "vs_token_by_token_rel_l2": rel(first, first_tbt),
+            "tokens_match_token_by_token": bool(torch.equal(got, want))}
+
+
+def phase_family_reduced(cell: str):
+    """M-RoPE (qwen2-vl-72b) or encoder-decoder (seamless-m4t-medium)
+    fleet training of the reduced config under the f32 policy against the
+    monolithic step: 3 steps on batches with the stubbed frontends'
+    inputs, device 2 failing in step 1's backward, beside a bf16-policy
+    control; then serving: qwen2-vl through the fleet session (paged read
+    checked every step) against token-by-token monolithic decoding,
+    seamless on the monolithic path, prefill then decode against token by
+    token."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_train_step
+    dev = torch.device("cuda")
+    cfg, chunks, opt_cfg, params, opt, data, sess, ctl = f32_cell(cell)
+    kinds = fleet_kinds(cfg, data.cfg.seq_len // chunks["loss_chunk"])
+    mono = make_train_step(cfg, opt_cfg, **chunks)
+    p_f, o_f, p_m, o_m, p_c, o_c = params, opt, params, opt, params, opt
+    rows, audits = [], []
+    for step in range(3):
+        batch = family_batch(cfg, data, step, dev, grid=(2, 4))
+        fail = dict(fail_ids=[2] if step == 1 else (),
+                    fail_at_gemm=kinds["fwd"] - 6 * cfg.n_enc_layers + 2)
+        p_m, o_m, met_m = mono(p_m, o_m, batch)
+        n_fa = fa.launches
+        with band_gemm_audit(verify=True) as audit:
+            p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+        audits.append(audit)
+        n_fa = fa.launches - n_fa
+        p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
+        rep = met_f["fleet"]
+        lm, lf = float(met_m["loss"]), float(met_f["loss"])
+        gm, gf = float(met_m["grad_norm"]), float(met_f["grad_norm"])
+        rows.append({"step": step, "loss_fleet": lf, "loss_mono": lm,
+                     "loss_rel": abs(lf - lm) / abs(lm),
+                     "grad_norm_rel": abs(gf - gm) / abs(gm),
+                     "n_gemms": rep.n_gemms,
+                     "gemms_by_kind": dict(collections.Counter(
+                         r.kind for r in rep.records)),
+                     "verified": rep.verified,
+                     "n_recovered": rep.n_recovered,
+                     "failed_ids": list(rep.failed_ids),
+                     "band_gemm_checked": audit["checked"],
+                     "band_gemm_max_rel_err": audit["max_rel_err"],
+                     "flash_launches": n_fa})
+    worst = {"params": _worst_rel(p_m, p_f), "mu": _worst_rel(o_m.mu, o_f.mu),
+             "nu": _worst_rel(o_m.nu, o_f.nu),
+             "params_l2": _worst_rel(p_m, p_f, norm=2),
+             "control_bf16_params_l2": _worst_rel(p_m, p_c, norm=2)}
+    out = {"bodies": check_bodies(cell, *audits),
+           "band_gemm_step": time_band_gemm_set(audits[0]["shapes"])}
+
+    rng = np.random.default_rng(1)
+    if cfg.enc_dec:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 8)),
+                               device=dev)
+        feats = torch.as_tensor(rng.standard_normal((2, 16, cfg.d_model))
+                                .astype(np.float32), device=dev)
+        n_fd = dec.flash_decode_launches
+        got, first = encdec_serve(cfg, p_f, toks, feats, 4)
+        n_fd = dec.flash_decode_launches - n_fd
+        serve = {**_encdec_compare(cfg, got, first, encdec_references(
+                     cfg, p_f, toks, feats, got[:, :1], 4, dev)),
+                 "flash_decode_launches": n_fd}
+        # 3 decode steps, each layer's self- and cross-attention
+        serve_ok = (serve["tokens_match_token_by_token"]
+                    and n_fd == 3 * 2 * cfg.n_layers
+                    and serve["rel_l2"] <= 1e-4)
+    else:
+        rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
+                                device=dev)
+        ss = rt.serve_session(p_f, slots=3, page_size=4, max_len=16,
+                              backend="torch", dtype_policy="f32",
+                              check_paged_read=True)
+        prompts = [rng.integers(0, cfg.vocab_size, 5).astype(np.int32)
+                   for _ in range(3)]
+        for p in prompts:
+            ss.submit(p, max_new=4)
+        n_b3 = dec.launches
+        srep = ss.run(fail_ids=[2], fail_at_step=1)
+        n_b3 = dec.launches - n_b3
+        got = {r.rid: r.tokens for r in ss.batcher.finished}
+        want = {i: _monolithic_greedy(cfg, p_f, p, 4, 16, dev)
+                for i, p in enumerate(prompts)}
+        serve = {"tokens_match": got == want,
+                 "verified": all(s.verified for s in ss.step_reports),
+                 "recovered": srep.n_recovered, "steps": srep.n_steps,
+                 "paged_read_checks": ss.paged_read_checks,
+                 "paged_decode_launches": n_b3}
+        serve_ok = (got == want and serve["verified"]
+                    and srep.n_recovered > 0
+                    and ss.paged_read_checks == srep.n_steps == n_b3)
+    emit({"phase": cell, "steps": rows, "worst_rel": worst, **out,
+          "gemms_by_kind_expected": kinds,
+          "params_l2_limit": TRAIN_PARAMS_L2_LIMIT, "serving": serve})
+    for r in rows:
+        check(r["loss_rel"] <= 1e-4 and r["grad_norm_rel"] <= 1e-4,
+              f"{cell} step {r['step']}: loss/grad_norm off {r}")
+        check(r["verified"] and r["gemms_by_kind"] == kinds,
+              f"{cell} step {r['step']}: unverified or GEMMs {r}")
+        check(r["band_gemm_checked"] > 0
+              and r["flash_launches"] == flash_per_step(cfg),
+              f"{cell} step {r['step']}: a kernel was not launched {r}")
+    check(max(worst["mu"], worst["nu"]) <= 1e-4,
+          f"{cell}: moments off {worst}")
+    check(worst["params_l2"] <= TRAIN_PARAMS_L2_LIMIT,
+          f"{cell}: params off {worst}")
+    check(worst["control_bf16_params_l2"] > TRAIN_PARAMS_L2_LIMIT,
+          f"{cell}: the bf16 control passed the params check {worst}")
+    check(rows[1]["n_recovered"] > 0 and rows[1]["failed_ids"] == [2],
+          f"{cell}: the failure recovered nothing")
+    check(serve_ok, f"{cell}: serving {serve}")
+    return out
+
+
+def first_decode_dense(cfg, params, prompts, cache_len, first_logits):
+    """A serving session's first decode step against the monolithic path
+    on the same inputs (a K/V family): per-request prefill of prompt[:-1]
+    into an f32 cache (the pools' dtype), then one ``decode_step`` of the
+    prompts' last tokens; relative L2 of the logits and whether the
+    argmax agrees."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    slots, P = len(prompts), len(prompts[0])
+    Lc, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    cache = {nm: torch.zeros((Lc, slots, cache_len, K, hd), device=dev)
+             for nm in ("k", "v")}
+    with torch.no_grad():
+        for b, p in enumerate(prompts):
+            _, pc = M.prefill(cfg, params, {"tokens": torch.as_tensor(
+                p[None, :P - 1].astype(np.int64), device=dev)})
+            for nm in ("k", "v"):
+                cache[nm][:, b, :P - 1] = pc[nm][:, 0].float()
+        cache["pos"] = torch.full((slots,), P - 1, dtype=torch.int32,
+                                  device=dev)
+        toks = torch.as_tensor(np.stack([p[-1:] for p in prompts])
+                               .astype(np.int64), device=dev)
+        ref_logits, _ = M.decode_step(cfg, params, cache, toks)
+    V = cfg.vocab_size
+    diff = (first_logits[..., :V] - ref_logits[..., :V]).float()
+    return {"rel_l2": float(diff.norm()
+                            / ref_logits[..., :V].float().norm()),
+            "argmax_equal": bool((first_logits[..., :V].argmax(-1)
+                                  == ref_logits[..., :V].argmax(-1)).all())}
+
+
+def phase_family_full(cfg):
+    """qwen2-vl-72b (3 layers) or seamless-m4t-medium (full depth) at full
+    width, bf16: the first step's monolithic loss and grad_norm, then 3
+    fleet training steps on batches of 8 x 128 with the stubbed
+    frontends' inputs (32 patches a row on a 4 x 8 M-RoPE grid, or 256
+    encoder frames a row), device 3 failing in step 1's backward, the
+    params and moments updated in place for qwen2-vl; the first step's
+    band GEMM launch set held against the plain version on fresh
+    operands and timed; then serving: qwen2-vl through the fleet session
+    (4 slots, prompts of 16, 8 new tokens, pages of 16, the paged read
+    checked every step, device 3 failing at step 2), seamless on the
+    monolithic path (4 prompts of 16 over 32 encoder frames, 8 greedy
+    tokens, the first decode step against a forward over the prompt and
+    the first new token)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    dev = torch.device("cuda")
+    cell = "encdec_full" if cfg.enc_dec else "mrope_full"
+    # the earlier phases' runtimes hold padded operand copies in reference
+    # cycles: collect them, so the peak below is this cell's alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    donate = not cfg.enc_dec
+    B, S, n_steps = 8, 128, 3
+    chunks = dict(q_chunk=64, k_chunk=64, loss_chunk=64)
+    kinds = fleet_kinds(cfg, S // chunks["loss_chunk"])
+    # the forward's GEMMs come first (the encoder's recompute runs in the
+    # backward): the failure strikes at the backward's fourth
+    fail_at = kinds["fwd"] - 6 * cfg.n_enc_layers + 3
+    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=3, total_steps=n_steps)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in T.leaves(params))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0))
+    batches = [family_batch(cfg, data, step, dev, grid=(4, 8))
+               for step in range(n_steps)]
+    # the monolithic path first, before the moments exist
+    t0 = time.perf_counter()
+    (loss_m, _), grads = M.value_and_grad(cfg, params, batches[0], **chunks)
+    gnorm_m = float(adam.global_norm(grads, sliced=True))
+    del grads
+    torch.cuda.synchronize()
+    t_mono = time.perf_counter() - t0
+    opt = adam.init(params, opt_cfg)
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                            device=dev)
+    sess = rt.train_session(opt_cfg, backend="torch", dtype_policy="bf16",
+                            **chunks)
+    rows, audits = [], []
+    bg.launches = fa.launches = 0
+    reset_body_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for step, batch in enumerate(batches):
+        n_b1, n_fa = bg.launches, fa.launches
+        with band_gemm_audit(verify=False) as audit:
+            params, opt, met = sess.step(
+                params, opt, batch, fail_ids=[3] if step == 1 else (),
+                fail_at_gemm=fail_at, donate=donate)
+        audits.append(audit)
+        rep = met["fleet"]
+        rows.append({
+            "step": step, "loss": rep.loss, "grad_norm": rep.grad_norm,
+            "wall_s": rep.wall_time, "fleet_exec_s": rep.fleet_exec_time,
+            "n_gemms": rep.n_gemms, "gemms_by_kind": dict(
+                collections.Counter(r.kind for r in rep.records)),
+            "n_tasks": rep.n_tasks, "n_recovered": rep.n_recovered,
+            "failed_ids": list(rep.failed_ids), "verified": rep.verified,
+            "band_gemm_launches": bg.launches - n_b1,
+            "flash_launches": fa.launches - n_fa})
+        emit({"phase": f"{cell}_step", **rows[-1]})
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    train = {"band_gemm": bg.launches, "flash_attention": fa.launches,
+             "bodies": check_bf16_body(f"{cell} training", *audits)}
+    loss_rel = abs(rows[0]["loss"] - float(loss_m)) / abs(float(loss_m))
+    gnorm_rel = abs(rows[0]["grad_norm"] - gnorm_m) / abs(gnorm_m)
+    del opt, met, batches
+    torch.cuda.empty_cache()
+    shapes = audits[0]["shapes"]
+    gset = {**time_band_gemm_set(shapes), **check_gemm_set(shapes)}
+    emit({"phase": f"{cell}_set", **gset})
+
+    slots, P, n_gen = 4, 16, 8
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, P).astype(np.int32)
+               for _ in range(slots)]
+    bg.launches = fa.launches = 0
+    dec.launches = dec.paged_element_launches = 0
+    dec.flash_decode_launches = dec.flash_decode_element_launches = 0
+    reset_body_counts()
+
+    def serve_launches():
+        return {"band_gemm": bg.launches, "flash_attention": fa.launches,
+                "paged_decode": dec.launches,
+                "flash_decode": dec.flash_decode_launches,
+                "flash_decode_element": dec.flash_decode_element_launches}
+
+    t0 = time.perf_counter()
+    if cfg.enc_dec:
+        toks = torch.as_tensor(np.stack(prompts).astype(np.int64),
+                               device=dev)
+        feats = torch.as_tensor(rng.standard_normal(
+            (slots, 2 * P, cfg.d_model)).astype(np.float32), device=dev)
+        with band_gemm_audit(verify=False) as saudit:
+            got, first = encdec_serve(cfg, params, toks, feats, n_gen)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        serving = serve_launches()
+        cmp = _encdec_compare(cfg, got, first, encdec_references(
+            cfg, params, toks, feats, got[:, :1], n_gen, dev))
+        serve = {"n_tokens": slots * n_gen, "tokens_per_s":
+                 slots * n_gen / t_serve}
+    else:
+        rt2 = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                                 device=dev)
+        ss = rt2.serve_session(params, slots=slots, page_size=16,
+                               max_len=P + n_gen, backend="torch",
+                               dtype_policy="bf16", check_paged_read=True)
+        for p in prompts:
+            ss.submit(p, max_new=n_gen)
+        with band_gemm_audit(verify=False) as saudit:
+            first = ss.step()
+            first_logits = ss.last_logits.clone()
+            srep = ss.run(fail_ids=[3], fail_at_step=1)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        serving = serve_launches()
+        cmp = first_decode_dense(cfg, params, prompts, ss.cache_len,
+                                 first_logits)
+        serve = {"n_tokens": srep.n_tokens, "n_steps": srep.n_steps,
+                 "tokens_per_s": srep.tokens_per_sec,
+                 "gemms_per_decode_step": len(first.records),
+                 "all_verified": all(s.verified for s in ss.step_reports),
+                 "failed_ids": list(srep.failed_ids),
+                 "recovered": srep.n_recovered,
+                 "paged_read_checks": ss.paged_read_checks}
+    if saudit["shapes"]:
+        serving["bodies"] = check_bf16_body(f"{cell} serving", saudit)
+    row = {"phase": cell, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "n_params": n_params,
+           "batch": B, "seq": S, "param_init_s": t_init,
+           "mono_grad_s": t_mono, "loss_mono": float(loss_m),
+           "grad_norm_mono": gnorm_m, "first_step_loss_rel": loss_rel,
+           "first_step_grad_norm_rel": gnorm_rel,
+           "max_memory_allocated_gb": peak_gb, "donate": donate,
+           "launches_training": train, "launches_serving": serving,
+           "serve_s": t_serve, **{f"serve_{k}": v for k, v in serve.items()},
+           "first_decode": cmp}
+    emit(row)
+    for r in rows:
+        check(r["verified"] and r["gemms_by_kind"] == kinds,
+              f"{cell} step {r['step']}: unverified or GEMMs {r} "
+              f"(expected {kinds})")
+        check(r["band_gemm_launches"] > 0
+              and r["flash_launches"] == flash_per_step(cfg),
+              f"{cell} step {r['step']}: kernel launches {r}")
+        check(bool(np.isfinite(r["loss"])),
+              f"{cell} step {r['step']}: loss {r['loss']}")
+    check(rows[1]["failed_ids"] == [3] and rows[1]["n_recovered"] > 0,
+          f"{cell}: the failure did not fire or recovered nothing")
+    check(peak_gb < 80.0, f"{cell}: peak memory {peak_gb} GB")
+    # every GEMM output is rounded to bf16, in another order on each path
+    check(loss_rel <= 1e-2, f"{cell}: first-step loss rel {loss_rel}")
+    check(gnorm_rel <= 5e-2, f"{cell}: first-step grad_norm rel {gnorm_rel}")
+    check(cmp["rel_l2"] <= 2e-2, f"{cell}: first decode step's logits {cmp}")
+    if cfg.enc_dec:
+        # the cross cache (the encoder, one flash launch a layer) and the
+        # prefill (the encoder again, each decoder layer's self- and
+        # cross-attention), then 7 decode steps of self- and
+        # cross-attention on the flash-decode kernel; no fleet GEMM
+        check(serving["flash_attention"]
+              == 2 * cfg.n_enc_layers + 2 * cfg.n_layers
+              and serving["paged_decode"] == 0
+              and serving["flash_decode"] == 2 * cfg.n_layers * (n_gen - 1)
+              and serving["flash_decode_element"] == 0,
+              f"{cell}: serving launches {serving}")
+    else:
+        check(serve["all_verified"] and serve["failed_ids"] == [3]
+              and serve["recovered"] > 0,
+              f"{cell}: serving unverified or unrecovered {serve}")
+        check(serve["paged_read_checks"] == serve["n_steps"]
+              == serving["paged_decode"]
+              and serving["flash_attention"] == slots * cfg.n_layers
+              and serving["flash_decode"] == serve["n_steps"] * cfg.n_layers
+              and serving["band_gemm"] > 0,
+              f"{cell}: serving launches {serving}")
+    return {"training": train, "serving": serving, "set": gset,
+            "max_abs_err": gset["max_abs_err"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3029,6 +3589,10 @@ def main(argv=None) -> int:
     # their grads and f32 moments take 60 GB of the card's 80
     mla_full = dataclasses.replace(get_config("deepseek-v2-236b"),
                                    n_layers=1)
+    # three layers: 5.12 B params with the embedding and head, bf16, with
+    # their grads and f32 moments take 61.5 GB; seamless at full depth
+    mrope_full = dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=3)
+    encdec_full = get_config("seamless-m4t-medium")
 
     if "build" in phases:
         phase_build()
@@ -3054,6 +3618,13 @@ def main(argv=None) -> int:
     if "mla_reduced" in phases:
         cells["mla_reduced"] = phase_moe_reduced("mla_reduced")
     mla = phase_mla_full(mla_full) if "mla_full" in phases else None
+    for cell in ("mrope_reduced", "encdec_reduced"):
+        if cell in phases:
+            cells[cell] = phase_family_reduced(cell)
+    mrope = phase_family_full(mrope_full) if "mrope_full" in phases \
+        else None
+    encdec = phase_family_full(encdec_full) if "encdec_full" in phases \
+        else None
     if "split" in phases:
         phase_split()
     if "f32sets" in phases:
@@ -3066,7 +3637,7 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     if all(x is not None for x in (gemm, paged, flash, decode, wkv,
                                    launches, train, rwkv, bgemm, moe,
-                                   mla)) and len(cells) == 4:
+                                   mla, mrope, encdec)) and len(cells) == 6:
         train_launches, gset = train
         dec_serve, dec_long = (decode["timed"]["serving_float32"],
                                decode["timed"]["cache32k_bfloat16"])
@@ -3105,6 +3676,18 @@ def main(argv=None) -> int:
                  **{k: gemm[k] for k in timed + device}},
              "launches_mla_training": mla["training"]["band_gemm"],
              "launches_mla_serving": mla["serving"]["band_gemm"],
+             "launches_mrope_training": mrope["training"]["band_gemm"],
+             "launches_mrope_serving": mrope["serving"]["band_gemm"],
+             "launches_encdec_training": encdec["training"]["band_gemm"],
+             "launches_encdec_serving": encdec["serving"]["band_gemm"],
+             "mrope_training_step": {
+                 "ms_of": "the launches of mrope_full's first training step "
+                          "(qwen2-vl-72b, 3 layers, bf16)",
+                 **mrope["set"]},
+             "encdec_training_step": {
+                 "ms_of": "the launches of encdec_full's first training "
+                          "step (seamless-m4t-medium, 12 + 12 layers, bf16)",
+                 **encdec["set"]},
              "mla_training_step": {
                  "ms_of": "the launches of mla_full's first training step "
                           "(deepseek-v2-236b, 1 layer, bf16)",
@@ -3121,6 +3704,7 @@ def main(argv=None) -> int:
                            "G rows, pages of any size",
              "launches": launches["paged_decode"],
              "launches_serving_moe": moe["paged_decode"],
+             "launches_serving_mrope": mrope["serving"]["paged_decode"],
              "launches_by_route": launches["paged_decode_by_route"],
              "ms_of": "one launch at the serving path's shape (4 requests "
                       "of 23 tokens, pages of 16, f32 pools)",
@@ -3148,6 +3732,22 @@ def main(argv=None) -> int:
              **{k: flash[k] for k in device},
              "launches_mla_training": mla["training"]["flash_attention"],
              "launches_mla_serving": mla["serving"]["flash_attention"],
+             "launches_mrope_training": mrope["training"]["flash_attention"],
+             "launches_mrope_serving": mrope["serving"]["flash_attention"],
+             "launches_encdec_training":
+                 encdec["training"]["flash_attention"],
+             "launches_encdec_serving": encdec["serving"]["flash_attention"],
+             "encdec_cross_shape": {
+                 "ms_of": "one launch at seamless-m4t-medium's training "
+                          "cross-attention (B 8, Sq 128, Sk 256, 16 heads "
+                          "over 16, D 64, non-causal, bf16); library: "
+                          "scaled_dot_product_attention",
+                 **flash["timed"]["encdec_cross_bfloat16"]},
+             "mrope_shape": {
+                 "ms_of": "one launch at qwen2-vl-72b's training shape (B "
+                          "8, S 128, 64 heads over 8, D 128, causal, "
+                          "bf16); library: scaled_dot_product_attention",
+                 **flash["timed"]["mrope_train_bfloat16"]},
              "mla_shape": {
                  "ms_of": "one launch at deepseek-v2-236b's training shape "
                           "(B 8, S 128, 128 heads over 128, Dk 192, Dv "
@@ -3160,6 +3760,8 @@ def main(argv=None) -> int:
              "redesigned": "a 4-stage cp.async K/V ring, each key scored "
                            "once for all G rows",
              "launches": launches["flash_decode"],
+             "launches_mrope_serving": mrope["serving"]["flash_decode"],
+             "launches_encdec_serving": encdec["serving"]["flash_decode"],
              "launches_by_route": launches["flash_decode_by_route"],
              "ms_of": "one launch at the serving path's shape (4 requests, "
                       "cache of 32, f32 pools)",

@@ -67,3 +67,38 @@ class SyntheticLM:
         while True:
             yield self.batch(step)
             step += 1
+
+
+def modality_stubs(cfg, batch: int, seq: int, step: int,
+                   seed: int = 0) -> dict:
+    """The stubbed frontends' inputs of one training step, as the
+    reference's training driver makes them (numpy, ``cfg.dtype``'s values
+    in float32): vision configs get ``vision_embeds`` (batch, seq // 4,
+    d), precomputed patch embeddings from ``default_rng((seed, step,
+    7))``; encoder-decoder configs get ``encoder_feats`` (batch, 2 * seq,
+    d), precomputed audio frames from ``default_rng((seed, step, 11))``.
+    Text configs get nothing."""
+    out = {}
+    if cfg.modality == "vision":
+        rng = np.random.default_rng((seed, step, 7))
+        out["vision_embeds"] = rng.standard_normal(
+            (batch, max(seq // 4, 1), cfg.d_model)).astype(np.float32)
+    if cfg.enc_dec:
+        rng = np.random.default_rng((seed, step, 11))
+        out["encoder_feats"] = rng.standard_normal(
+            (batch, 2 * seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def grid_positions(batch: int, seq: int, grid: tuple) -> np.ndarray:
+    """M-RoPE positions (batch, seq, 3) int32 of a patch prefix on a
+    ``grid = (rows, cols)`` at t = 0, patch j at (0, j // cols, j % cols),
+    then text whose t = h = w run on from max(rows, cols), as Qwen2-VL
+    lays out one image before its caption."""
+    rows, cols = grid
+    n = rows * cols
+    pos = np.empty((seq, 3), np.int32)
+    j = np.arange(min(n, seq))
+    pos[:len(j)] = np.stack([np.zeros_like(j), j // cols, j % cols], -1)
+    pos[len(j):] = (max(rows, cols) + np.arange(seq - len(j)))[:, None]
+    return np.broadcast_to(pos, (batch, seq, 3)).copy()

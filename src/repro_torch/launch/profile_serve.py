@@ -1,8 +1,9 @@
 """Where a fleet decode step's time goes on the card.
 
 Builds the full-width serving session of ``chip_smoke.py`` (``--arch``,
-llama3-8b, granite-moe-1b-a400m or deepseek-v2-236b, at ``--layers``
-depth, bf16, 4 slots, 16-device fleet), runs one warm-up step, times
+llama3-8b, granite-moe-1b-a400m, deepseek-v2-236b or qwen2-vl-72b, at
+``--layers`` depth (omitted: the config's own), bf16, 4 slots, 16-device
+fleet), runs one warm-up step, times
 ``--steps`` decode steps untraced, then traces as many with
 ``torch.profiler`` and prints one JSON object: wall time per step
 (untraced and traced), device kernel time per step, the device's idle
@@ -12,11 +13,16 @@ share, the kernel time launched under the
 and routing, sort, scatter and combine; MLA: the absorbed decode's
 einsums against the latent cache), the batched block GEMM's launches per
 step, and the kernels that take the device time, each with its time and
-launches per step.
+launches per step.  seamless-m4t-medium, whose states the session does not
+page (as in the reference), is profiled on its monolithic decode instead:
+a prefill of the prompts with 2 * prompt-len encoder frames and the
+cross K/V of those frames (``encdec.decode_cache``), then ``decode_step``s
+(no fleet GEMM; the self- and cross-attention on the flash-decode kernel).
 
 Usage (on a machine with a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-      [--arch granite-moe-1b-a400m|deepseek-v2-236b] [--layers 4] \
+      [--arch granite-moe-1b-a400m|deepseek-v2-236b|qwen2-vl-72b|\
+              seamless-m4t-medium] [--layers 4] \
       [--steps 3] \
       [--out profile_serve.json]
 """
@@ -39,12 +45,42 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _monolithic_decoder(cfg, dev, prompts, n_gen):
+    """The encoder-decoder's monolithic decode at bf16 params over
+    ``encdec.decode_cache`` (a prefill of ``prompts`` with 2x as many
+    random encoder frames, a cache of prompt + ``n_gen`` slots).  Each
+    call of the returned function decodes one greedy token for every
+    prompt."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import encdec
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, gen)
+    toks = torch.as_tensor(np.stack(prompts).astype(np.int64), device=dev)
+    B, P = toks.shape
+    feats = torch.randn((B, 2 * P, cfg.d_model), generator=gen, device=dev)
+    logits, cache = encdec.decode_cache(cfg, params, toks, feats, P + n_gen)
+    state = {"cache": cache, "tok": logits[:, -1:].argmax(-1)}
+
+    @torch.no_grad()
+    def step():
+        lg, state["cache"] = M.decode_step(cfg, params, state["cache"],
+                                           state["tok"])
+        state["tok"] = lg[:, -1:].argmax(-1)
+
+    return step
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b",
                     choices=("llama3-8b", "granite-moe-1b-a400m",
-                             "deepseek-v2-236b"))
-    ap.add_argument("--layers", type=int, default=4)
+                             "deepseek-v2-236b", "qwen2-vl-72b",
+                             "seamless-m4t-medium"))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="override the config's depth (omitted: keep it)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -63,22 +99,30 @@ def main(argv=None):
     dev = resolve_device("cuda")
     from repro_torch.kernels import block_gemm as bg
     from repro_torch.launch.profile_train import _range_kernel_us
-    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
-    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
-                            device=dev)
+    cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     n_gen = 2 * args.steps + 1
-    sess = rt.serve_session(slots=args.slots, page_size=16,
-                            max_len=args.prompt_len + n_gen,
-                            backend="torch", dtype_policy="bf16")
     rng = np.random.default_rng(0)
-    for _ in range(args.slots):
-        sess.submit(rng.integers(0, cfg.vocab_size, args.prompt_len)
-                    .astype(np.int32), max_new=n_gen)
-    sess.step()                                   # admission + warm-up
+    prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len)
+               .astype(np.int32) for _ in range(args.slots)]
+    if cfg.enc_dec:
+        # the monolithic decode runs no fleet GEMM: no step reports
+        step, reports = _monolithic_decoder(cfg, dev, prompts, n_gen), []
+    else:
+        rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                                device=dev)
+        sess = rt.serve_session(slots=args.slots, page_size=16,
+                                max_len=args.prompt_len + n_gen,
+                                backend="torch", dtype_policy="bf16")
+        for p in prompts:
+            sess.submit(p, max_new=n_gen)
+        step, reports = sess.step, sess.step_reports
+    step()                                        # admission + warm-up
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        sess.step()
+        step()
     torch.cuda.synchronize(dev)
     wall_untraced = time.perf_counter() - t0
 
@@ -87,7 +131,7 @@ def main(argv=None):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            sess.step()
+            step()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     n_b2 = bg.batched_launches - n_b2
@@ -104,8 +148,7 @@ def main(argv=None):
             k[1] += evt.count
     device_s = sum(v[0] for v in kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:args.top]
-    recs = [r for s in sess.step_reports[1 + args.steps:]
-            for r in s.records]
+    recs = [r for s in reports[1 + args.steps:] for r in s.records]
     report = {
         "card": torch.cuda.get_device_name(dev),
         "arch": cfg.name, "n_layers": cfg.n_layers,

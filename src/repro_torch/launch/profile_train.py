@@ -1,9 +1,12 @@
 """Where a fleet training step's time goes on the card.
 
 Builds the full-width training session of ``chip_smoke.py`` (``--arch``,
-llama3-8b, rwkv6-7b, granite-moe-1b-a400m or deepseek-v2-236b, at
-``--layers`` depth, bf16 params and policy, batch 8 x 128, 16-device
-fleet, params and moments updated in place), runs one warm-up step
+llama3-8b, rwkv6-7b, granite-moe-1b-a400m, deepseek-v2-236b, qwen2-vl-72b
+or seamless-m4t-medium, at ``--layers`` depth (omitted: the config's own),
+bf16 params and policy, batch 8 x 128, 16-device fleet, params and
+moments updated in place; qwen2-vl's batches carry 32 patch embeddings a
+row on a 4 x 8 grid of M-RoPE positions, seamless's 256 encoder frames a
+row, as ``chip_smoke.py``'s mrope_full and encdec_full), runs one warm-up step
 (cold plan solves), times ``--steps`` steps untraced, traces as many with
 ``torch.profiler``, times every band GEMM, WKV and batched block GEMM
 (MoE experts) launch of as many more with CUDA events, and prints one
@@ -27,7 +30,8 @@ kernel name.
 
 Usage (on a machine with a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-      [--arch rwkv6-7b|granite-moe-1b-a400m|deepseek-v2-236b] \\
+      [--arch rwkv6-7b|granite-moe-1b-a400m|deepseek-v2-236b|\\
+              qwen2-vl-72b|seamless-m4t-medium] \\
       [--layers 4] [--steps 2] \\
       [--out profile_train.json]
 """
@@ -41,7 +45,8 @@ import time
 
 RANGES = ("fleet.fwd", "fleet.dA", "fleet.dW", "ops.stage_copy", "ps.adam",
           "rwkv.wkv_backward", "moe.experts", "moe.dispatch")
-ARCHS = ("llama3-8b", "rwkv6-7b", "granite-moe-1b-a400m", "deepseek-v2-236b")
+ARCHS = ("llama3-8b", "rwkv6-7b", "granite-moe-1b-a400m", "deepseek-v2-236b",
+         "qwen2-vl-72b", "seamless-m4t-medium")
 # one H100 SXM at 700 W (NVIDIA data sheet): memory rate, dense bf16 rate
 PEAK_BW, PEAK_BF16 = 3.35e12, 989e12
 
@@ -140,7 +145,8 @@ def _launch_events(torch, module, name):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b", choices=ARCHS)
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="override the config's depth (omitted: keep it)")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -156,12 +162,15 @@ def main(argv=None):
     from repro_torch import resolve_device
     from repro_torch.api import Fleet, TorchCleaveRuntime
     from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                           grid_positions, modality_stubs)
     from repro_torch.models import model as M
     from repro_torch.optim import adam
 
     dev = resolve_device("cuda")
-    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
+    cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     opt_cfg = adam.AdamConfig(warmup_steps=3, total_steps=100)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     opt = adam.init(params, opt_cfg)
@@ -175,9 +184,15 @@ def main(argv=None):
         sess = rt.train_session(opt_cfg, backend="torch",
                                 dtype_policy="bf16", q_chunk=64, k_chunk=64,
                                 loss_chunk=64)
-    batches = [{k: torch.as_tensor(v, device=dev)
-                for k, v in data.batch(i).items()}
-               for i in range(1 + 3 * args.steps)]
+    batches = []
+    for i in range(1 + 3 * args.steps):
+        raw = data.batch(i)
+        raw.update(modality_stubs(cfg, args.batch, args.seq, i))
+        if cfg.m_rope:
+            raw["positions_mrope"] = grid_positions(args.batch, args.seq,
+                                                    (4, 8))
+        batches.append({k: torch.as_tensor(v, device=dev)
+                        for k, v in raw.items()})
 
     def run(steps):
         nonlocal params, opt

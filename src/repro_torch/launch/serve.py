@@ -18,8 +18,18 @@ Usage:
       --arch granite-moe-1b-a400m --no-reduced --layers 4 --edge-plan 16
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-236b --no-reduced --layers 1 --edge-plan 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen2-vl-72b --no-reduced --layers 3 --edge-plan 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-medium --no-reduced
   (``--no-reduced --layers 4`` runs full width at 4 layers;
   ``--device cpu`` runs the plain CPU path.)
+
+The encoder-decoder (seamless-m4t-medium) prefills with 2 * prompt-len
+random encoder frames (the stubbed audio frontend), then decodes against
+the cross K/V that ``encdec.prepare_cross_cache`` computes from them, as
+the reference's driver does (``encdec.decode_cache``); its states are not
+paged, so ``--edge-plan`` raises the reference's ValueError.
 """
 from __future__ import annotations
 
@@ -75,25 +85,32 @@ def main(argv=None):
             torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
-    logits, pre_cache = M.prefill(cfg, params, {"tokens": prompts})
+    if cfg.enc_dec:
+        from repro_torch.models import encdec
+        feats = torch.randn((B, 2 * P, cfg.d_model), generator=gen,
+                            device=dev)
+        logits, cache = encdec.decode_cache(cfg, params, prompts, feats,
+                                            P + G, kv_quant=args.kv_int8)
+    else:
+        logits, pre_cache = M.prefill(cfg, params, {"tokens": prompts})
+        cache = M.init_cache(cfg, B, P + G, kv_quant=args.kv_int8,
+                             device=dev)
+        for nm in ("wkv_state", "tm_prev", "cm_prev"):
+            if nm in pre_cache:    # RWKV: the prompt's recurrent states
+                cache[nm] = pre_cache[nm]
+        if not args.kv_int8:
+            for nm in ("k", "v", "ckv", "kpe"):
+                if nm in cache:
+                    cache[nm][:, :, :P] = pre_cache[nm].to(cache[nm].dtype)
+            cache["pos"] = pre_cache["pos"]
     sync()
     t_prefill = time.perf_counter() - t0
-
-    cache = M.init_cache(cfg, B, P + G, kv_quant=args.kv_int8, device=dev)
-    for nm in ("wkv_state", "tm_prev", "cm_prev"):
-        if nm in pre_cache:        # RWKV: the prompt's recurrent states
-            cache[nm] = pre_cache[nm]
     if args.kv_int8:
         # re-ingest the prompt token by token (int8 writes)
         cache["pos"] = torch.zeros((), dtype=torch.int32, device=dev)
         for t in range(P):
             logits, cache = M.decode_step(cfg, params, cache,
                                           prompts[:, t:t + 1])
-    else:
-        for nm in ("k", "v", "ckv", "kpe"):
-            if nm in cache:
-                cache[nm][:, :, :P] = pre_cache[nm].to(cache[nm].dtype)
-        cache["pos"] = pre_cache["pos"]
 
     def sample(lg):
         lg = lg[:, -1, :cfg.vocab_size]

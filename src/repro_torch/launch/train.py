@@ -22,6 +22,10 @@ Usage (from the repository root)::
       --arch granite-moe-1b-a400m --layers 4 --backend fleet --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-v2-236b --layers 1 --backend fleet --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen2-vl-72b --layers 3 --backend fleet --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch seamless-m4t-medium --backend fleet --steps 3
 
 For RWKV-6, as in the reference, only the LM head's GEMMs reach the fleet;
 the time mix (the WKV kernel) and the channel mix run on the PS.  For MoE
@@ -29,6 +33,11 @@ the router's GEMMs reach the fleet beside the attention projections and
 the LM head; the routed experts run on the PS, on the batched block GEMM
 kernel.  For MLA (deepseek-v2-236b) the latent and up-projections reach
 the fleet too; the attention runs on the flash kernel at q/k 192, v 128.
+As the reference's driver does, qwen2-vl-72b's batches carry seq // 4
+precomputed patch embeddings a row (the stubbed vision frontend), and
+seamless-m4t-medium's 2 * seq precomputed audio frames
+(``data.pipeline.modality_stubs``); the encoder's projections reach the
+fleet too, and its layers' recompute in the backward with them.
 Each step updates the params and the optimizer moments in place, as the
 reference's driver donates them (``donate_argnums=(0, 1)``): one
 full-width deepseek-v2-236b layer would not fit the card with a second
@@ -95,7 +104,8 @@ def main(argv=None):
     from repro_torch import resolve_device
     from repro_torch import tree as T
     from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                           modality_stubs)
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
     from repro_torch.optim import adam
@@ -174,8 +184,10 @@ def main(argv=None):
     history = []
     t0 = time.perf_counter()
     for step in range(args.steps):
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in data.batch(step).items()}
+        raw = data.batch(step)
+        raw.update(modality_stubs(cfg, args.batch, args.seq, step,
+                                  args.seed))
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
         if fleet_session is not None:
             fid = fail_ids if step == args.fail_step else ()
             params, opt_state, metrics = fleet_session.step(

@@ -1,9 +1,10 @@
 """GQA/MHA and MLA attention in PyTorch: prefill/training attention
 through the flash-attention kernel, decode attention against
-(per-request) KV caches, qk-norm and QKV bias, and DeepSeek-V2's
-multi-head latent attention with its absorbed decode (port of the GQA and
-MLA paths of ``src/repro/models/attention.py``).  M-RoPE, Hymba meta
-tokens and cross-attention belong to later slices of the port.
+(per-request) KV caches, qk-norm and QKV bias, M-RoPE, cross-attention
+against an encoder's K/V, and DeepSeek-V2's multi-head latent attention
+with its absorbed decode (port of the GQA, M-RoPE, cross-attention and
+MLA paths of ``src/repro/models/attention.py``).  Hymba's meta tokens
+belong to a later slice of the port.
 
 Every contraction runs in f32 on the operands' values (the reference's
 ``preferred_element_type=float32``); bf16 operands are upcast, which is
@@ -190,47 +191,88 @@ def _project_qkv(cfg, p, x):
 
 
 def _rope_qk(cfg, q, k, positions):
+    """Rotate q and k: M-RoPE over (B,S,3) positions when ``cfg.m_rope``,
+    else RoPE over (B,S) positions."""
     if cfg.m_rope:
-        raise NotImplementedError("M-RoPE comes with the qwen2-vl slice of "
-                                  "the port")
+        secs = cfg.m_rope_sections
+        return (L.apply_m_rope(q, positions, cfg.rope_theta, secs),
+                L.apply_m_rope(k, positions, cfg.rope_theta, secs))
     return (L.apply_rope(q, positions, cfg.rope_theta),
             L.apply_rope(k, positions, cfg.rope_theta))
 
 
 def attention_block(cfg, p, x, positions, *, causal=True, window=0,
-                    q_chunk=256, k_chunk=512):
-    """Causal (or bidirectional) self-attention over a full sequence.
-    Returns (out, (k, v))."""
+                    q_chunk=256, k_chunk=512, cross_kv=None):
+    """Causal (or bidirectional) self-attention over a full sequence, or
+    cross-attention when ``cross_kv=(k, v)`` is given (always
+    non-causal, no rotation).  Returns (out, (k, v)).  As in the
+    reference, cross-attention still projects x to k and v and drops
+    them: those two fleet GEMMs run in the forward and have no
+    backward."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
-    q, k = _rope_qk(cfg, q, k, positions)
+    if cross_kv is not None:
+        k, v = cross_kv
+        causal = False
+    else:
+        q, k = _rope_qk(cfg, q, k, positions)
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             q_chunk=q_chunk, k_chunk=k_chunk)
     out = out.reshape(B, S, -1)
     return L.pdot(out, p["wo"]), (k, v)
 
 
+def project_cross_kv(cfg, p, enc_x):
+    """Cross-attention K/V (B,Se,K,hd) from the encoder output: once per
+    decode session, and for every decoder layer in training."""
+    B, S, _ = enc_x.shape
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    k = L.pdot(enc_x, p["wk"]).reshape(B, S, K, hd)
+    v = L.pdot(enc_x, p["wv"]).reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
 def _decode_positions(cfg, pos, B):
     """RoPE positions of the incoming token: a scalar ``pos`` broadcasts to
-    the batch, a (B,) vector gives each slot its own position."""
+    the batch, a (B,) vector gives each slot its own position.  Under
+    M-RoPE the position is repeated as (t, h, w), (B,1,3), as the
+    reference does whatever grid the prefill used (Qwen2-VL would go on
+    from the prefill's largest position + 1; ROADMAP.md records the
+    difference)."""
     pos = pos.long()
     if pos.dim() == 1:
-        return pos.reshape(B, 1)
-    return pos.reshape(1, 1).expand(B, 1)
+        base = pos.reshape(B, 1)
+    else:
+        base = pos.reshape(1, 1).expand(B, 1)
+    if cfg.m_rope:
+        return base[..., None].expand(B, 1, 3)
+    return base
 
 
-def attention_decode(cfg, p, x, pos, cache_k, cache_v, slot, valid):
+def attention_decode(cfg, p, x, pos, cache_k, cache_v, slot, valid,
+                     cross_kv=None):
     """One-token decode.  x: (B,1,d); cache_k/v: (B,Smax,K,hd), the
     layer's cache slice (read, not modified).  Returns (out, k_new, v_new)
     with the (B,1,K,hd) new-token entries for the caller to write back.
     ``pos``/``slot`` are scalars or (B,) vectors with a (B,Smax)
-    ``valid`` mask."""
+    ``valid`` mask.  With ``cross_kv=(k, v)`` (B,Se,K,hd) the token
+    attends over every encoder slot instead (the flash-decode kernel
+    on the card, an all-valid mask) and k_new = v_new = None."""
     B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x)
-    q, k = _rope_qk(cfg, q, k, _decode_positions(cfg, pos, B))
-    cache_k = _write_slot(cache_k, k, slot)
-    cache_v = _write_slot(cache_v, v, slot)
-    out = decode_attention(q, cache_k, cache_v, valid)
+    if cross_kv is None:
+        q, k = _rope_qk(cfg, q, k, _decode_positions(cfg, pos, B))
+        cache_k = _write_slot(cache_k, k, slot)
+        cache_v = _write_slot(cache_v, v, slot)
+        out = decode_attention(q, cache_k, cache_v, valid)
+    else:
+        ck, cv = cross_kv
+        valid_c = torch.ones((ck.shape[1],), dtype=torch.bool,
+                             device=ck.device)
+        out = decode_attention(q, ck, cv, valid_c)
+        k = v = None
     out = out.reshape(B, 1, -1)
     return L.pdot(out, p["wo"]), k, v
 

@@ -1,5 +1,6 @@
-"""Shared layer primitives in PyTorch: projection GEMM hook, norms (RMS and
-group), rotary embeddings, SwiGLU, embeddings, init helpers (port of
+"""Shared layer primitives in PyTorch: projection GEMM hook, norms (RMS,
+layer and group), rotary embeddings (incl. M-RoPE), SwiGLU, embeddings,
+init helpers (port of
 ``src/repro/models/layers.py``).  Params are nested dicts of tensors in the
 reference's layout; every ``init_*`` draws from a ``torch.Generator`` on
 the target device.
@@ -79,6 +80,23 @@ def rmsnorm(params, x, eps=1e-5):
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def init_layernorm(d, dtype, device, lead=()):
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
+                                device=device),
+            "bias": torch.zeros(tuple(lead) + (d,), dtype=dtype,
+                                device=device)}
+
+
+def layernorm(params, x, eps=1e-5):
+    """LayerNorm over the last dim, in f32 inside (biased variance)."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
 def init_groupnorm(n_groups, d, dtype, device, lead=()):
     del n_groups  # static; passed to `groupnorm` at apply time
     return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
@@ -118,6 +136,32 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def apply_m_rope(x, positions, theta: float, sections):
+    """Multimodal RoPE (Qwen2-VL): positions (B,S,3) = (t, h, w) indices;
+    ``sections`` are half-dim section sizes summing to head_dim // 2, and
+    frequency i turns with the position of its section."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to "
+                         f"head_dim // 2 = {half}")
+    freqs = torch.as_tensor(rope_freqs(x.shape[-1], theta),
+                            dtype=torch.float32, device=x.device)
+    sec_id = torch.as_tensor(np.concatenate(
+        [np.full(s, i) for i, s in enumerate(sections)]), device=x.device)
+    ang = positions.float()[..., sec_id] * freqs          # (B,S,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def default_m_positions(batch, seq, device=None):
+    """Text-only M-RoPE positions: t = h = w = the linear position."""
+    return torch.arange(seq, dtype=torch.int32, device=device)[None, :, None] \
+        .expand(batch, seq, 3)
+
+
 # ------------------------------------------------------------------ SwiGLU --
 
 def init_swiglu(gen, d, d_ff, dtype, lead=()):
@@ -128,11 +172,15 @@ def init_swiglu(gen, d, d_ff, dtype, lead=()):
     }
 
 
-def swiglu(params, x):
+def swiglu_hidden(params, x):
+    """silu(x W_gate) * (x W_up): the input of the ``down`` projection."""
     g = pdot(x, params["w_gate"])
     u = pdot(x, params["w_up"])
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return pdot(h, params["w_down"])
+    return torch.nn.functional.silu(g.float()).to(x.dtype) * u
+
+
+def swiglu(params, x):
+    return pdot(swiglu_hidden(params, x), params["w_down"])
 
 
 # -------------------------------------------------------------- embeddings --

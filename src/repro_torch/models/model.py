@@ -1,5 +1,6 @@
-"""Decoder-only LM in PyTorch (port of ``src/repro/models/model.py``, the
-dense GQA, MoE, MLA and RWKV-6 families).  Parameters keep the reference's
+"""The LM in PyTorch (port of ``src/repro/models/model.py``: the dense
+GQA, M-RoPE (with the vision stub), MoE, MLA, RWKV-6 and encoder-decoder
+(with the audio stub) families).  Parameters keep the reference's
 layout, with the layers stacked on a leading axis, so
 ``interop.from_jax_params`` maps the reference's params one to one.  The
 layer loop is a Python loop.
@@ -20,29 +21,28 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.models import attention as A
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 
-_LATER = (("ssm", "SSM"),
-          ("hybrid_parallel", "hybrid"), ("enc_dec", "encoder-decoder"),
-          ("attn_free", "attention-free"), ("m_rope", "M-RoPE"),
+_LATER = (("ssm", "SSM"), ("hybrid_parallel", "hybrid"),
+          ("attn_free", "attention-free"),
           ("n_meta_tokens", "Hymba meta-token"))
 
 
 def require_ported(cfg) -> None:
-    """Raise for families the port does not cover yet: it runs the dense
-    GQA family, MoE (routed experts), MLA (DeepSeek-V2's latent attention)
-    and RWKV-6 (attention-free by design)."""
+    """Raise for families the port does not cover yet (hymba's): it runs
+    the dense GQA family, M-RoPE with precomputed patch embeddings, MoE
+    (routed experts), MLA (DeepSeek-V2's latent attention), RWKV-6
+    (attention-free by design) and the encoder-decoder with precomputed
+    audio frames."""
     for flag, name in _LATER:
         if getattr(cfg, flag) and not (cfg.rwkv and flag == "attn_free"):
             raise NotImplementedError(
                 f"arch {cfg.name!r}: the {name} family comes with a later "
-                "slice of the port; the port runs the dense GQA, MoE, MLA "
-                "and RWKV-6 families")
-    if cfg.modality != "text":
-        raise NotImplementedError(f"arch {cfg.name!r}: {cfg.modality} "
-                                  "inputs come with a later slice")
+                "slice of the port; the port runs the dense GQA, M-RoPE, "
+                "MoE, MLA, RWKV-6 and encoder-decoder families")
 
 
 # ------------------------------------------------------------------- inits --
@@ -77,32 +77,38 @@ def init_params(cfg, generator: torch.Generator):
     """Random params with the reference's shapes and scales, drawn from
     ``generator`` on its device (the bits differ from ``jax.random``)."""
     require_ported(cfg)
-    return {
+    params = {
         "embed": L.init_embedding(generator, cfg),
         "layers": init_layer(cfg, generator, lead=(cfg.n_layers,)),
         "final_norm": L.init_rmsnorm(cfg.d_model, L.pdtype_of(cfg),
                                      generator.device),
         "head": L.init_lm_head(generator, cfg),
     }
+    if cfg.enc_dec:
+        params["encoder"] = ED.init_encoder(cfg, generator)
+        # the decoder's cross-attention sublayers, stacked over its layers
+        params["cross"] = ED.init_cross_layer(cfg, generator,
+                                              lead=(cfg.n_layers,))
+    return params
 
 
-def layer_params(params, i: int):
-    """Layer ``i``'s slice of the stacked layer params."""
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[i]
-    return take(params["layers"])
+def layer_params(params, i: int, name: str = "layers"):
+    """Layer ``i``'s slice of the stacked ``params[name]`` (the decoder
+    layers, or ``"cross"``, their cross-attention sublayers)."""
+    return T.map_tree(lambda t: t[i], params[name])
 
 
 # ------------------------------------------------------------ layer bodies --
 
 def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
-                  k_chunk=512, causal=True):
+                  k_chunk=512, causal=True, cross_fn=None):
     """One decoder layer over a full sequence.  Returns (x, aux, (k, v)),
     for MLA (x, aux, (c_kv, k_pe)), the latent cache entries, or for RWKV
     (x, aux, (s_last, tm_last, cm_last)): the layer's final WKV state and
     the last normed inputs of its two token shifts.  ``aux`` is
-    the MoE load-balancing loss (f32 zero for the other families)."""
+    the MoE load-balancing loss (f32 zero for the other families).
+    ``cross_fn``, if given, applies cross-attention between the
+    self-attention and FFN sublayers (the encoder-decoder's decoder)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.rwkv:
         B = x.shape[0]
@@ -129,6 +135,8 @@ def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
                                    causal=causal, window=window,
                                    q_chunk=q_chunk, k_chunk=k_chunk)
     x = x + ao
+    if cross_fn is not None:
+        x = cross_fn(x)
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.moe:
         mo, a = MOE.moe_block(cfg, p["moe"], h2)
@@ -137,12 +145,24 @@ def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
 
 
 def fuse_inputs(cfg, params, batch):
-    """Token embedding -> (x, positions)."""
+    """Token embedding and the modality stubs -> (x, positions).  Vision:
+    ``vision_embeds`` (B,Svis,d), precomputed patch embeddings, replace
+    the first Svis token embeddings.  M-RoPE positions are the batch's
+    ``positions_mrope`` (B,S,3) when it carries them, else
+    ``default_m_positions``; other families take (B,S) positions."""
     require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed_tokens(params["embed"], tokens, cfg)
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.modality == "vision" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"].to(x.dtype)
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+    if cfg.m_rope:
+        positions = batch.get("positions_mrope")
+        if positions is None:
+            positions = L.default_m_positions(B, S, x.device)
+    else:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
     return x, positions
 
 
@@ -151,14 +171,25 @@ def forward(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
     """Full forward to the final hidden states.  Returns (x, aux, kv): the
     layers' summed MoE load-balancing loss, and the layers' ``(k, v)`` --
     for MLA ``(c_kv, k_pe)``, for RWKV ``(wkv_state, tm_prev, cm_prev)``
-    -- stacked over layers when ``collect_kv``."""
+    -- stacked over layers when ``collect_kv``.  The encoder-decoder
+    encodes ``batch["encoder_feats"]`` first and runs each decoder
+    layer's cross-attention over the encoder output."""
     x, positions = fuse_inputs(cfg, params, batch)
+    enc_out = None
+    if cfg.enc_dec:
+        # the reference encodes at encode's own default chunks
+        enc_out = ED.encode(cfg, params["encoder"], batch["encoder_feats"])
     per_layer = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
+        cross_fn = None
+        if enc_out is not None:
+            cp = layer_params(params, i, "cross")
+            cross_fn = lambda y, cp=cp: ED.cross_layer(  # noqa: E731
+                cfg, cp, y, enc_out, q_chunk=q_chunk, k_chunk=k_chunk)
         x, a, kv = layer_forward(
             cfg, layer_params(params, i), x, positions, window=window,
-            q_chunk=q_chunk, k_chunk=k_chunk)
+            q_chunk=q_chunk, k_chunk=k_chunk, cross_fn=cross_fn)
         aux = aux + a
         if collect_kv:
             per_layer.append(kv)
@@ -234,13 +265,15 @@ def value_and_grad(cfg, params, batch, **chunks):
 
 # ------------------------------------------------------------------- cache --
 
-def init_cache(cfg, batch, cache_len, *, kv_quant=False, device="cuda"):
+def init_cache(cfg, batch, cache_len, *, enc_len=0, kv_quant=False,
+               device="cuda"):
     """Decode cache, stacked over layers.  ``kv_quant`` stores K/V int8 with
     per-(token, head) float16 scales.  MLA caches the latent ``ckv``
     (L,B,S,r) and the rope key ``kpe`` (L,B,S,rd) instead (``kv_quant``
     does not apply, as in the reference); RWKV keeps its recurrent states:
     ``wkv_state`` (L,B,H,hd,hd) f32 and the token-shift inputs
-    ``tm_prev``/``cm_prev`` (L,B,d)."""
+    ``tm_prev``/``cm_prev`` (L,B,d).  The encoder-decoder adds the
+    read-only cross K/V ``cross_k``/``cross_v`` (L,B,enc_len,K,hd)."""
     require_ported(cfg)
     dt = L.dtype_of(cfg)
     c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -269,6 +302,10 @@ def init_cache(cfg, batch, cache_len, *, kv_quant=False, device="cuda"):
         c["k_scale"] = torch.zeros((Lc, batch, cache_len, K),
                                    dtype=torch.float16, device=device)
         c["v_scale"] = torch.zeros_like(c["k_scale"])
+    if cfg.enc_dec:
+        c["cross_k"] = torch.zeros((Lc, batch, enc_len, K, hd), dtype=dt,
+                                   device=device)
+        c["cross_v"] = torch.zeros_like(c["cross_k"])
     return c
 
 
@@ -291,7 +328,8 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
     ``(logits (B,1,V_padded) f32, new_cache)``; the input cache is not
     modified.  MLA runs the absorbed decode against the latent cache;
     RWKV runs the recurrence one step (``time_mix`` with ``chunk=1``) and
-    replaces its states wholesale."""
+    replaces its states wholesale; the encoder-decoder's cross-attention
+    reads ``cross_k``/``cross_v``, which pass through unchanged."""
     require_ported(cfg)
     if cfg.rwkv:
         return _rwkv_decode_step(cfg, params, cache, tokens)
@@ -324,6 +362,10 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
                                             slot, valid)
             news.append({"k": nk, "v": nv})       # (B,1,K,hd) new entries
         x = x + ao
+        if cfg.enc_dec:
+            x = ED.cross_layer_decode(
+                cfg, layer_params(params, i, "cross"), x,
+                (cache["cross_k"][i], cache["cross_v"][i]))
         h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         if cfg.moe:
             # the step's B tokens route together: C = max(ceil(B k cf / E),
@@ -379,7 +421,9 @@ def _rwkv_decode_step(cfg, params, cache, tokens):
 def prefill(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512):
     """Forward over a full prompt: last-position logits and the filled
     decode cache (MLA: the latent ``ckv``/``kpe``; RWKV: the final
-    recurrent states)."""
+    recurrent states).  The encoder-decoder's cross K/V stay empty
+    (enc_len 0), as in the reference: a decode session fills them with
+    ``encdec.prepare_cross_cache``."""
     x, _, kv = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
                        k_chunk=k_chunk, collect_kv=True)
     logits = L.lm_logits(_head(params), params["embed"], x[:, -1:], cfg)

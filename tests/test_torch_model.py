@@ -113,12 +113,14 @@ def test_qk_norm_and_bias_families_match_reference(rng):
                                   "hymba-1.5b", "seamless-m4t-medium",
                                   "qwen2-vl-72b"])
 def test_later_families_raise(arch):
-    """Families the port does not cover yet raise at init; the MoE family
-    (granite-moe-1b-a400m) and the MLA family (deepseek-v2-236b, MoE and
-    MLA), ported since, initialise instead (their parity with the
-    reference: tests/test_torch_moe.py, tests/test_torch_mla.py).  Their
-    cases keep the parameter list, and so the names, they had while they
-    raised."""
+    """Families the port does not cover yet (hymba-1.5b) raise at init;
+    the MoE family (granite-moe-1b-a400m), the MLA family
+    (deepseek-v2-236b, MoE and MLA), M-RoPE (qwen2-vl-72b) and the
+    encoder-decoder (seamless-m4t-medium), ported since, initialise
+    instead (their parity with the reference: tests/test_torch_moe.py,
+    tests/test_torch_mla.py, tests/test_torch_mrope.py,
+    tests/test_torch_encdec.py).  Their cases keep the parameter list, and
+    so the names, they had while they raised."""
     cfg = get_config(arch).reduced()
     if arch == "granite-moe-1b-a400m":
         params = M.init_params(cfg, torch.Generator().manual_seed(0))
@@ -128,6 +130,18 @@ def test_later_families_raise(arch):
         params = M.init_params(cfg, torch.Generator().manual_seed(0))
         assert "moe" in params["layers"]
         assert {"w_dkv", "w_uk", "w_uv"} <= set(params["layers"]["attn"])
+        return
+    if arch == "qwen2-vl-72b":
+        params = M.init_params(cfg, torch.Generator().manual_seed(0))
+        assert cfg.m_rope and sum(cfg.m_rope_sections) == cfg.head_dim // 2
+        assert {"wq", "wk", "wv", "wo"} == set(params["layers"]["attn"])
+        return
+    if arch == "seamless-m4t-medium":
+        params = M.init_params(cfg, torch.Generator().manual_seed(0))
+        assert {"encoder", "cross"} <= set(params)
+        assert params["encoder"]["layers"]["attn"]["wq"].shape[0] \
+            == cfg.n_enc_layers
+        assert params["cross"]["attn"]["wk"].shape[0] == cfg.n_layers
         return
     with pytest.raises(NotImplementedError):
         M.init_params(cfg, torch.Generator().manual_seed(0))

@@ -307,13 +307,15 @@ def test_decode_token_by_token_equals_prefill(ref, rng):
 
 
 def test_deepseek_still_raises_for_mla():
-    """A family still unported, qwen2-vl-72b, raises, naming M-RoPE;
-    deepseek-v2-236b (MoE and MLA) and the MoE family pass.  The name is
-    the one this test had while MLA raised: a repurposed test keeps its
-    name, so that its record runs on unbroken."""
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        M.require_ported(get_config("qwen2-vl-72b"))
-    M.require_ported(get_config("deepseek-v2-236b"))
+    """A family still unported, hymba-1.5b, raises, naming its SSM
+    heads; deepseek-v2-236b (MoE and MLA), qwen2-vl-72b (M-RoPE),
+    seamless-m4t-medium (encoder-decoder) and the MoE family pass.  The
+    name is the one this test had while MLA raised: a repurposed test
+    keeps its name, so that its record runs on unbroken."""
+    with pytest.raises(NotImplementedError, match="SSM"):
+        M.require_ported(get_config("hymba-1.5b"))
+    for arch in ("deepseek-v2-236b", "qwen2-vl-72b", "seamless-m4t-medium"):
+        M.require_ported(get_config(arch))
     M.require_ported(get_config(ARCH))
 
 

@@ -290,10 +290,10 @@ def test_unported_training_options_raise(ref):
         rt.train_session(n_ps=2)
     with pytest.raises(NotImplementedError, match="A.4"):
         rt.train_session(checkpoint="ckpts")
-    # MoE trains since the MoE slice and MLA since the MLA slice;
-    # qwen2-vl-72b still raises, for M-RoPE
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        TorchCleaveRuntime(arch="qwen2-vl-72b",
+    # MoE, MLA, M-RoPE and the encoder-decoder train since their slices;
+    # hymba-1.5b still raises, for its SSM heads
+    with pytest.raises(NotImplementedError, match="SSM"):
+        TorchCleaveRuntime(arch="hymba-1.5b",
                            fleet=Fleet.sample(4, seed=0),
                            device="cpu").train_session()
 
