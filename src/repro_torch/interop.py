@@ -4,7 +4,8 @@
 **numpy** arrays (the caller applies ``np.asarray`` to each JAX leaf) and
 returns the port's params in the same layout (with ``dtype``, floating
 leaves are cast, except those the reference keeps in float32 whatever the
-param dtype is: the MoE router); :func:`from_jax_opt_state`
+param dtype is: the MoE router, the SSM's ``A_log`` and ``D``);
+:func:`from_jax_opt_state`
 carries an ``AdamState`` across the same way.  A numpy bfloat16 array
 (``dtype.name == "bfloat16"``, from ``ml_dtypes``) is reinterpreted through
 ``uint16`` bits, so the port never imports ``ml_dtypes``.
@@ -28,14 +29,15 @@ def _leaf(arr, device, dtype):
 
 
 # leaves that keep their own dtype under ``from_jax_params(dtype=...)``
-KEEP_DTYPE = ("router",)
+KEEP_DTYPE = ("router", "A_log", "D")
 
 
 def from_jax_params(tree, device, dtype=None):
     """Nested dict of numpy arrays -> the same nesting of tensors on
     ``device``.  With ``dtype``, floating leaves are cast to it, except a
-    leaf under a key of :data:`KEEP_DTYPE` (the MoE router, float32 in
-    the reference whatever ``param_dtype`` is)."""
+    leaf under a key of :data:`KEEP_DTYPE` (the MoE router and the SSM's
+    ``A_log`` and ``D``, float32 in the reference whatever
+    ``param_dtype`` is)."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device,
                                    None if k in KEEP_DTYPE else dtype)

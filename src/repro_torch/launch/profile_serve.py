@@ -13,16 +13,20 @@ share, the kernel time launched under the
 and routing, sort, scatter and combine; MLA: the absorbed decode's
 einsums against the latent cache), the batched block GEMM's launches per
 step, and the kernels that take the device time, each with its time and
-launches per step.  seamless-m4t-medium, whose states the session does not
-page (as in the reference), is profiled on its monolithic decode instead:
-a prefill of the prompts with 2 * prompt-len encoder frames and the
-cross K/V of those frames (``encdec.decode_cache``), then ``decode_step``s
-(no fleet GEMM; the self- and cross-attention on the flash-decode kernel).
+launches per step.  seamless-m4t-medium and hymba-1.5b, whose states the
+session does not page (as in the reference), are profiled on their
+monolithic decode instead: for seamless a prefill of the prompts with 2 *
+prompt-len encoder frames and the cross K/V of those frames
+(``encdec.decode_cache``), for hymba ``launch/serve.py``'s prefill and cache
+(``launch.serve.prefill_cache``), then ``decode_step``s (no fleet GEMM;
+the attention on the flash-decode kernel, hymba's over its 128 meta
+tokens and the cache; hymba's SSM step in plain torch, under the
+``ssm.decode`` range).
 
 Usage (on a machine with a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       [--arch granite-moe-1b-a400m|deepseek-v2-236b|qwen2-vl-72b|\
-              seamless-m4t-medium] [--layers 4] \
+              seamless-m4t-medium|hymba-1.5b] [--layers 4] \
       [--steps 3] \
       [--out profile_serve.json]
 """
@@ -34,7 +38,7 @@ import json
 import time
 
 RANGES = ("fleet.fwd", "ops.stage_copy", "moe.experts", "moe.dispatch",
-          "mla.decode")
+          "mla.decode", "ssm.decode")
 
 
 def _device_us(evt) -> float:
@@ -46,22 +50,29 @@ def _device_us(evt) -> float:
 
 
 def _monolithic_decoder(cfg, dev, prompts, n_gen):
-    """The encoder-decoder's monolithic decode at bf16 params over
-    ``encdec.decode_cache`` (a prefill of ``prompts`` with 2x as many
-    random encoder frames, a cache of prompt + ``n_gen`` slots).  Each
-    call of the returned function decodes one greedy token for every
-    prompt."""
+    """The monolithic decode at bf16 params, over a cache of prompt +
+    ``n_gen`` slots: the encoder-decoder's ``encdec.decode_cache`` (a
+    prefill of ``prompts`` with 2x as many random encoder frames), else
+    ``launch/serve.py``'s ``prefill_cache``.  Each call of the returned
+    function decodes one greedy token for every prompt."""
     import numpy as np
     import torch
 
+    from repro_torch.launch.serve import prefill_cache
     from repro_torch.models import encdec
     from repro_torch.models import model as M
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init_params(cfg, gen)
     toks = torch.as_tensor(np.stack(prompts).astype(np.int64), device=dev)
     B, P = toks.shape
-    feats = torch.randn((B, 2 * P, cfg.d_model), generator=gen, device=dev)
-    logits, cache = encdec.decode_cache(cfg, params, toks, feats, P + n_gen)
+    if cfg.enc_dec:
+        feats = torch.randn((B, 2 * P, cfg.d_model), generator=gen,
+                            device=dev)
+        logits, cache = encdec.decode_cache(cfg, params, toks, feats,
+                                            P + n_gen)
+    else:
+        with torch.no_grad():
+            logits, cache = prefill_cache(cfg, params, toks, P + n_gen)
     state = {"cache": cache, "tok": logits[:, -1:].argmax(-1)}
 
     @torch.no_grad()
@@ -78,7 +89,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3-8b",
                     choices=("llama3-8b", "granite-moe-1b-a400m",
                              "deepseek-v2-236b", "qwen2-vl-72b",
-                             "seamless-m4t-medium"))
+                             "seamless-m4t-medium", "hymba-1.5b"))
     ap.add_argument("--layers", type=int, default=None,
                     help="override the config's depth (omitted: keep it)")
     ap.add_argument("--steps", type=int, default=3)
@@ -106,7 +117,7 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len)
                .astype(np.int32) for _ in range(args.slots)]
-    if cfg.enc_dec:
+    if cfg.enc_dec or cfg.hybrid_parallel:
         # the monolithic decode runs no fleet GEMM: no step reports
         step, reports = _monolithic_decoder(cfg, dev, prompts, n_gen), []
     else:

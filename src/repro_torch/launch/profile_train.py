@@ -1,8 +1,9 @@
 """Where a fleet training step's time goes on the card.
 
 Builds the full-width training session of ``chip_smoke.py`` (``--arch``,
-llama3-8b, rwkv6-7b, granite-moe-1b-a400m, deepseek-v2-236b, qwen2-vl-72b
-or seamless-m4t-medium, at ``--layers`` depth (omitted: the config's own),
+llama3-8b, rwkv6-7b, granite-moe-1b-a400m, deepseek-v2-236b, qwen2-vl-72b,
+seamless-m4t-medium or hymba-1.5b, at ``--layers`` depth (omitted: the
+config's own),
 bf16 params and policy, batch 8 x 128, 16-device fleet, params and
 moments updated in place; qwen2-vl's batches carry 32 patch embeddings a
 row on a 4 x 8 grid of M-RoPE positions, seamless's 256 encoder frames a
@@ -16,22 +17,24 @@ device kernel time per step and the device's idle share, the kernel time
 launched under each profiler range of the step (``fleet.fwd``,
 ``fleet.dA``, ``fleet.dW``, ``ops.stage_copy`` for the padded and
 transposed operand copies, ``ps.adam``, for RWKV ``rwkv.wkv_backward``,
-the WKV backward's torch recompute, and for MoE ``moe.experts``, the
+the WKV backward's torch recompute, for MoE ``moe.experts``, the
 expert products' forward and backward with their transposed copies, and
-``moe.dispatch``, routing, sort, scatter and combine in the forward) --
+``moe.dispatch``, routing, sort, scatter and combine in the forward, and
+for hymba ``ssm.scan`` and ``ssm.scan_backward``, the selective scan's
+forward and its chunk-by-chunk recompute and backward) --
 the sum of the kernels launched inside the range, not the range's span on
 the device timeline -- the band GEMM's time and launches per step by
-fleet GEMM kind, the WKV kernel's and the batched block GEMM's time and
-launches per step (CUDA events, and their own entries in the trace), and
-the kernels that take the device time, each with its time and launches
-per step.  The port's kernels are launched through ctypes, which the
-profiler ties to no range: they are timed by CUDA events and read by
-kernel name.
+fleet GEMM kind, the WKV kernel's, the batched block GEMM's and the
+flash-attention kernel's time and launches per step (CUDA events, and
+their own entries in the trace), the peak device memory, and the kernels
+that take the device time, each with its time and launches per step.
+The port's kernels are launched through ctypes, which the profiler ties
+to no range: they are timed by CUDA events and read by kernel name.
 
 Usage (on a machine with a CUDA card):
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       [--arch rwkv6-7b|granite-moe-1b-a400m|deepseek-v2-236b|\\
-              qwen2-vl-72b|seamless-m4t-medium] \\
+              qwen2-vl-72b|seamless-m4t-medium|hymba-1.5b] \\
       [--layers 4] [--steps 2] \\
       [--out profile_train.json]
 """
@@ -44,9 +47,10 @@ import json
 import time
 
 RANGES = ("fleet.fwd", "fleet.dA", "fleet.dW", "ops.stage_copy", "ps.adam",
-          "rwkv.wkv_backward", "moe.experts", "moe.dispatch")
+          "rwkv.wkv_backward", "moe.experts", "moe.dispatch", "ssm.scan",
+          "ssm.scan_backward")
 ARCHS = ("llama3-8b", "rwkv6-7b", "granite-moe-1b-a400m", "deepseek-v2-236b",
-         "qwen2-vl-72b", "seamless-m4t-medium")
+         "qwen2-vl-72b", "seamless-m4t-medium", "hymba-1.5b")
 # one H100 SXM at 700 W (NVIDIA data sheet): memory rate, dense bf16 rate
 PEAK_BW, PEAK_BF16 = 3.35e12, 989e12
 
@@ -219,10 +223,12 @@ def main(argv=None):
         wall = time.perf_counter() - t0
 
     from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wkv6 as wkv
     with _band_gemm_events(torch) as events, \
             _launch_events(torch, wkv, "wkv6") as wkv_ev, \
-            _launch_events(torch, bg, "block_gemm_batched") as b2_ev:
+            _launch_events(torch, bg, "block_gemm_batched") as b2_ev, \
+            _launch_events(torch, fa, "attend") as fa_ev:
         timed = run(batches[1 + 2 * args.steps:])
     torch.cuda.synchronize(dev)
     band_ms = {}
@@ -278,6 +284,9 @@ def main(argv=None):
         "block_gemm_batched_ms_per_step": sum(
             s.elapsed_time(e) for s, e in b2_ev) / n,
         "block_gemm_batched_launches_per_step": len(b2_ev) / n,
+        "flash_ms_per_step": sum(s.elapsed_time(e) for s, e in fa_ev) / n,
+        "flash_launches_per_step": len(fa_ev) / n,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "losses": [r.loss for r in untraced + traced + timed],
         "top_kernels": [
             {"name": name[:120], "ms_per_step": us / 1e3 / n,

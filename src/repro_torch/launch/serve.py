@@ -22,6 +22,8 @@ Usage:
       --arch qwen2-vl-72b --no-reduced --layers 3 --edge-plan 16
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch seamless-m4t-medium --no-reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch hymba-1.5b --no-reduced
   (``--no-reduced --layers 4`` runs full width at 4 layers;
   ``--device cpu`` runs the plain CPU path.)
 
@@ -29,13 +31,40 @@ The encoder-decoder (seamless-m4t-medium) prefills with 2 * prompt-len
 random encoder frames (the stubbed audio frontend), then decodes against
 the cross K/V that ``encdec.prepare_cross_cache`` computes from them, as
 the reference's driver does (``encdec.decode_cache``); its states are not
-paged, so ``--edge-plan`` raises the reference's ValueError.
+paged, so ``--edge-plan`` raises the reference's ValueError.  So does the
+hybrid's (hymba-1.5b), whose decode cache is built as the reference's
+driver builds it: the prompt's K/V from the prefill, the SSM state from
+zeros (the reference's prefill does not return it; ROADMAP C).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+
+
+def prefill_cache(cfg, params, prompts, cache_len, *, kv_quant=False):
+    """The decode set-up of the reference's ``launch/serve.py`` for a
+    decoder-only model: one
+    ``prefill`` of ``prompts`` (B,P), then a cache of ``cache_len`` slots
+    holding the prompt's K/V (MLA: ckv/kpe; RWKV: the recurrent states)
+    at the prompt's position.  With ``kv_quant`` the int8 cache stays
+    empty (the caller feeds the prompt token by token).  Returns (the
+    prompt's last logits, the cache)."""
+    from repro_torch.models import model as M
+    logits, pre = M.prefill(cfg, params, {"tokens": prompts})
+    P = prompts.shape[1]
+    cache = M.init_cache(cfg, prompts.shape[0], cache_len, kv_quant=kv_quant,
+                         device=prompts.device)
+    for nm in ("wkv_state", "tm_prev", "cm_prev"):
+        if nm in pre:              # RWKV: the prompt's recurrent states
+            cache[nm] = pre[nm]
+    if not kv_quant:
+        for nm in ("k", "v", "ckv", "kpe"):
+            if nm in cache:
+                cache[nm][:, :, :P] = pre[nm].to(cache[nm].dtype)
+        cache["pos"] = pre["pos"]
+    return logits, cache
 
 
 def main(argv=None):
@@ -92,17 +121,8 @@ def main(argv=None):
         logits, cache = encdec.decode_cache(cfg, params, prompts, feats,
                                             P + G, kv_quant=args.kv_int8)
     else:
-        logits, pre_cache = M.prefill(cfg, params, {"tokens": prompts})
-        cache = M.init_cache(cfg, B, P + G, kv_quant=args.kv_int8,
-                             device=dev)
-        for nm in ("wkv_state", "tm_prev", "cm_prev"):
-            if nm in pre_cache:    # RWKV: the prompt's recurrent states
-                cache[nm] = pre_cache[nm]
-        if not args.kv_int8:
-            for nm in ("k", "v", "ckv", "kpe"):
-                if nm in cache:
-                    cache[nm][:, :, :P] = pre_cache[nm].to(cache[nm].dtype)
-            cache["pos"] = pre_cache["pos"]
+        logits, cache = prefill_cache(cfg, params, prompts, P + G,
+                                      kv_quant=args.kv_int8)
     sync()
     t_prefill = time.perf_counter() - t0
     if args.kv_int8:

@@ -26,6 +26,8 @@ Usage (from the repository root)::
       --arch qwen2-vl-72b --layers 3 --backend fleet --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch seamless-m4t-medium --backend fleet --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch hymba-1.5b --backend fleet --steps 3
 
 For RWKV-6, as in the reference, only the LM head's GEMMs reach the fleet;
 the time mix (the WKV kernel) and the channel mix run on the PS.  For MoE
@@ -37,7 +39,10 @@ As the reference's driver does, qwen2-vl-72b's batches carry seq // 4
 precomputed patch embeddings a row (the stubbed vision frontend), and
 seamless-m4t-medium's 2 * seq precomputed audio frames
 (``data.pipeline.modality_stubs``); the encoder's projections reach the
-fleet too, and its layers' recompute in the backward with them.
+fleet too, and its layers' recompute in the backward with them.  For the
+hybrid (hymba-1.5b) the attention projections, the MLP and the LM head
+reach the fleet; the SSM heads' projections and scan run on the PS, as
+the reference's ``@`` keeps them there.
 Each step updates the params and the optimizer moments in place, as the
 reference's driver donates them (``donate_argnums=(0, 1)``): one
 full-width deepseek-v2-236b layer would not fit the card with a second

@@ -2,9 +2,9 @@
 through the flash-attention kernel, decode attention against
 (per-request) KV caches, qk-norm and QKV bias, M-RoPE, cross-attention
 against an encoder's K/V, and DeepSeek-V2's multi-head latent attention
-with its absorbed decode (port of the GQA, M-RoPE, cross-attention and
-MLA paths of ``src/repro/models/attention.py``).  Hymba's meta tokens
-belong to a later slice of the port.
+with its absorbed decode, and Hymba's learned meta-token K/V prefixes
+(port of ``src/repro/models/attention.py`` but its mesh-sharded decode,
+``_decode_attention_sharded``).
 
 Every contraction runs in f32 on the operands' values (the reference's
 ``preferred_element_type=float32``); bf16 operands are upcast, which is
@@ -95,50 +95,87 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                      q_chunk=256, k_chunk=512):
+                      prefix_kv=None, q_chunk=256, k_chunk=512):
     """q: (B,Sq,H,Dk); k: (B,Sk,K,Dk); v: (B,Sk,K,Dv) with H % K == 0.
     Returns (B,Sq,H,Dv) in v's dtype.  ``window > 0`` keeps only the last
     ``window`` keys; ``q_offset`` shifts query positions.  The forward is
     the flash-attention kernel on q, k and v upcast to f32 (the
     reference's upcast, so the kernel's rounding of p to v's type is
-    exact); ``q_chunk``/``k_chunk`` shape the backward's recompute."""
-    out = _FlashAttention.apply(q.float(), k.float(), v.float(), causal,
-                                window, q_offset, q_chunk, k_chunk)
-    return out.to(v.dtype)
+    exact); ``q_chunk``/``k_chunk`` shape the backward's recompute.
+
+    ``prefix_kv = (pk, pv)``, pk: (B,P,K,Dk), is an always-visible prefix
+    at positions < 0 (Hymba's meta tokens).  It is put before k and v and
+    the queries shifted by P: key j of the concatenation is then visible
+    to query i iff j <= P + q_offset + i, the reference's mask without a
+    window.  With a window the shift would hide prefix keys that the
+    reference keeps, so a prefix and a window together raise (the
+    mesh layer's long-context specs, ROADMAP A.7)."""
+    dtype = v.dtype
+    k, v = k.float(), v.float()
+    if prefix_kv is not None:
+        if window:
+            raise NotImplementedError(
+                "attention with a meta-token prefix and a sliding window is "
+                "not ported (the mesh layer's long-context specs, ROADMAP "
+                "A.7)")
+        pk, pv = prefix_kv
+        k = torch.cat([pk.float(), k], dim=1)
+        v = torch.cat([pv.float(), v], dim=1)
+        q_offset = q_offset + pk.shape[1]
+    out = _FlashAttention.apply(q.float(), k, v, causal, window, q_offset,
+                                q_chunk, k_chunk)
+    return out.to(dtype)
 
 
-def decode_attention(q, k_cache, v_cache, valid):
+def decode_attention(q, k_cache, v_cache, valid, prefix_kv=None):
     """Single-token attention against a cache.  q: (B,1,H,Dk);
     k_cache: (B,Smax,K,Dk); v_cache: (B,Smax,K,Dv); valid: (Smax,) bool or
-    (B,Smax) per-request occupancy.  Returns (B,1,H,Dv) in the cache
-    dtype.  On the card it runs the flash-decode kernel
-    (``ops.gqa_flash_decode``), which keeps the TPU kernel's roundings:
-    q scaled in f32, the un-normalised probabilities rounded to the cache
-    dtype; on the CPU it is :func:`decode_attention_plain`, the
-    reference's function and roundings.  The two agree to summation order
-    in f32; a row with no valid slot (which ``decode_step`` never forms)
-    gives zeros on the card and the mean of V here.  int8 caches, which
-    the reference reads without their scales (ROADMAP.md, faults), take
-    the plain body on both devices: no kernel of either package reads
-    them."""
-    if q.is_cuda and k_cache.is_floating_point():
-        return ops.gqa_flash_decode(q, k_cache, v_cache, valid)
-    return decode_attention_plain(q, k_cache, v_cache, valid)
+    (B,Smax) per-request occupancy; ``prefix_kv = (pk, pv)`` (B,P,K,·)
+    always-visible keys before the cache (Hymba's meta tokens).  Returns
+    (B,1,H,Dv) in the cache dtype.  On the card it runs the flash-decode
+    kernel (``ops.gqa_flash_decode``; with a prefix over [prefix cast to
+    the cache dtype; cache] and [P x True; valid], a copy of the layer's
+    cache a step), which keeps the TPU kernel's roundings: q scaled in
+    f32, the un-normalised probabilities rounded to the cache dtype; on
+    the CPU it is :func:`decode_attention_plain`, the reference's
+    function and roundings.  The two agree to summation order in f32; a
+    row with no valid slot (which ``decode_step`` never forms) gives zeros
+    on the card and the mean of V here.  int8 caches, which the reference
+    reads without their scales (ROADMAP.md, faults), take the plain body
+    on both devices: no kernel of either package reads them."""
+    if not (q.is_cuda and k_cache.is_floating_point()):
+        return decode_attention_plain(q, k_cache, v_cache, valid, prefix_kv)
+    if prefix_kv is not None:
+        pk, pv = prefix_kv
+        k_cache = torch.cat([pk.to(k_cache.dtype), k_cache], dim=1)
+        v_cache = torch.cat([pv.to(v_cache.dtype), v_cache], dim=1)
+        seen = torch.ones(valid.shape[:-1] + (pk.shape[1],),
+                          dtype=torch.bool, device=valid.device)
+        valid = torch.cat([seen, valid], dim=-1)
+    return ops.gqa_flash_decode(q, k_cache, v_cache, valid)
 
 
-def decode_attention_plain(q, k_cache, v_cache, valid):
+def decode_attention_plain(q, k_cache, v_cache, valid, prefix_kv=None):
     """The reference's ``decode_attention`` in plain torch: scores take q
-    scaled and rounded to the cache dtype, probabilities are normalised
-    and rounded to it before the V product."""
+    scaled and rounded to the cache dtype, the prefix's scores (against
+    its keys cast to the cache dtype) come before the cache's,
+    probabilities are normalised and rounded to the cache dtype before
+    the V product."""
     B, _, H, Dk = q.shape
     K = k_cache.shape[2]
     G = H // K
     scale = 1.0 / np.sqrt(Dk)
-    qc = (q.reshape(B, K, G, Dk) * scale).to(k_cache.dtype)
-    s = torch.einsum("bkgd,bskd->bkgs", qc.float(), k_cache.float())
+    qc = (q.reshape(B, K, G, Dk) * scale).to(k_cache.dtype).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qc, k_cache.float())
     vmask = valid[:, None, None, :] if valid.dim() == 2 \
         else valid[None, None, None, :]
     s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
+    if prefix_kv is not None:
+        pk, pv = prefix_kv
+        sp = torch.einsum("bkgd,bskd->bkgs", qc,
+                          pk.to(k_cache.dtype).float())
+        s = torch.cat([sp, s], dim=-1)
+        v_cache = torch.cat([pv.to(v_cache.dtype), v_cache], dim=1)
     m = s.max(dim=-1, keepdim=True).values
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -150,9 +187,6 @@ def decode_attention_plain(q, k_cache, v_cache, valid):
 # --------------------------------------------------------------- GQA block --
 
 def init_attention(cfg, gen, lead=()):
-    if cfg.n_meta_tokens:
-        raise NotImplementedError("Hymba meta tokens come with the hymba "
-                                  "slice of the port")
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = L.pdtype_of(cfg)
     dev = gen.device
@@ -168,6 +202,10 @@ def init_attention(cfg, gen, lead=()):
     if cfg.qk_norm:
         p["q_norm"] = L.init_rmsnorm(hd, dt, dev, lead)
         p["k_norm"] = L.init_rmsnorm(hd, dt, dev, lead)
+    if cfg.n_meta_tokens:
+        for nm in ("meta_k", "meta_v"):
+            p[nm] = L.normal(gen, tuple(lead) + (cfg.n_meta_tokens, K, hd),
+                             0.02, dt)
     return p
 
 
@@ -201,6 +239,15 @@ def _rope_qk(cfg, q, k, positions):
             L.apply_rope(k, positions, cfg.rope_theta))
 
 
+def _meta_kv(cfg, p, B):
+    """The meta tokens' K/V broadcast over the batch, (B,P,K,hd) each, or
+    None without them."""
+    if not cfg.n_meta_tokens:
+        return None
+    return tuple(p[nm][None].expand((B,) + tuple(p[nm].shape))
+                 for nm in ("meta_k", "meta_v"))
+
+
 def attention_block(cfg, p, x, positions, *, causal=True, window=0,
                     q_chunk=256, k_chunk=512, cross_kv=None):
     """Causal (or bidirectional) self-attention over a full sequence, or
@@ -208,7 +255,8 @@ def attention_block(cfg, p, x, positions, *, causal=True, window=0,
     non-causal, no rotation).  Returns (out, (k, v)).  As in the
     reference, cross-attention still projects x to k and v and drops
     them: those two fleet GEMMs run in the forward and have no
-    backward."""
+    backward.  With meta tokens every query also attends over their K/V
+    (:func:`_meta_kv`); the (k, v) returned for a cache leave them out."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     if cross_kv is not None:
@@ -217,6 +265,7 @@ def attention_block(cfg, p, x, positions, *, causal=True, window=0,
     else:
         q, k = _rope_qk(cfg, q, k, positions)
     out = chunked_attention(q, k, v, causal=causal, window=window,
+                            prefix_kv=_meta_kv(cfg, p, B),
                             q_chunk=q_chunk, k_chunk=k_chunk)
     out = out.reshape(B, S, -1)
     return L.pdot(out, p["wo"]), (k, v)
@@ -257,7 +306,8 @@ def attention_decode(cfg, p, x, pos, cache_k, cache_v, slot, valid,
     layer's cache slice (read, not modified).  Returns (out, k_new, v_new)
     with the (B,1,K,hd) new-token entries for the caller to write back.
     ``pos``/``slot`` are scalars or (B,) vectors with a (B,Smax)
-    ``valid`` mask.  With ``cross_kv=(k, v)`` (B,Se,K,hd) the token
+    ``valid`` mask.  With meta tokens the self-attention reads their K/V
+    before the cache.  With ``cross_kv=(k, v)`` (B,Se,K,hd) the token
     attends over every encoder slot instead (the flash-decode kernel
     on the card, an all-valid mask) and k_new = v_new = None."""
     B = x.shape[0]
@@ -266,7 +316,8 @@ def attention_decode(cfg, p, x, pos, cache_k, cache_v, slot, valid,
         q, k = _rope_qk(cfg, q, k, _decode_positions(cfg, pos, B))
         cache_k = _write_slot(cache_k, k, slot)
         cache_v = _write_slot(cache_v, v, slot)
-        out = decode_attention(q, cache_k, cache_v, valid)
+        out = decode_attention(q, cache_k, cache_v, valid,
+                               prefix_kv=_meta_kv(cfg, p, B))
     else:
         ck, cv = cross_kv
         valid_c = torch.ones((ck.shape[1],), dtype=torch.bool,

@@ -1,9 +1,10 @@
 """The LM in PyTorch (port of ``src/repro/models/model.py``: the dense
-GQA, M-RoPE (with the vision stub), MoE, MLA, RWKV-6 and encoder-decoder
-(with the audio stub) families).  Parameters keep the reference's
-layout, with the layers stacked on a leading axis, so
-``interop.from_jax_params`` maps the reference's params one to one.  The
-layer loop is a Python loop.
+GQA, M-RoPE (with the vision stub), MoE, MLA, RWKV-6, encoder-decoder
+(with the audio stub) and hybrid (attention beside selective-SSM heads,
+learned meta tokens) families, and the pure selective SSM).  Parameters
+keep the reference's layout, with the layers stacked on a leading axis,
+so ``interop.from_jax_params`` maps the reference's params one to one.
+The layer loop is a Python loop.
 
 Public API
 ----------
@@ -25,24 +26,13 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
-
-_LATER = (("ssm", "SSM"), ("hybrid_parallel", "hybrid"),
-          ("attn_free", "attention-free"),
-          ("n_meta_tokens", "Hymba meta-token"))
+from repro_torch.models import ssm as SSM
 
 
-def require_ported(cfg) -> None:
-    """Raise for families the port does not cover yet (hymba's): it runs
-    the dense GQA family, M-RoPE with precomputed patch embeddings, MoE
-    (routed experts), MLA (DeepSeek-V2's latent attention), RWKV-6
-    (attention-free by design) and the encoder-decoder with precomputed
-    audio frames."""
-    for flag, name in _LATER:
-        if getattr(cfg, flag) and not (cfg.rwkv and flag == "attn_free"):
-            raise NotImplementedError(
-                f"arch {cfg.name!r}: the {name} family comes with a later "
-                "slice of the port; the port runs the dense GQA, M-RoPE, "
-                "MoE, MLA, RWKV-6 and encoder-decoder families")
+def _has_ssm(cfg) -> bool:
+    """Whether a layer carries selective-SSM heads: Hymba's beside its
+    attention, or a pure SSM's in its place."""
+    return cfg.hybrid_parallel or (cfg.ssm and not cfg.rwkv)
 
 
 # ------------------------------------------------------------------- inits --
@@ -50,7 +40,6 @@ def require_ported(cfg) -> None:
 def init_layer(cfg, gen, lead=()):
     """One decoder layer's params; ``lead`` prepends axes to every leaf
     (``(n_layers,)`` gives the stacked layout)."""
-    require_ported(cfg)
     dt = L.pdtype_of(cfg)
     dev = gen.device
     if cfg.rwkv:
@@ -60,12 +49,14 @@ def init_layer(cfg, gen, lead=()):
             "ln2": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
             "channel_mix": R.init_channel_mix(cfg, gen, lead),
         }
-    p = {
-        "ln1": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
-        "attn": (A.init_mla(cfg, gen, lead) if cfg.mla
-                 else A.init_attention(cfg, gen, lead)),
-        "ln2": L.init_rmsnorm(cfg.d_model, dt, dev, lead),
-    }
+    p = {"ln1": L.init_rmsnorm(cfg.d_model, dt, dev, lead)}
+    if cfg.mla:
+        p["attn"] = A.init_mla(cfg, gen, lead)
+    elif not cfg.attn_free:
+        p["attn"] = A.init_attention(cfg, gen, lead)
+    if _has_ssm(cfg):
+        p["ssm"] = SSM.init_ssm(cfg, gen, lead)
+    p["ln2"] = L.init_rmsnorm(cfg.d_model, dt, dev, lead)
     if cfg.moe:
         p["moe"] = MOE.init_moe(cfg, gen, lead)
     else:
@@ -76,7 +67,6 @@ def init_layer(cfg, gen, lead=()):
 def init_params(cfg, generator: torch.Generator):
     """Random params with the reference's shapes and scales, drawn from
     ``generator`` on its device (the bits differ from ``jax.random``)."""
-    require_ported(cfg)
     params = {
         "embed": L.init_embedding(generator, cfg),
         "layers": init_layer(cfg, generator, lead=(cfg.n_layers,)),
@@ -101,11 +91,13 @@ def layer_params(params, i: int, name: str = "layers"):
 # ------------------------------------------------------------ layer bodies --
 
 def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
-                  k_chunk=512, causal=True, cross_fn=None):
+                  k_chunk=512, causal=True, ssm_chunk=64, cross_fn=None):
     """One decoder layer over a full sequence.  Returns (x, aux, (k, v)),
-    for MLA (x, aux, (c_kv, k_pe)), the latent cache entries, or for RWKV
+    for MLA (x, aux, (c_kv, k_pe)), the latent cache entries, for RWKV
     (x, aux, (s_last, tm_last, cm_last)): the layer's final WKV state and
-    the last normed inputs of its two token shifts.  ``aux`` is
+    the last normed inputs of its two token shifts, and for a pure SSM
+    (x, aux, ()).  The hybrid branch is 0.5 (attention + SSM), the SSM
+    scanned in chunks of ``ssm_chunk`` (:func:`ssm.ssm_block`).  ``aux`` is
     the MoE load-balancing loss (f32 zero for the other families).
     ``cross_fn``, if given, applies cross-attention between the
     self-attention and FFN sublayers (the encoder-decoder's decoder)."""
@@ -127,14 +119,21 @@ def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
         cm, cm_last = R.channel_mix(cfg, p["channel_mix"], h2, zt)
         return x + cm, aux, (s_last, tm_last, cm_last)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    branch, kv = None, ()
     if cfg.mla:
-        ao, kv = A.mla_block(cfg, p["attn"], h, positions, window=window,
-                             q_chunk=q_chunk, k_chunk=k_chunk)
-    else:
-        ao, kv = A.attention_block(cfg, p["attn"], h, positions,
-                                   causal=causal, window=window,
-                                   q_chunk=q_chunk, k_chunk=k_chunk)
-    x = x + ao
+        branch, kv = A.mla_block(cfg, p["attn"], h, positions,
+                                 window=window, q_chunk=q_chunk,
+                                 k_chunk=k_chunk)
+    elif not cfg.attn_free:
+        branch, kv = A.attention_block(cfg, p["attn"], h, positions,
+                                       causal=causal, window=window,
+                                       q_chunk=q_chunk, k_chunk=k_chunk)
+    if cfg.hybrid_parallel:
+        so = SSM.ssm_block(cfg, p["ssm"], h, chunk=ssm_chunk)
+        branch = 0.5 * (branch + so)
+    elif cfg.ssm and branch is None:
+        branch = SSM.ssm_block(cfg, p["ssm"], h, chunk=ssm_chunk)
+    x = x + branch
     if cross_fn is not None:
         x = cross_fn(x)
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -150,7 +149,6 @@ def fuse_inputs(cfg, params, batch):
     the first Svis token embeddings.  M-RoPE positions are the batch's
     ``positions_mrope`` (B,S,3) when it carries them, else
     ``default_m_positions``; other families take (B,S) positions."""
-    require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed_tokens(params["embed"], tokens, cfg)
@@ -272,9 +270,10 @@ def init_cache(cfg, batch, cache_len, *, enc_len=0, kv_quant=False,
     (L,B,S,r) and the rope key ``kpe`` (L,B,S,rd) instead (``kv_quant``
     does not apply, as in the reference); RWKV keeps its recurrent states:
     ``wkv_state`` (L,B,H,hd,hd) f32 and the token-shift inputs
-    ``tm_prev``/``cm_prev`` (L,B,d).  The encoder-decoder adds the
-    read-only cross K/V ``cross_k``/``cross_v`` (L,B,enc_len,K,hd)."""
-    require_ported(cfg)
+    ``tm_prev``/``cm_prev`` (L,B,d).  SSM heads add their state ``ssm_h``
+    (L,B,d_inner,N) f32 and conv window ``ssm_conv`` (L,B,K-1,d_inner)
+    (a pure SSM has no K/V).  The encoder-decoder adds the read-only
+    cross K/V ``cross_k``/``cross_v`` (L,B,enc_len,K,hd)."""
     dt = L.dtype_of(cfg)
     c = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.rwkv:
@@ -293,15 +292,21 @@ def init_cache(cfg, batch, cache_len, *, enc_len=0, kv_quant=False,
                                dtype=dt, device=device)
         c["kpe"] = torch.zeros((Lc, batch, cache_len, cfg.rope_head_dim),
                                dtype=dt, device=device)
-        return c
-    kv_dt = torch.int8 if kv_quant else dt
-    c["k"] = torch.zeros((Lc, batch, cache_len, K, hd), dtype=kv_dt,
-                         device=device)
-    c["v"] = torch.zeros_like(c["k"])
-    if kv_quant:
-        c["k_scale"] = torch.zeros((Lc, batch, cache_len, K),
-                                   dtype=torch.float16, device=device)
-        c["v_scale"] = torch.zeros_like(c["k_scale"])
+    elif not cfg.attn_free:
+        kv_dt = torch.int8 if kv_quant else dt
+        c["k"] = torch.zeros((Lc, batch, cache_len, K, hd), dtype=kv_dt,
+                             device=device)
+        c["v"] = torch.zeros_like(c["k"])
+        if kv_quant:
+            c["k_scale"] = torch.zeros((Lc, batch, cache_len, K),
+                                       dtype=torch.float16, device=device)
+            c["v_scale"] = torch.zeros_like(c["k_scale"])
+    if _has_ssm(cfg):
+        c["ssm_h"] = torch.zeros((Lc, batch, cfg.d_inner, cfg.ssm_state),
+                                 dtype=torch.float32, device=device)
+        c["ssm_conv"] = torch.zeros(
+            (Lc, batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dt,
+            device=device)
     if cfg.enc_dec:
         c["cross_k"] = torch.zeros((Lc, batch, enc_len, K, hd), dtype=dt,
                                    device=device)
@@ -328,40 +333,51 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
     ``(logits (B,1,V_padded) f32, new_cache)``; the input cache is not
     modified.  MLA runs the absorbed decode against the latent cache;
     RWKV runs the recurrence one step (``time_mix`` with ``chunk=1``) and
-    replaces its states wholesale; the encoder-decoder's cross-attention
-    reads ``cross_k``/``cross_v``, which pass through unchanged."""
-    require_ported(cfg)
+    replaces its states wholesale, as SSM heads replace ``ssm_h`` and
+    ``ssm_conv`` (``ssm.ssm_decode``); the encoder-decoder's
+    cross-attention reads ``cross_k``/``cross_v``, which pass through
+    unchanged."""
     if cfg.rwkv:
         return _rwkv_decode_step(cfg, params, cache, tokens)
     B = tokens.shape[0]
     x = L.embed_tokens(params["embed"], tokens, cfg)
     pos = cache["pos"]
     vec_pos = pos.dim() == 1
-    cache_len = cache["ckv" if cfg.mla else "k"].shape[2]
-    slot = pos % cache_len
-    n_valid = torch.clamp(pos + 1, max=cache_len)
-    ar = torch.arange(cache_len, device=x.device)
-    valid = ar[None, :] < n_valid[:, None] if vec_pos else ar < n_valid
+    slot = valid = None
+    kv_name = "ckv" if cfg.mla else "k"
+    if kv_name in cache:             # a pure SSM caches no K/V
+        cache_len = cache[kv_name].shape[2]
+        slot = pos % cache_len
+        n_valid = torch.clamp(pos + 1, max=cache_len)
+        ar = torch.arange(cache_len, device=x.device)
+        valid = ar[None, :] < n_valid[:, None] if vec_pos else ar < n_valid
     # int8 caches: the reference's decode_step never hands the scale pools
     # to its layer body (they are not among its per-layer inputs), so int8
     # K/V are read as raw values and new entries are cast to int8 without
     # scales.  The port keeps that behaviour for parity; ROADMAP.md (faults
     # found against the reference) records it.
-    news = []
+    news, states = [], []
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        branch = None
         if cfg.mla:
-            ao, nckv, nkpe = A.mla_decode(cfg, lp["attn"], h, pos,
-                                          cache["ckv"][i], cache["kpe"][i],
-                                          slot, valid)
+            branch, nckv, nkpe = A.mla_decode(
+                cfg, lp["attn"], h, pos, cache["ckv"][i], cache["kpe"][i],
+                slot, valid)
             news.append({"ckv": nckv, "kpe": nkpe})   # (B,1,·) new entries
-        else:
-            ao, nk, nv = A.attention_decode(cfg, lp["attn"], h, pos,
-                                            cache["k"][i], cache["v"][i],
-                                            slot, valid)
+        elif not cfg.attn_free:
+            branch, nk, nv = A.attention_decode(
+                cfg, lp["attn"], h, pos, cache["k"][i], cache["v"][i], slot,
+                valid)
             news.append({"k": nk, "v": nv})       # (B,1,K,hd) new entries
-        x = x + ao
+        if _has_ssm(cfg):
+            so, nh, nconv = SSM.ssm_decode(cfg, lp["ssm"], h,
+                                           cache["ssm_h"][i],
+                                           cache["ssm_conv"][i])
+            states.append((nh, nconv))
+            branch = so if branch is None else 0.5 * (branch + so)
+        x = x + branch
         if cfg.enc_dec:
             x = ED.cross_layer_decode(
                 cfg, layer_params(params, i, "cross"), x,
@@ -379,7 +395,7 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
 
     new_cache = dict(cache)
     bidx = torch.arange(B, device=x.device)
-    for nm in news[0]:
+    for nm in (news[0] if news else ()):
         upd = torch.stack([n[nm] for n in news]).to(cache[nm].dtype)
         out = cache[nm].clone()
         if vec_pos:
@@ -388,6 +404,9 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
             s = int(slot)
             out[:, :, s:s + 1] = upd
         new_cache[nm] = out
+    # recurrent states are replaced wholesale (they are small)
+    for nm, vals in zip(("ssm_h", "ssm_conv"), zip(*states)):
+        new_cache[nm] = torch.stack(vals)
     new_cache["pos"] = pos + 1
     return logits, new_cache
 
@@ -423,7 +442,9 @@ def prefill(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512):
     decode cache (MLA: the latent ``ckv``/``kpe``; RWKV: the final
     recurrent states).  The encoder-decoder's cross K/V stay empty
     (enc_len 0), as in the reference: a decode session fills them with
-    ``encdec.prepare_cross_cache``."""
+    ``encdec.prepare_cross_cache``.  SSM heads' ``ssm_h``/``ssm_conv``
+    stay zero, as the reference leaves them (its fault, ROADMAP C): a
+    decode after this prefill starts the SSM from an empty state."""
     x, _, kv = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
                        k_chunk=k_chunk, collect_kv=True)
     logits = L.lm_logits(_head(params), params["embed"], x[:, -1:], cfg)

@@ -98,23 +98,23 @@ class ServeSession:
                  verify: bool = True, check_paged_read: bool = False,
                  n_pages: Optional[int] = None, seed: int = 0,
                  dispatch: str = "level"):
-        from repro_torch.models import model as M
         self.rt = runtime
         self.device = runtime.device
         self.cfg = cfg if cfg is not None else runtime.cfg
-        M.require_ported(self.cfg)
         self.slots = int(slots)
         self.page = int(page_size)
         self.cache_len = self.page * math.ceil(max_len / self.page)
         pages_per_req = self.cache_len // self.page
-        # raises the reference's ValueError for recurrent families (RWKV),
-        # whose states are not paged, before any params are drawn
+        # raises the reference's ValueError for recurrent (RWKV, SSM,
+        # hybrid) and enc-dec families, whose states are not paged, before
+        # any params are drawn
         self.kv = PagedKVCache(
             self.cfg, page_size=self.page, kv_int8=kv_int8,
             n_pages=(n_pages if n_pages is not None
                      else self.slots * pages_per_req),
             device=self.device)
         if params is None:
+            from repro_torch.models import model as M
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = M.init_params(self.cfg, gen)
         self.params = params

@@ -220,7 +220,6 @@ class FleetTrainSession:
                  q_chunk: int = 64, k_chunk: int = 64,
                  loss_chunk: int = 64, dispatch: str = "level",
                  checkpoint=None):
-        from repro_torch.models.model import require_ported
         from repro_torch.optim import adam
         if checkpoint is not None:
             raise NotImplementedError(
@@ -228,7 +227,6 @@ class FleetTrainSession:
                 "multi-PS and checkpoints); pass checkpoint=None")
         self.rt = runtime
         self.cfg = cfg if cfg is not None else runtime.cfg
-        require_ported(self.cfg)
         self.opt_cfg = opt_cfg or adam.AdamConfig()
         self.dispatch = dispatch
         self.checkpoint = None

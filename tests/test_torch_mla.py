@@ -158,8 +158,13 @@ def test_init_params_layout_matches_reference(param_dtype):
 
 
 def test_deepseek_is_ported():
-    M.require_ported(get_config(ARCH))
-    M.require_ported(get_config(ARCH).reduced())
+    """The reduced config initialises the MLA tree (the full config's 236
+    B params are not drawn here; ``chip_smoke.py``'s mla_full draws one
+    layer of it on the card)."""
+    cfg = get_config(ARCH).reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    assert {"w_dkv", "w_uk", "w_uv"} <= set(params["layers"]["attn"])
+    assert "moe" in params["layers"]
 
 
 # -------------------------------------------------------------- MLA block --

@@ -113,14 +113,15 @@ def test_qk_norm_and_bias_families_match_reference(rng):
                                   "hymba-1.5b", "seamless-m4t-medium",
                                   "qwen2-vl-72b"])
 def test_later_families_raise(arch):
-    """Families the port does not cover yet (hymba-1.5b) raise at init;
-    the MoE family (granite-moe-1b-a400m), the MLA family
-    (deepseek-v2-236b, MoE and MLA), M-RoPE (qwen2-vl-72b) and the
-    encoder-decoder (seamless-m4t-medium), ported since, initialise
-    instead (their parity with the reference: tests/test_torch_moe.py,
-    tests/test_torch_mla.py, tests/test_torch_mrope.py,
-    tests/test_torch_encdec.py).  Their cases keep the parameter list, and
-    so the names, they had while they raised."""
+    """The families that raised at init while the port lacked them
+    initialise now: the MoE family (granite-moe-1b-a400m), the MLA family
+    (deepseek-v2-236b, MoE and MLA), M-RoPE (qwen2-vl-72b), the
+    encoder-decoder (seamless-m4t-medium) and the hybrid (hymba-1.5b,
+    which also takes one ``value_and_grad``; their parity with the
+    reference: tests/test_torch_moe.py, tests/test_torch_mla.py,
+    tests/test_torch_mrope.py, tests/test_torch_encdec.py,
+    tests/test_torch_hymba.py).  The cases keep the parameter list, and so
+    the names, they had while they raised."""
     cfg = get_config(arch).reduced()
     if arch == "granite-moe-1b-a400m":
         params = M.init_params(cfg, torch.Generator().manual_seed(0))
@@ -143,5 +144,12 @@ def test_later_families_raise(arch):
             == cfg.n_enc_layers
         assert params["cross"]["attn"]["wk"].shape[0] == cfg.n_layers
         return
-    with pytest.raises(NotImplementedError):
-        M.init_params(cfg, torch.Generator().manual_seed(0))
+    assert arch == "hymba-1.5b"
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    assert {"attn", "ssm"} <= set(params["layers"])
+    assert {"meta_k", "meta_v"} <= set(params["layers"]["attn"])
+    toks = torch.arange(16).reshape(2, 8) % cfg.vocab_size
+    (loss, _), grads = M.value_and_grad(cfg, params, {"tokens": toks,
+                                                      "labels": toks})
+    assert bool(torch.isfinite(loss))
+    assert float(grads["layers"]["ssm"]["A_log"].abs().max()) > 0

@@ -307,16 +307,23 @@ def test_decode_token_by_token_equals_prefill(ref, rng):
 
 
 def test_deepseek_still_raises_for_mla():
-    """A family still unported, hymba-1.5b, raises, naming its SSM
-    heads; deepseek-v2-236b (MoE and MLA), qwen2-vl-72b (M-RoPE),
-    seamless-m4t-medium (encoder-decoder) and the MoE family pass.  The
-    name is the one this test had while MLA raised: a repurposed test
-    keeps its name, so that its record runs on unbroken."""
-    with pytest.raises(NotImplementedError, match="SSM"):
-        M.require_ported(get_config("hymba-1.5b"))
-    for arch in ("deepseek-v2-236b", "qwen2-vl-72b", "seamless-m4t-medium"):
-        M.require_ported(get_config(arch))
-    M.require_ported(get_config(ARCH))
+    """No family is left unported: every registered config's reduced
+    variant initialises, hymba-1.5b (the last, with its SSM heads)
+    included, and hymba takes one ``value_and_grad``.  The name is the one
+    this test had while MLA raised: a repurposed test keeps its name, so
+    that its record runs on unbroken."""
+    from repro_torch.configs.base import list_configs
+    assert {"deepseek-v2-236b", "hymba-1.5b", ARCH} <= set(list_configs())
+    for arch in list_configs():
+        cfg = get_config(arch).reduced()
+        params = M.init_params(cfg, torch.Generator().manual_seed(0))
+        assert T.leaves(params), arch
+    cfg = get_config("hymba-1.5b").reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.arange(16).reshape(2, 8) % cfg.vocab_size
+    (loss, _), _ = M.value_and_grad(cfg, params, {"tokens": toks,
+                                                  "labels": toks})
+    assert bool(torch.isfinite(loss))
 
 
 # ------------------------------------------------------------- fleet step --

@@ -130,3 +130,20 @@ def test_paged_cache_write_gather_roundtrip():
     pt, ln = kv.page_table_array([None, 7])
     assert ln.tolist() == [0, 7]
     assert pt[1, :3].tolist() == kv.tables[7].pages
+
+
+def test_serve_session_draws_params_from_seed():
+    """With no params the session draws its own from ``seed`` (as
+    ``profile_serve`` and ``chip_smoke.py``'s full cell build it): the
+    same seed gives the same params, and a request decodes."""
+    cfg = get_config(ARCH).reduced()
+    rt = TorchCleaveRuntime(arch=cfg, fleet=TFleet.sample(4, seed=0),
+                            device="cpu")
+    a = rt.serve_session(slots=2, page_size=4, max_len=8, seed=3)
+    b = rt.serve_session(slots=2, page_size=4, max_len=8, seed=3)
+    torch.testing.assert_close(a.params["layers"]["attn"]["wq"],
+                               b.params["layers"]["attn"]["wq"], rtol=0,
+                               atol=0)
+    a.submit(np.arange(5, dtype=np.int32), max_new=2)
+    a.run()
+    assert [len(r.tokens) for r in a.batcher.finished] == [2]

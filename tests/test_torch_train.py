@@ -290,12 +290,18 @@ def test_unported_training_options_raise(ref):
         rt.train_session(n_ps=2)
     with pytest.raises(NotImplementedError, match="A.4"):
         rt.train_session(checkpoint="ckpts")
-    # MoE, MLA, M-RoPE and the encoder-decoder train since their slices;
-    # hymba-1.5b still raises, for its SSM heads
-    with pytest.raises(NotImplementedError, match="SSM"):
-        TorchCleaveRuntime(arch="hymba-1.5b",
-                           fleet=Fleet.sample(4, seed=0),
+    # MoE, MLA, M-RoPE, the encoder-decoder and the hybrid (hymba-1.5b,
+    # the last family) train since their slices: hymba's session opens
+    # and the model takes one value_and_grad
+    hcfg = get_config("hymba-1.5b").reduced()
+    with pytest.warns(UserWarning, match="PS-locally"):
+        TorchCleaveRuntime(arch=hcfg, fleet=Fleet.sample(4, seed=0),
                            device="cpu").train_session()
+    params = M.init_params(hcfg, torch.Generator().manual_seed(0))
+    toks = torch.arange(16).reshape(2, 8) % hcfg.vocab_size
+    (loss, _), _ = M.value_and_grad(hcfg, params, {"tokens": toks,
+                                                   "labels": toks})
+    assert bool(torch.isfinite(loss))
 
 
 # ----------------------------------------------------------------- driver --
