@@ -218,13 +218,49 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               q_offset 128, B5 over [meta; cache] at G 5), and
               token-by-token decoding of the prompt and the first new
               token against a forward.
+24. multips_reduced -- multi-PS training of ``llama3-8b.reduced()`` under
+              the f32 policy (8 devices, B 2 x S 32): K=1/H=1 bit-equal
+              to the single-PS session over 2 steps (loss, params, mu,
+              nu); K=2/H=2 (islands of 4) on two data shards, the
+              replicas apart after step 1 and bit-equal after the round,
+              the sync volume 2 x the shards' bytes, the sharded round
+              bit-equal to the monolithic ``outer_step``, the first step's
+              band GEMM launches held against the plain version; the same
+              run updated in place bit-equal to it; the round-boundary
+              checkpoint restored into a fresh session bit for bit, one
+              resumed step equal to the uninterrupted one, a bf16 copy of
+              the state through save and restore; PS 1 failing mid-round
+              (its 4 devices join island 0 with their ids); a device
+              failing inside island 1, recovered.
+25. multips_full -- llama3-8b at full width (4 layers, bf16), 16 devices
+              in 2 islands of 8, K=2, H=2, batch 8 x 128 an island from
+              two data seeds, params, moments and the outer round in
+              place: a failure in island 1's backward (step 1), the round
+              (step 2: replicas bit-equal, the sync bytes), PS 1 failing
+              (step 3), the survivor over 16 devices (step 4); island 0's
+              first step against the monolithic path (loss 1e-2,
+              grad_norm 5e-2) and its band GEMM set against the plain
+              version; the step walls, the round's device time beside
+              its bound, the peak memory beside the prediction.
+26. batch  -- ``execute_batch(8, 128)`` of llama3-8b (4 layers) on 16
+              devices, torch backend under the f32 policy, the whole DAG
+              (87 GEMMs, operands drawn on the card): level and dataflow
+              dispatch bit-equal, with the same band GEMM launches; the
+              first two levels within 1e-5 of the numpy backend's f64
+              products; a failing device within 1e-5 of the clean run; a
+              poisoning device caught by the deferred Freivalds checks,
+              every output within 1e-5 of the clean run but for
+              injections the f32 policy's tolerance passes (counted,
+              each passed again by the same acceptance test on f64
+              residuals with the step's own probes); each walk's wall,
+              predictions, launches and ``PadCache`` hit rate.
 
 In ``full``, ``train_full``, ``rwkv_full``, ``moe_full``, ``mla_full``,
-``mrope_full``, ``encdec_full`` and ``hymba_full`` every bf16
-launch of the block GEMMs must have run the wgmma/TMA body
+``mrope_full``, ``encdec_full``, ``hymba_full`` and ``multips_full`` every
+bf16 launch of the block GEMMs must have run the wgmma/TMA body
 (``block_gemm.tc_launches``) with no aligned copy, and every f32 one the
-FMA body (``block_gemm.fma_launches``); in the f32-policy cells every
-launch ran the body its type picks.
+FMA body (``block_gemm.fma_launches``); in the f32-policy cells and
+``multips_reduced`` every launch ran the body its type picks.
 
 Then a ``kernels`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and the result line.  ``--phases`` runs a
@@ -264,6 +300,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -277,7 +314,8 @@ PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
           "full", "train_reduced", "train_full", "rwkv_reduced", "rwkv_full",
           "bgemm", "moe_reduced", "moe_full", "mla_reduced", "mla_full",
           "mrope_reduced", "mrope_full", "encdec_reduced", "encdec_full",
-          "hymba_reduced", "hymba_full")
+          "hymba_reduced", "hymba_full", "multips_reduced", "multips_full",
+          "batch")
 EXTRA_PHASES = ("split", "f32sets", "attnsets")   # run only when named
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
@@ -3738,6 +3776,607 @@ def phase_family_full(cfg):
             "max_abs_err": gset["max_abs_err"]}
 
 
+# -------------------------------------------------- multi-PS and batch ----
+
+# multips_full's peak device memory, GB, as predicted before its first run
+# (PERF.md §6): two islands' bf16 params and f32 moments with the f32
+# anchor and velocity, 53.8 GB, plus one island's step
+MULTIPS_PEAK_PREDICTED_GB = (58.0, 72.0)
+
+
+def _bits(t):
+    """A tensor's raw bits where its type is bfloat16, else the tensor."""
+    import torch
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def tree_bit_equal(a, b) -> bool:
+    """Two trees (nested dicts, tuples such as ``AdamState``) equal leaf for
+    leaf in type and bits."""
+    import torch
+    from repro_torch.checkpointing.checkpoint import _flatten
+    la, lb = _flatten(a), _flatten(b)
+    return la.keys() == lb.keys() and all(
+        la[k].dtype == lb[k].dtype
+        and torch.equal(_bits(la[k]), _bits(lb[k])) for k in la)
+
+
+def island_shards(cfg, B, S, step, dev, seeds=(0, 7)):
+    """One training batch for each island, from its own data seed."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    return [{k: torch.as_tensor(v, device=dev)
+             for k, v in SyntheticLM(DataConfig(
+                 vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                 seed=s)).batch(step).items()} for s in seeds]
+
+
+@contextlib.contextmanager
+def outer_round_probe(check_monolithic: bool):
+    """Wraps ``diloco.outer_step_sharded`` while a session runs: records
+    each round's device time by CUDA events and, with
+    ``check_monolithic``, whether the round's params and outer state equal
+    the monolithic ``outer_step``'s on the same inputs bit for bit (the
+    monolithic round runs first, and does not write its inputs)."""
+    import torch
+    from repro_torch.optim import diloco
+    real = diloco.outer_step_sharded
+    probe = {"ms": [], "bit_equal_monolithic": []}
+
+    def probed(state, groups, part, cfg, donate=False):
+        mono = diloco.outer_step(state, groups, cfg) \
+            if check_monolithic else None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(state, groups, part, cfg, donate=donate)
+        end.record()
+        end.synchronize()
+        probe["ms"].append(start.elapsed_time(end))
+        if mono is not None:
+            probe["bit_equal_monolithic"].append(
+                tree_bit_equal(mono[0], out[0])
+                and tree_bit_equal(mono[1], out[1]))
+        return out
+
+    diloco.outer_step_sharded = probed
+    try:
+        yield probe
+    finally:
+        diloco.outer_step_sharded = real
+
+
+def phase_multips_reduced():
+    """Multi-PS training of ``llama3-8b.reduced()`` under the f32 policy
+    (``Fleet.sample(8, seed=0)``, B 2 x S 32, chunks of 16): K=1/H=1
+    against the single-PS session; K=2/H=2 on two data shards (drift after
+    step 1, equal replicas after the round, the sync volume, the sharded
+    round against the monolithic one); donated islands against copying
+    ones; a checkpoint at the round boundary restored and resumed, and a
+    bf16 copy of the state round-tripped; a PS failure mid-round; a
+    device failure inside island 1."""
+    import tempfile
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.checkpointing import checkpoint as ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam, diloco
+    from repro_torch.train_loop.multi_ps import _own
+    dev = torch.device("cuda")
+    cfg = get_config("llama3-8b").reduced()
+    chunks = dict(q_chunk=16, k_chunk=16, loss_chunk=16)
+    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=2, total_steps=20)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = adam.init(params, opt_cfg)
+    ckdir = tempfile.mkdtemp(prefix="multips_reduced_")
+
+    def shards(step):
+        return island_shards(cfg, 2, 32, step, dev)
+
+    def session(n_ps, h=2, checkpoint=None):
+        rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(8, seed=0),
+                                device=dev)
+        return rt.train_session(
+            opt_cfg, backend="torch", dtype_policy="f32", n_ps=n_ps,
+            diloco=None if h is None else diloco.DiLoCoConfig(
+                inner_steps=h, outer_lr=0.7),
+            checkpoint=checkpoint, checkpoint_every=2, **chunks)
+
+    # (a) K=1/H=1 against the single-PS session, 2 steps
+    single, k1 = session(1, h=None), session(1, h=1)
+    p, o = _own(params), _own(opt)
+    st = k1.init(_own(params), _own(opt))
+    k1_loss_equal = []
+    for step in range(2):
+        batch = shards(step)[0]
+        p, o, met_s = single.step(p, o, batch)
+        st, met_m = k1.step(st, batch)
+        k1_loss_equal.append(float(met_s["loss"]) == met_m["loss"])
+    k1_bits = {"params": tree_bit_equal(p, st.params),
+               "mu": tree_bit_equal(o.mu, st.opt_state.mu),
+               "nu": tree_bit_equal(o.nu, st.opt_state.nu)}
+
+    # (b) K=2/H=2, copying, its first step's launches held against the
+    # plain version; (c) the same run with every update in place
+    copying = session(2, checkpoint=ckdir)
+    with outer_round_probe(check_monolithic=True) as probe:
+        st_c = copying.init(_own(params), _own(opt))
+        bg.launches = fa.launches = 0
+        with band_gemm_audit(verify=True) as audit:
+            st_c, m1 = copying.step(st_c, shards(0))
+        drift = not tree_bit_equal(st_c.island_params[0],
+                                   st_c.island_params[1])
+        st_c, m2 = copying.step(st_c, shards(1))
+        launches = {"band_gemm": bg.launches,
+                    "flash_attention": fa.launches}
+        donated = session(2)
+        st_d = donated.init(_own(params), _own(opt))
+        for step in range(2):
+            st_d, _ = donated.step(st_d, shards(step), donate=True)
+    part = diloco.partition_params(st_c.params, 2)
+    rep1, rep2 = m1["multi_ps"], m2["multi_ps"]
+    donated_equal = (all(tree_bit_equal(a, b) for a, b in zip(
+        st_c.island_params + st_c.island_opt,
+        st_d.island_params + st_d.island_opt))
+        and tree_bit_equal(st_c.outer, st_d.outer))
+
+    # (d) the round-boundary checkpoint into a fresh session, one resumed
+    # step; a bf16 copy of the state through save and restore
+    fresh = session(2, checkpoint=ckdir)
+    st_r, step_r = fresh.restore(fresh.init(_own(params), _own(opt)))
+    restored_equal = (all(tree_bit_equal(a, b) for a, b in zip(
+        st_c.island_params + st_c.island_opt,
+        st_r.island_params + st_r.island_opt))
+        and tree_bit_equal(st_c.outer, st_r.outer))
+    st_c3, m3 = copying.step(st_c, shards(2))
+    st_r3, m3r = fresh.step(st_r, shards(2))
+    resumed_equal = (m3["loss"] == m3r["loss"]
+                     and tree_bit_equal(st_c3.params, st_r3.params))
+    bf16 = {"params": T.map_tree(lambda x: x.to(torch.bfloat16),
+                                 st_c3.params),
+            "outer": st_c3.outer, "opt": st_c3.opt_state}
+    path = os.path.join(ckdir, "bf16_copy.npz")
+    ckpt.save(path, bf16)
+    bf16_back = ckpt.restore(path, {
+        "params": T.map_tree(torch.zeros_like, bf16["params"]),
+        "outer": diloco.OuterState(*(T.map_tree(torch.zeros_like, t)
+                                     for t in bf16["outer"])),
+        "opt": adam.AdamState(torch.zeros((), dtype=torch.int32),
+                              *(T.map_tree(torch.zeros_like, t)
+                                for t in bf16["opt"][1:]))})
+    bf16_equal = tree_bit_equal(bf16, bf16_back) and all(
+        a.device == b.device for a, b in zip(T.leaves(bf16["params"]),
+                                             T.leaves(bf16_back["params"])))
+
+    # (e) PS 1 fails mid-round; (f) a device fails inside island 1
+    churn = session(2)
+    ids = sorted(churn.rt.fleet.ids())
+    st_e = churn.init(_own(params), _own(opt))
+    st_e, _ = churn.step(st_e, shards(0))
+    st_e, m_e = churn.step(st_e, shards(1), fail_ps=1)
+    st_e, m_e2 = churn.step(st_e, shards(2)[0])
+    rep_e = m_e["multi_ps"]
+    inside = session(2)
+    victim = sorted(inside.sharded[1].fleet.ids())[0]
+    st_f = inside.init(_own(params), _own(opt))
+    st_f, m_f = inside.step(st_f, shards(0), fail_ids=[victim],
+                            fail_island=1, fail_at_gemm=20)
+    rep_f = m_f["islands"][1]
+
+    out = {"launches": launches,
+           "bodies": check_bodies("multips_reduced", audit)}
+    emit({"phase": "multips_reduced",
+          "k1_h1": {"loss_equal": k1_loss_equal, **k1_bits},
+          "k2_h2": {"island_sizes": [len(g) for g in copying.sharded],
+                    "losses": [list(rep1.island_loss),
+                               list(rep2.island_loss)],
+                    "drift_after_step_1": drift,
+                    "synced": [rep1.synced, rep2.synced],
+                    "replicas_equal_after_round": tree_bit_equal(
+                        st_c.island_params[0], st_c.island_params[1]),
+                    "cross_ps_sync_bytes": rep2.cross_ps_sync_bytes,
+                    "shard_bytes": list(part.shard_bytes),
+                    "predicted_sync_time_s": rep2.predicted_sync_time,
+                    "outer_round_ms": probe["ms"],
+                    "sharded_round_bit_equal_monolithic":
+                        probe["bit_equal_monolithic"],
+                    "band_gemm_checked": audit["checked"],
+                    "band_gemm_max_rel_err": audit["max_rel_err"],
+                    "verified": all(r.verified for r in
+                                    rep1.island_reports
+                                    + rep2.island_reports)},
+          "donated_bit_equal_copying": donated_equal,
+          "checkpoint": {"steps": copying.checkpoint.steps(),
+                         "restored_step": step_r, "round": st_r.round,
+                         "restored_bit_equal": restored_equal,
+                         "resumed_step_bit_equal": resumed_equal,
+                         "bf16_copy_bit_equal": bf16_equal},
+          "fail_ps": {"evicted_ps": rep_e.evicted_ps,
+                      "n_devices_reassigned": rep_e.n_devices_reassigned,
+                      "survivor_ids": sorted(
+                          churn.islands[0].rt.fleet.ids()),
+                      "survivor_loss": m_e2["loss"],
+                      "verified": m_e2["islands"][0].verified},
+          "device_failure": {"victim": victim,
+                             "n_recovered": rep_f.n_recovered,
+                             "verified": rep_f.verified},
+          **out})
+    check(all(k1_loss_equal) and all(k1_bits.values()),
+          f"multips_reduced: K=1/H=1 differs from the single-PS session "
+          f"{k1_loss_equal} {k1_bits}")
+    check([len(g) for g in copying.sharded] == [4, 4],
+          "multips_reduced: islands are not 4 + 4")
+    check(drift and not rep1.synced and rep2.synced and rep2.round == 1,
+          "multips_reduced: no drift before the round, or no round")
+    check(tree_bit_equal(st_c.island_params[0], st_c.island_params[1]),
+          "multips_reduced: replicas differ after the round")
+    check(rep2.cross_ps_sync_bytes == 2 * sum(part.shard_bytes),
+          f"multips_reduced: sync bytes {rep2.cross_ps_sync_bytes}")
+    check(probe["bit_equal_monolithic"] == [True, True],
+          f"multips_reduced: sharded round vs monolithic "
+          f"{probe['bit_equal_monolithic']}")
+    check(all(r.verified for r in rep1.island_reports
+              + rep2.island_reports), "multips_reduced: a step unverified")
+    check(audit["checked"] > 0 and launches["band_gemm"] > 0
+          and launches["flash_attention"] > 0,
+          f"multips_reduced: a kernel was not launched {launches}")
+    check(donated_equal, "multips_reduced: in-place islands differ from "
+          "copying ones")
+    check(step_r == 2 and st_r.round == 1 and restored_equal
+          and resumed_equal and bf16_equal,
+          "multips_reduced: the checkpoint did not restore bit for bit")
+    check(rep_e.evicted_ps == 1 and rep_e.n_devices_reassigned == 4
+          and churn.n_islands == 1
+          and sorted(churn.islands[0].rt.fleet.ids()) == ids
+          and m_e2["islands"][0].verified
+          and bool(torch.isfinite(torch.tensor(m_e2["loss"]))),
+          "multips_reduced: the PS failure was not absorbed")
+    check(rep_f.n_recovered > 0 and rep_f.verified
+          and victim not in inside.islands[1].rt.fleet.ids(),
+          "multips_reduced: the device failure in island 1 recovered "
+          "nothing")
+    return out
+
+
+def phase_multips_full(cfg):
+    """llama3-8b at full width, 4 layers, bf16, ``Fleet.sample(16,
+    seed=0)`` split into 2 islands of 8: K=2, H=2, batch 8 x 128 an
+    island from two data seeds, params, moments and the outer round
+    updated in place.  Step 1: a device failure in island 1's backward;
+    step 2 ends round 1; step 3: PS 1 fails; step 4: the survivor over all
+    16 devices.  Island 0's first step against the monolithic path and
+    its band GEMM set against the plain version; the peak memory beside
+    the prediction."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam, diloco
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S, n_steps = 8, 128, 4
+    chunks = dict(q_chunk=64, k_chunk=64, loss_chunk=64)
+    opt_cfg = adam.AdamConfig(lr=3e-4, warmup_steps=3, total_steps=n_steps)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in T.leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
+    batches = [island_shards(cfg, B, S, step, dev) for step in range(n_steps)]
+    # island 0's first step on the monolithic path, before the moments
+    (loss_m, _), grads = M.value_and_grad(cfg, params, batches[0][0],
+                                          **chunks)
+    gnorm_m = float(adam.global_norm(grads, sliced=True))
+    del grads
+    opt = adam.init(params, opt_cfg)
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                            device=dev)
+    sess = rt.train_session(opt_cfg, backend="torch", dtype_policy="bf16",
+                            n_ps=2, diloco=diloco.DiLoCoConfig(
+                                inner_steps=2, outer_lr=0.7), **chunks)
+    sizes = [len(g) for g in sess.sharded]
+    st = sess.init(params, opt)
+    del params, opt
+    victim = sorted(sess.sharded[1].fleet.ids())[1]
+    plan = [dict(fail_ids=[victim], fail_island=1, fail_at_gemm=45), {},
+            dict(fail_ps=1), {}]
+    isl0 = sess.islands[0].session
+    marks = []
+
+    def island0_step(*a, **kw):            # brackets island 0's launches
+        marks.append(len(audit["shapes"]))
+        out = type(isl0).step(isl0, *a, **kw)
+        marks.append(len(audit["shapes"]))
+        return out
+
+    rows, audits = [], []
+    bg.launches = fa.launches = 0
+    reset_body_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with outer_round_probe(check_monolithic=False) as probe:
+        for step, kw in enumerate(plan):
+            n_b1, n_fa = bg.launches, fa.launches
+            # one batch an island alive at the step's start
+            batch = batches[step][:sess.n_islands]
+            with band_gemm_audit(verify=False) as audit:
+                if step == 0:
+                    isl0.step = island0_step
+                try:
+                    st, met = sess.step(st, batch, donate=True, **kw)
+                finally:
+                    isl0.__dict__.pop("step", None)
+            audits.append(audit)
+            rep = met["multi_ps"]
+            torch.cuda.synchronize()
+            rows.append({
+                "step": step + 1, "round": rep.round, "synced": rep.synced,
+                "n_islands": rep.n_islands, "loss": rep.loss,
+                "island_loss": list(rep.island_loss),
+                "island_grad_norm": [r.grad_norm
+                                     for r in rep.island_reports],
+                "island_wall_s": [r.wall_time for r in rep.island_reports],
+                "island_fleet_exec_s": [r.fleet_exec_time
+                                        for r in rep.island_reports],
+                "wall_s": rep.wall_time,
+                "island_devices": [len(i.rt.fleet) for i in sess.islands],
+                "n_recovered": [r.n_recovered for r in rep.island_reports],
+                "failed_ids": [list(r.failed_ids)
+                               for r in rep.island_reports],
+                "verified": all(r.verified and all(x.verified
+                                                   for x in r.records)
+                                for r in rep.island_reports),
+                "evicted_ps": rep.evicted_ps,
+                "n_devices_reassigned": rep.n_devices_reassigned,
+                "cross_ps_sync_bytes": rep.cross_ps_sync_bytes,
+                "predicted_sync_time_s": rep.predicted_sync_time,
+                "predicted_makespan_s": rep.predicted_makespan,
+                "replicas_bit_equal": (tree_bit_equal(
+                    st.island_params[0], st.island_params[1])
+                    if st.n_islands > 1 else None),
+                "band_gemm_launches": bg.launches - n_b1,
+                "flash_launches": fa.launches - n_fa,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9})
+            emit({"phase": "multips_full_step", **rows[-1]})
+    launches = {"band_gemm": bg.launches, "flash_attention": fa.launches,
+                "band_gemm_bodies": check_bf16_body("multips_full",
+                                                    *audits)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first = rows[0]
+    loss_rel = abs(first["island_loss"][0] - float(loss_m)) \
+        / abs(float(loss_m))
+    gnorm_rel = abs(first["island_grad_norm"][0] - gnorm_m) / abs(gnorm_m)
+    # the round reads both replicas and the f32 anchor and velocity, and
+    # writes them all back
+    outer_bytes = 4 * param_bytes + 4 * 4 * n_params
+    del st, met, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    isl0_shapes = audits[0]["shapes"][marks[0]:marks[1]]
+    gemm_check = check_gemm_set(isl0_shapes)
+    row = {"phase": "multips_full", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "n_params": n_params,
+           "param_bytes": param_bytes, "island_sizes": sizes,
+           "batch_per_island": [B, S], "launches": launches,
+           "island0_first_step": {"loss_rel": loss_rel,
+                                  "grad_norm_rel": gnorm_rel,
+                                  "loss_mono": float(loss_m),
+                                  "grad_norm_mono": gnorm_m,
+                                  "band_gemm_launches": len(isl0_shapes),
+                                  **gemm_check},
+           "outer_round_ms": probe["ms"],
+           "outer_round_bound_ms": outer_bytes / PEAK_BW * 1e3,
+           "outer_round_bytes": outer_bytes,
+           "peak_memory_gb": peak_gb,
+           "peak_memory_predicted_gb": list(MULTIPS_PEAK_PREDICTED_GB),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    check(sizes == [8, 8], f"multips_full: islands {sizes}")
+    for r in rows:
+        check(r["verified"], f"multips_full step {r['step']}: unverified")
+        check(all(math.isfinite(x) for x in r["island_loss"]),
+              f"multips_full step {r['step']}: loss {r['island_loss']}")
+        check(r["band_gemm_launches"] > 0 and r["flash_launches"] > 0,
+              f"multips_full step {r['step']}: a kernel was not launched")
+    check(rows[0]["failed_ids"][1] == [victim]
+          and rows[0]["n_recovered"][1] > 0,
+          "multips_full: the failure in island 1 recovered nothing")
+    check(rows[1]["synced"] and rows[1]["round"] == 1
+          and rows[1]["replicas_bit_equal"],
+          "multips_full: the round did not leave equal replicas")
+    check(rows[1]["cross_ps_sync_bytes"] == 2 * param_bytes,
+          f"multips_full: sync bytes {rows[1]['cross_ps_sync_bytes']}")
+    check(rows[2]["evicted_ps"] == 1 and rows[2]["n_islands"] == 1
+          and rows[3]["island_devices"] == [16],
+          "multips_full: PS 1's devices did not join the survivor")
+    check(len(probe["ms"]) == 1, f"multips_full: {len(probe['ms'])} rounds")
+    check(loss_rel <= 1e-2, f"multips_full: island 0 loss rel {loss_rel}")
+    check(gnorm_rel <= 5e-2,
+          f"multips_full: island 0 grad_norm rel {gnorm_rel}")
+    return {"training": launches, "rows": rows, "summary": row}
+
+
+def f64_freivalds_margin(A, B, block, rect, task: int, seed: int,
+                         rtol: float) -> float:
+    """The band executor's Freivalds acceptance test on one returned
+    ``block`` of C = A·B over ``rect`` = (r0, r1, c0, c1), with f64
+    residuals and the probes the executor drew for task ``task`` under
+    ``seed`` (``ops.rademacher``: row signs over the block's rows, column
+    signs over C's columns): the largest ``|lhs - rhs|`` over its
+    allowance ``rtol * (|rhs| + Σ|block|)``.  At most 1 passes."""
+    from repro_torch.kernels import ops
+    r0, r1, c0, c1 = rect
+    dev = block.device
+    rs = ops.rademacher(seed, [task], 2, r1 - r0, 0, dev)[0].double()
+    ss = ops.rademacher(seed, [task], 2, c1, 1, dev)[0, :, c0:].double()
+    blk = block.double()
+    lhs = ((rs @ A[r0:r1].double()) * (B[:, c0:c1].double() @ ss.T).T).sum(1)
+    rhs = ((rs @ blk) * ss).sum(1)
+    allowed = rtol * rhs.abs() + rtol * (float(blk.abs().sum()) + 1e-30)
+    return float(((lhs - rhs).abs() / allowed).max())
+
+
+def poison_escapes(clean, poisoned, bad: int, inputs, policy: str = "f32"):
+    """Where a poisoning walk's outputs differ from the clean walk's by
+    more than 1e-5 of a GEMM's largest output.  The executors poison a
+    rectangle as ``C[r0, c0] += 1 + |C[r0, c0]|``, and a Freivalds check
+    passes a block whose residual lies within ``rtol * (|rhs| + Σ|C|)``
+    with the policy's ``rtol``: an injection below that cannot be told
+    from rounding and stays.  Counts each such difference as an escape at
+    an injection site of the poisoning device, or as a difference anywhere
+    else (which no check excuses).  Each escape is judged again by the
+    executor's acceptance test (``torch_executor``'s ``finalize``) on f64
+    residuals of the same block, operands (``inputs``) and probes (the
+    step's ``verify_seed``, the task's index): ``f64_passes`` counts the
+    escapes it passes too, ``worst_f64_margin`` is the largest residual
+    over its allowance among them."""
+    from repro_torch.core.torch_executor import POLICIES
+    pol = POLICIES[policy]
+    out = {"escapes": 0, "other_diffs": 0, "f64_passes": 0,
+           "worst_f64_margin": 0.0}
+    for a, b in zip(clean.steps, poisoned.steps):
+        d = (a.output - b.output).abs()
+        far = (d > 1e-5 * float(a.output.abs().max())).nonzero().tolist()
+        if not far:
+            continue
+        # no device failed: the tasks are the plan's assignments in order
+        sites = {(x.r0, x.c0): (i, x)
+                 for i, x in enumerate(b.plan.assignments)
+                 if x.device_id == bad}
+        A, B = inputs(b.gemm)
+        for r, c in far:
+            if (r, c) not in sites:
+                out["other_diffs"] += 1
+                continue
+            out["escapes"] += 1
+            i, x = sites[(r, c)]
+            margin = f64_freivalds_margin(
+                A, B, b.output[x.r0:x.r1, x.c0:x.c1],
+                (x.r0, x.r1, x.c0, x.c1), i, b.verify_seed,
+                pol.freivalds_rtol(b.gemm.n, (x.r1 - x.r0) * (x.c1 - x.c0)))
+            out["f64_passes"] += int(margin <= 1.0)
+            out["worst_f64_margin"] = max(out["worst_f64_margin"], margin)
+    return out
+
+
+def phase_batch(cfg):
+    """``execute_batch(8, 128)`` of llama3-8b (4 layers, full width) on
+    ``Fleet.sample(16, seed=0)``, torch backend under the f32 policy, the
+    whole DAG: level against dataflow dispatch bit for bit; the first two
+    levels against the numpy backend's f64 products; a failing and a
+    poisoning device against the clean run."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.api.runtime import device_operands
+    from repro_torch.kernels import block_gemm as bg
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = TorchCleaveRuntime(arch=cfg, fleet=Fleet.sample(16, seed=0),
+                            device=dev)
+    # the walks' own operands (execute_batch's default on the torch
+    # backend), for the f64 comparisons
+    inputs = device_operands(dev, seed=0)
+    ids = sorted(rt.fleet.ids())
+
+    def walk(name, **kw):
+        cache = rt._pad_cache
+        h0, m0 = (cache.hits, cache.misses) if cache else (0, 0)
+        bg.launches = 0
+        rep = rt.execute_batch(8, 128, backend="torch", dtype_policy="f32",
+                               seed=0, **kw)
+        torch.cuda.synchronize()
+        hits, misses = rt._pad_cache.hits - h0, rt._pad_cache.misses - m0
+        row = {"walk": name, "dispatch": rep.dispatch,
+               "wall_s": rep.wall_time, "n_gemms": len(rep.steps),
+               "n_levels": rep.n_levels, "n_tasks": rep.n_tasks,
+               "band_gemm_launches": bg.launches,
+               "verified": rep.verified, "n_recovered": rep.n_recovered,
+               "n_redispatched": rep.n_redispatched,
+               "predicted_gemm_time_s": rep.predicted_gemm_time,
+               "predicted_overlap_time_s": rep.predicted_overlap_time,
+               "pad_cache_hit_rate": hits / max(hits + misses, 1),
+               "pad_cache_hits": hits, "pad_cache_misses": misses}
+        return rep, row
+
+    def compare(want, got):
+        """Worst relative difference of two walks' outputs, and whether
+        they are equal bit for bit."""
+        worst, same = 0.0, True
+        for a, b in zip(want.steps, got.steps):
+            worst = max(worst, float((a.output - b.output).abs().max())
+                        / max(float(a.output.abs().max()), 1e-30))
+            same = same and torch.equal(a.output, b.output)
+        return worst, same
+
+    rows = []
+    lv, row = walk("clean", dispatch="level")
+    rows.append(row)
+    df, row = walk("clean", dispatch="dataflow")
+    row["max_rel_vs_level"], row["bit_equal_level"] = compare(lv, df)
+    rows.append(row)
+    emit({"phase": "batch_walk", **rows[0]})
+    emit({"phase": "batch_walk", **rows[1]})
+    launches = {"level": rows[0]["band_gemm_launches"],
+                "dataflow": rows[1]["band_gemm_launches"]}
+    del df
+    # the first two levels against the numpy backend's f64 products
+    np_rep = rt.execute_batch(8, 128, backend="numpy", inputs=inputs,
+                              dispatch="level", max_levels=2)
+    np_rel = max(float(np.abs(s_np.output - s.output.double().cpu()
+                              .numpy()).max()
+                       / max(np.abs(s_np.output).max(), 1e-30))
+                 for s_np, s in zip(np_rep.steps, lv.steps))
+    del np_rep
+    fail, row = walk("failing", dispatch="dataflow", fail_ids=ids[:2])
+    row["max_rel_vs_clean"], row["bit_equal_clean"] = compare(lv, fail)
+    rows.append(row)
+    emit({"phase": "batch_walk", **row})
+    del fail
+    poison, row = walk("poisoning", dispatch="dataflow",
+                       corrupt_ids=[ids[2]])
+    row["max_rel_vs_clean"], row["bit_equal_clean"] = compare(lv, poison)
+    row.update(poison_escapes(lv, poison, ids[2], inputs))
+    rows.append(row)
+    emit({"phase": "batch_walk", **row})
+    del poison, lv
+    emit({"phase": "batch", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "batch": [8, 128], "launches": launches,
+          "numpy_first_two_levels_max_rel": np_rel,
+          "phase_s": time.perf_counter() - t_phase})
+    clean, flow, failing, poisoning = rows
+    check(clean["verified"] and flow["verified"],
+          "batch: the clean walks are not verified")
+    check(flow["bit_equal_level"],
+          f"batch: dataflow differs from level by {flow['max_rel_vs_level']}")
+    check(launches["level"] > 0 and launches["level"] == launches["dataflow"],
+          f"batch: band GEMM launches {launches}")
+    check(len({r["n_gemms"] for r in rows}) == 1,
+          "batch: the walks ran different GEMM counts")
+    check(np_rel <= 1e-5, f"batch: the first two levels {np_rel} off f64")
+    check(failing["verified"] and failing["n_recovered"] > 0
+          and failing["max_rel_vs_clean"] <= 1e-5,
+          f"batch: the failing walk {failing}")
+    # the poisoning is caught and corrected wherever the f32 policy's
+    # check flags it: every remaining difference is an injection that the
+    # same acceptance test, on f64 residuals with the same probes, passes
+    check(not poisoning["verified"] and poisoning["other_diffs"] == 0
+          and poisoning["f64_passes"] == poisoning["escapes"],
+          f"batch: the poisoning walk {poisoning}")
+    return {"band_gemm": launches, "rows": rows,
+            "poison": {k: poisoning[k] for k in
+                       ("escapes", "f64_passes", "worst_f64_margin")}}
+
+
 def profiled_step(step):
     """Runs ``step()`` once under ``torch.profiler`` (the card's activity
     only); returns (its wall seconds, the seconds of device activity it
@@ -3830,6 +4469,10 @@ def main(argv=None) -> int:
         cells["hymba_reduced"] = phase_family_reduced("hymba_reduced")
     hymba = phase_family_full(hymba_full) if "hymba_full" in phases \
         else None
+    multips_r = phase_multips_reduced() if "multips_reduced" in phases \
+        else None
+    multips = phase_multips_full(full) if "multips_full" in phases else None
+    batch = phase_batch(full) if "batch" in phases else None
     if "split" in phases:
         phase_split()
     if "f32sets" in phases:
@@ -3842,7 +4485,8 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     if all(x is not None for x in (gemm, paged, flash, decode, wkv,
                                    launches, train, rwkv, bgemm, moe,
-                                   mla, mrope, encdec, hymba)) \
+                                   mla, mrope, encdec, hymba, multips_r,
+                                   multips, batch)) \
             and len(cells) == 7:
         train_launches, gset = train
         dec_serve, dec_long = (decode["timed"]["serving_float32"],
@@ -3888,6 +4532,11 @@ def main(argv=None) -> int:
              "launches_encdec_serving": encdec["serving"]["band_gemm"],
              "launches_hymba_training": hymba["training"]["band_gemm"],
              "launches_hymba_serving": hymba["serving"]["band_gemm"],
+             "launches_multips_reduced":
+                 multips_r["launches"]["band_gemm"],
+             "launches_multips_training": multips["training"]["band_gemm"],
+             "launches_batch": batch["band_gemm"],
+             "batch_poison_escapes": batch["poison"],
              "mrope_training_step": {
                  "ms_of": "the launches of mrope_full's first training step "
                           "(qwen2-vl-72b, 3 layers, bf16)",
@@ -3951,6 +4600,10 @@ def main(argv=None) -> int:
              "launches_encdec_serving": encdec["serving"]["flash_attention"],
              "launches_hymba_training": hymba["training"]["flash_attention"],
              "launches_hymba_serving": hymba["serving"]["flash_attention"],
+             "launches_multips_reduced":
+                 multips_r["launches"]["flash_attention"],
+             "launches_multips_training":
+                 multips["training"]["flash_attention"],
              "hymba_shape": {
                  "ms_of": "one launch at hymba-1.5b's training shape (B 8, "
                           "Sq 128 after 128 meta keys, Sk 256, q_offset "

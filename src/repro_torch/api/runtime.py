@@ -1,26 +1,29 @@
 """`TorchCleaveRuntime`: the plan → execute → recover → train/serve session
-of the port (``src/repro/api/runtime.py``'s ``CleaveRuntime``, serving and
-single-PS training slices).
+of the port (``src/repro/api/runtime.py``'s ``CleaveRuntime``).
 
 It owns the DAG cache, the fleet-signature-keyed plan cache, churn
 recovery that patches cached plans, and numerical execution on two
 backends: ``"numpy"`` (the float64 host stand-in) and ``"torch"`` (the
 band GEMM kernel on ``device``, with device-side Freivalds residuals).
-``execute_level``/``execute_batch`` (with the dataflow dispatch of
-``core/dataflow.py``), multi-PS training, ``stream_profile`` and
-``simulate`` belong to later slices of the port.
+``execute_batch`` runs a batch's whole GEMM DAG, level by level or
+readiness-driven (``core/dataflow.py``); ``train_session`` builds
+single-PS or multi-PS (DiLoCo islands) sessions with periodic
+checkpoints.  ``stream_profile`` and ``simulate`` belong to a later slice
+of the port.
 
 Typical session::
 
     rt = TorchCleaveRuntime(arch="llama3-8b", fleet=Fleet.sample(16, seed=0))
-    step = rt.execute_step(A, B, fail_ids=[7], backend="torch")
+    step = rt.execute_step(A, B, fail_ids=[7])    # the torch backend
     rt.on_failure([7])            # evict + patch cached plans
+    batch = rt.execute_batch(8, 128)              # the whole DAG
     sess = rt.serve_session(params, slots=4)
-    train = rt.train_session(backend="torch")    # train.step(params, ...)
+    train = rt.train_session()                    # train.step(params, ...)
 """
 from __future__ import annotations
 
 import time
+import zlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -96,6 +99,61 @@ class StepReport:
     backend: str = "numpy"      # 'numpy' | 'torch'
     kernel: str = ""            # torch backend: resolved 'cuda' | 'torch'
     gflops: float = 0.0         # torch backend: achieved GFLOP/s
+    # torch backend: the seed of the Freivalds probes (ops.rademacher)
+    verify_seed: Optional[int] = None
+
+
+@dataclass
+class LevelReport:
+    """Result of :meth:`TorchCleaveRuntime.execute_level`: one GemmDag
+    level -- mutually independent GEMMs -- executed on the fleet backend,
+    with the event engine's plan pricing as the predicted level
+    latency."""
+    steps: List[StepReport]
+    backend: str
+    level_time: float           # wall-clock of executing the level
+    predicted_makespan: float   # engine.price_plan max over the level
+    verified: bool
+    n_tasks: int
+    n_recovered: int
+
+    @property
+    def outputs(self) -> list:
+        return [s.output for s in self.steps]
+
+
+@dataclass
+class BatchExecuteReport:
+    """Result of :meth:`TorchCleaveRuntime.execute_batch`: the batch's
+    GemmDag executed for real -- level by level (``dispatch="level"``,
+    §3.2's barrier walk, the default) or readiness-driven
+    (``dispatch="dataflow"``: a node launches as soon as its producers
+    complete, operand staging is prefetched behind the running compute,
+    and Freivalds verification overlaps downstream gathers).  Either way
+    ``levels`` groups the per-GEMM steps by DAG level; under dataflow a
+    level's ``level_time`` is the summed step exec time attributed to that
+    level, not a measured barrier."""
+    request: PlanRequest
+    backend: str
+    levels: List[LevelReport]
+    wall_time: float
+    predicted_gemm_time: float  # sum of engine-priced level makespans (Eq. 1)
+    verified: bool
+    n_tasks: int
+    n_recovered: int
+    dispatch: str = "level"     # 'level' | 'dataflow'
+    # engine.price_dataflow critical path through the ready set -- the
+    # barrier-free analog of predicted_gemm_time (dataflow dispatch only)
+    predicted_overlap_time: Optional[float] = None
+    n_redispatched: int = 0     # dependents re-run after a failed verify
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels)
+
+    @property
+    def steps(self) -> List[StepReport]:
+        return [s for lev in self.levels for s in lev.steps]
 
 
 @dataclass
@@ -123,6 +181,34 @@ def _host_operand(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x)
+
+
+def host_operands(seed: int):
+    """``execute_batch``'s default ``inputs`` on the numpy backend (the
+    reference's): each GEMM's A and B standard normal in f32 numpy, drawn
+    from one generator in the order the walk asks for them."""
+    rng = np.random.default_rng(seed)
+
+    def inputs(g: cm.GEMM):
+        A = rng.standard_normal((g.m, g.n)).astype(np.float32)
+        B = rng.standard_normal((g.n, g.q)).astype(np.float32)
+        return A, B
+    return inputs
+
+
+def device_operands(device: Union[str, torch.device], seed: int):
+    """``execute_batch``'s default ``inputs`` on the torch backend: each
+    GEMM's A and B standard normal in f32, drawn on ``device`` from a
+    generator seeded by ``seed`` and the GEMM's name, so any walk order
+    sees the same operands."""
+    device = torch.device(device)
+
+    def inputs(g: cm.GEMM):
+        gen = torch.Generator(device=device).manual_seed(
+            seed * 1_000_003 + zlib.crc32(g.name.encode()))
+        return (torch.randn((g.m, g.n), generator=gen, device=device),
+                torch.randn((g.n, g.q), generator=gen, device=device))
+    return inputs
 
 
 # ----------------------------------------------------------------- runtime --
@@ -215,7 +301,7 @@ class TorchCleaveRuntime:
                      fail_ids: Sequence[int] = (),
                      corrupt_ids: Sequence[int] = (),
                      verify: bool = True,
-                     backend: str = "numpy",
+                     backend: str = "torch",
                      dtype_policy=None,
                      kernel: str = "auto") -> StepReport:
         """Numerically execute one GEMM's plan on the fleet.  Devices in
@@ -258,7 +344,7 @@ class TorchCleaveRuntime:
                                         fail_ids=fail_ids,
                                         corrupt_ids=corrupt_ids,
                                         rng=self.rng, verify=verify)
-            kern, gflops = "", 0.0
+            kern, gflops, vseed = "", 0.0, None
         else:
             from repro_torch.core import torch_executor
             rep = torch_executor.execute_plan_torch(
@@ -266,33 +352,37 @@ class TorchCleaveRuntime:
                 corrupt_ids=corrupt_ids, rng=self.rng, verify=verify,
                 policy=dtype_policy, kernel=kernel,
                 pad_cache=self._torch_pad_cache(), device=self.device)
-            kern, gflops = rep.kernel, rep.gflops
+            kern, gflops, vseed = rep.kernel, rep.gflops, rep.verify_seed
         return StepReport(
             gemm=gemm, plan=plan, output=rep.output, verified=rep.verified,
             n_tasks=rep.n_tasks, n_recovered=rep.n_recovered,
             recovery=rep.recovery, exec_time=time.perf_counter() - t0,
             plan_cached=cached, backend=backend, kernel=kern,
-            gflops=gflops)
+            gflops=gflops, verify_seed=vseed)
 
     def execute_step_deferred(self, A, B, *, gemm: Optional[cm.GEMM] = None,
                               fail_ids: Sequence[int] = (),
                               corrupt_ids: Sequence[int] = (),
                               verify: bool = True,
-                              backend: str = "numpy",
+                              backend: str = "torch",
                               dtype_policy=None, kernel: str = "auto",
-                              rng: Optional[np.random.Generator] = None):
+                              rng: Optional[np.random.Generator] = None,
+                              staged=None):
         """Split-phase :meth:`execute_step`: returns ``(StepReport,
         finalize)``; the report carries the compute phase only and
         ``finalize()`` runs the deferred Freivalds checks, correcting failed
         blocks in place and returning the corrected rects.  ``rng`` seeds
-        the checks (default: a child split off the session RNG)."""
+        the checks (default: a child split off the session RNG).
+        ``staged`` (numpy backend) supplies the f64 operand copies that
+        ``executor.stage_operands_f64`` prefetched."""
         if gemm is None:
             gemm = cm.GEMM(m=A.shape[0], n=A.shape[1], q=B.shape[1])
         plan, cached = self._solve_gemm(gemm)
         step, fin = self._execute_one_deferred(
             gemm, plan, cached, A, B, fail_ids=fail_ids,
             corrupt_ids=corrupt_ids, verify=verify, backend=backend,
-            dtype_policy=dtype_policy, kernel=kernel, rng=rng)
+            dtype_policy=dtype_policy, kernel=kernel, rng=rng,
+            staged=staged)
         self.history.append({
             "event": "execute_step", "shape": (gemm.m, gemm.n, gemm.q),
             "backend": step.backend, "deferred": True,
@@ -305,7 +395,11 @@ class TorchCleaveRuntime:
                               fail_ids: Sequence[int],
                               corrupt_ids: Sequence[int], verify: bool,
                               backend: str, dtype_policy, kernel: str,
-                              rng: Optional[np.random.Generator] = None):
+                              rng: Optional[np.random.Generator] = None,
+                              staged=None):
+        """Split-phase :meth:`_execute_one`; ``finalize()`` may run on
+        another thread than the compute (the dataflow dispatch), and every
+        tensor it touches names its device."""
         _check_backend(backend)
         if rng is None:
             # never hand the session generator to overlapped verification
@@ -315,8 +409,9 @@ class TorchCleaveRuntime:
             rep, fin = executor.execute_plan_deferred(
                 gemm, plan, _host_operand(A), _host_operand(B),
                 self.fleet.devices, fail_ids=fail_ids,
-                corrupt_ids=corrupt_ids, rng=rng, verify=verify)
-            kern, gflops = "", 0.0
+                corrupt_ids=corrupt_ids, rng=rng, verify=verify,
+                staged=staged)
+            kern, gflops, vseed = "", 0.0, None
         else:
             from repro_torch.core import torch_executor
             rep, fin = torch_executor.execute_plan_torch_deferred(
@@ -324,13 +419,13 @@ class TorchCleaveRuntime:
                 corrupt_ids=corrupt_ids, rng=rng, verify=verify,
                 policy=dtype_policy, kernel=kernel,
                 pad_cache=self._torch_pad_cache(), device=self.device)
-            kern, gflops = rep.kernel, rep.gflops
+            kern, gflops, vseed = rep.kernel, rep.gflops, rep.verify_seed
         step = StepReport(
             gemm=gemm, plan=plan, output=rep.output, verified=rep.verified,
             n_tasks=rep.n_tasks, n_recovered=rep.n_recovered,
             recovery=rep.recovery, exec_time=time.perf_counter() - t0,
             plan_cached=cached, backend=backend, kernel=kern,
-            gflops=gflops)
+            gflops=gflops, verify_seed=vseed)
 
         def finalize():
             corrected = fin()
@@ -340,6 +435,235 @@ class TorchCleaveRuntime:
 
         return step, finalize
 
+    def execute_level(self, pairs: Sequence[tuple], *,
+                      gemms: Optional[Sequence[cm.GEMM]] = None,
+                      fail_ids: Sequence[int] = (),
+                      corrupt_ids: Sequence[int] = (),
+                      verify: bool = True, backend: str = "torch",
+                      dtype_policy=None, kernel: str = "auto",
+                      heterogeneity_aware: Optional[bool] = None
+                      ) -> LevelReport:
+        """Execute one GemmDag level: ``pairs`` is the level's ``(A, B)``
+        operand list (mutually independent GEMMs, Eq. 1; numpy arrays or
+        tensors).  Each GEMM's plan is solved (or warm-loaded) from the
+        session cache and run on the chosen backend; the report carries the
+        event engine's ``price_plan`` level makespan next to the measured
+        wall time.  ``heterogeneity_aware`` overrides the session flag
+        (``None``), so an ablation request executes the plans it
+        priced."""
+        from repro_torch.sim.engine import price_plan
+        if gemms is None:
+            gemms = [cm.GEMM(m=A.shape[0], n=A.shape[1], q=B.shape[1])
+                     for A, B in pairs]
+        if len(gemms) != len(pairs):
+            raise ValueError(f"{len(pairs)} operand pairs for "
+                             f"{len(gemms)} GEMMs")
+        t0 = time.perf_counter()
+        steps: List[StepReport] = []
+        predicted = 0.0
+        for g, (A, B) in zip(gemms, pairs):
+            plan, cached = self._solve_gemm(
+                g, heterogeneity_aware=heterogeneity_aware)
+            predicted = max(predicted, price_plan(g, plan,
+                                                  self.fleet.devices))
+            steps.append(self._execute_one(
+                g, plan, cached, A, B, fail_ids=fail_ids,
+                corrupt_ids=corrupt_ids, verify=verify, backend=backend,
+                dtype_policy=dtype_policy, kernel=kernel))
+        report = LevelReport(
+            steps=steps, backend=backend,
+            level_time=time.perf_counter() - t0,
+            predicted_makespan=predicted,
+            verified=all(s.verified for s in steps),
+            n_tasks=sum(s.n_tasks for s in steps),
+            n_recovered=sum(s.n_recovered for s in steps))
+        self.history.append({
+            "event": "execute_level", "backend": backend,
+            "n_gemms": len(steps), "n_tasks": report.n_tasks,
+            "n_recovered": report.n_recovered,
+            "verified": report.verified})
+        return report
+
+    def execute_batch(self, batch: Optional[int] = None,
+                      seq: Optional[int] = None, *,
+                      request: Optional[PlanRequest] = None,
+                      inputs=None, max_levels: Optional[int] = None,
+                      verify: bool = True, backend: str = "torch",
+                      dtype_policy=None, kernel: str = "auto",
+                      seed: Optional[int] = None,
+                      dispatch: str = "level",
+                      fail_ids: Sequence[int] = (),
+                      corrupt_ids: Sequence[int] = (),
+                      dataflow_workers: Optional[int] = None
+                      ) -> BatchExecuteReport:
+        """Execute the batch's GemmDag for real on the chosen backend -- the
+        schedule the session prices is the schedule that runs.
+
+        ``dispatch="level"`` (default) is the §3.2 barrier walk;
+        ``dispatch="dataflow"`` runs the readiness-driven walk
+        (``core.dataflow``): each GEMM launches as soon as its producers
+        complete, operand staging prefetches behind the running compute
+        (the f64 copies of the numpy backend; the padded device operands
+        of the torch backend, into the runtime's ``PadCache``), and
+        Freivalds verification of node *k* overlaps node *k+1*'s gathers
+        (a failed check corrects the block and re-dispatches only the
+        dependents already in flight).  Outputs are identical for a fixed
+        seed.  On an H100 the level walk is the faster of the two (PERF.md
+        §6), hence the default.
+
+        ``inputs`` maps a GEMM to its ``(A, B)`` operands, numpy arrays or
+        tensors (default: seeded standard normals in f32, drawn on the
+        runtime's device for the torch backend, :func:`device_operands`,
+        and in level order on the host for the numpy backend,
+        :func:`host_operands`); count>1 GEMMs execute one representative
+        instance.  ``max_levels`` bounds the walk.  ``fail_ids`` /
+        ``corrupt_ids`` inject device failure / poisoned blocks into every
+        executed GEMM."""
+        if request is None:
+            if batch is None or seq is None:
+                raise ValueError("execute_batch() needs batch+seq or a "
+                                 "PlanRequest")
+            request = PlanRequest(
+                batch=batch, seq=seq,
+                attention_scores=self.attention_scores,
+                heterogeneity_aware=self.heterogeneity_aware)
+        if dispatch not in ("level", "dataflow"):
+            raise ValueError(f"unknown dispatch {dispatch!r}; "
+                             "expected 'level' or 'dataflow'")
+        _check_backend(backend)
+        dag = self._dag(request)
+        if inputs is None:
+            seed = self.seed if seed is None else seed
+            inputs = host_operands(seed) if backend == "numpy" \
+                else device_operands(self.device, seed)
+        t0 = time.perf_counter()
+        if dispatch == "level":
+            levels: List[LevelReport] = []
+            for li, level in enumerate(dag.levels()):
+                if max_levels is not None and li >= max_levels:
+                    break
+                pairs = [inputs(g) for g in level]
+                levels.append(self.execute_level(
+                    pairs, gemms=level, verify=verify, backend=backend,
+                    fail_ids=fail_ids, corrupt_ids=corrupt_ids,
+                    dtype_policy=dtype_policy, kernel=kernel,
+                    heterogeneity_aware=request.heterogeneity_aware))
+            overlap_time, n_redispatched = None, 0
+        else:
+            levels, overlap_time, n_redispatched = self._execute_dataflow(
+                dag, inputs, max_levels=max_levels, verify=verify,
+                backend=backend, dtype_policy=dtype_policy, kernel=kernel,
+                heterogeneity_aware=request.heterogeneity_aware,
+                fail_ids=fail_ids, corrupt_ids=corrupt_ids,
+                max_workers=dataflow_workers)
+        report = BatchExecuteReport(
+            request=request, backend=backend, levels=levels,
+            wall_time=time.perf_counter() - t0,
+            predicted_gemm_time=float(sum(l.predicted_makespan
+                                          for l in levels)),
+            verified=all(l.verified for l in levels),
+            n_tasks=sum(l.n_tasks for l in levels),
+            n_recovered=sum(l.n_recovered for l in levels),
+            dispatch=dispatch, predicted_overlap_time=overlap_time,
+            n_redispatched=n_redispatched)
+        self.history.append({
+            "event": "execute_batch", "backend": backend,
+            "dispatch": dispatch,
+            "batch": request.batch, "seq": request.seq,
+            "n_levels": report.n_levels, "n_tasks": report.n_tasks,
+            "verified": report.verified})
+        return report
+
+    def _execute_dataflow(self, dag, inputs, *, max_levels, verify,
+                          backend, dtype_policy, kernel,
+                          heterogeneity_aware, fail_ids, corrupt_ids,
+                          max_workers=None):
+        """Readiness-driven DAG execution (the ``execute_batch`` dataflow
+        path): plans are pre-solved serially, operands pre-drawn in level
+        order (the same draws the barrier walk makes), then
+        ``core.dataflow.run_dataflow`` dispatches nodes as their producers
+        finish, on worker threads.  Those threads share the runtime's
+        locked ``PadCache`` and launch on the device the runtime names
+        (the kernels take the stream of the output's device, not of the
+        thread's current device).  Returns level-grouped StepReports plus
+        the ``price_dataflow`` overlapped prediction and the redispatch
+        count."""
+        from repro_torch.core.dataflow import run_dataflow
+        from repro_torch.sim.engine import price_dataflow, price_plan
+
+        level_groups = dag.level_order()
+        if max_levels is not None:
+            level_groups = level_groups[:max_levels]
+        included = [i for grp in level_groups for i in grp]
+        idx_of = {i: k for k, i in enumerate(included)}
+        gemms = [dag.gemms[i] for i in included]
+        operands = [inputs(g) for g in gemms]       # level-order draws
+        plans, cached = [], []
+        for g in gemms:
+            p, c = self._solve_gemm(
+                g, heterogeneity_aware=heterogeneity_aware)
+            plans.append(p)
+            cached.append(c)
+        prices = [price_plan(g, p, self.fleet.devices)
+                  for g, p in zip(gemms, plans)]
+        full_deps = dag.dependencies()
+        deps = [[idx_of[j] for j in full_deps[i] if j in idx_of]
+                for i in included]
+        overlap_time = float(price_dataflow(
+            list(zip(gemms, plans)), list(self.fleet.devices), deps=deps))
+
+        compute_dtype = None
+        if backend == "torch":
+            from repro_torch.core.torch_executor import get_policy
+            compute_dtype = get_policy(dtype_policy,
+                                       self.device).compute_dtype
+            self._torch_pad_cache()     # built before the threads start
+        self.fleet.table()          # build the SoA view before threading
+        base_seed = int(self.rng.integers(2 ** 63 - 1))
+        staged: Dict[int, tuple] = {}
+
+        def compute(k):
+            A, B = operands[k]
+            return self._execute_one_deferred(
+                gemms[k], plans[k], cached[k], A, B, fail_ids=fail_ids,
+                corrupt_ids=corrupt_ids, verify=verify, backend=backend,
+                dtype_policy=dtype_policy, kernel=kernel,
+                rng=np.random.default_rng([base_seed, k]),
+                staged=staged.get(k))
+
+        def prefetch(k):
+            A, B = operands[k]
+            if backend == "numpy":
+                staged[k] = executor.stage_operands_f64(
+                    _host_operand(A), _host_operand(B))
+            elif not fail_ids:
+                # warm the device-side PadCache with the node's padded
+                # operands (recovery reshapes the rects, so a failing run
+                # stages inside the launch instead)
+                from repro_torch.kernels import ops
+                rects = [(a.r0, a.r1, a.c0, a.c1)
+                         for a in plans[k].assignments]
+                if rects:
+                    ops.stage_plan_operands(
+                        A, B, rects, compute_dtype=compute_dtype,
+                        pad_cache=self._pad_cache, device=self.device)
+
+        steps, dfr = run_dataflow(len(included), deps, compute,
+                                  prefetch=prefetch,
+                                  max_workers=max_workers)
+        levels: List[LevelReport] = []
+        for grp in level_groups:
+            ks = [idx_of[i] for i in grp]
+            lsteps = [steps[k] for k in ks]
+            levels.append(LevelReport(
+                steps=lsteps, backend=backend,
+                level_time=float(sum(s.exec_time for s in lsteps)),
+                predicted_makespan=float(max(prices[k] for k in ks)),
+                verified=all(s.verified for s in lsteps),
+                n_tasks=sum(s.n_tasks for s in lsteps),
+                n_recovered=sum(s.n_recovered for s in lsteps)))
+        return levels, overlap_time, dfr.n_redispatched
+
     # ---------------------------------------------------------------- train --
 
     def train_session(self, opt_cfg=None, *, backend: str = "torch",
@@ -347,7 +671,9 @@ class TorchCleaveRuntime:
                       verify: bool = True, q_chunk: int = 64,
                       k_chunk: int = 64, loss_chunk: int = 64,
                       dispatch: str = "level", n_ps: int = 1,
-                      diloco=None, checkpoint=None):
+                      diloco=None, checkpoint=None,
+                      checkpoint_every: int = 100,
+                      backbone_bps: Optional[float] = None):
         """A fresh PS-centric training session
         (:class:`repro_torch.train_loop.FleetTrainSession`): every
         projection GEMM of ``session.step(params, opt_state, batch)`` --
@@ -359,18 +685,39 @@ class TorchCleaveRuntime:
 
         ``dispatch="dataflow"`` defers each GEMM's Freivalds verification
         to a background worker, overlapped with the next GEMM; ``"level"``
-        verifies inline.  ``n_ps > 1`` and ``diloco`` (multi-PS islands)
-        and ``checkpoint`` come with ROADMAP A.4 and raise here."""
-        if n_ps is None or n_ps != 1 or diloco is not None:
-            raise NotImplementedError(
-                "multi-PS training (n_ps > 1, DiLoCo) is not ported yet "
-                "(ROADMAP A.4); use n_ps=1")
+        verifies inline.
+
+        ``checkpoint`` (a directory path or a
+        :class:`~repro_torch.checkpointing.checkpoint.CheckpointManager`)
+        enables periodic PS-side snapshots every ``checkpoint_every``
+        steps; ``session.restore(...)`` resumes bit-exactly.
+
+        ``n_ps > 1`` (or ``n_ps=None`` for envelope auto-sizing, or an
+        explicit ``diloco`` config) instead returns a
+        :class:`repro_torch.train_loop.MultiPSTrainSession`: the fleet is
+        partitioned into flops-balanced PS islands (``api.ShardedFleet``),
+        each island runs H local inner steps per round
+        (``diloco.inner_steps``), and the sharded DiLoCo outer loop syncs
+        them at round boundaries -- ``n_ps=1`` with ``inner_steps=1`` is
+        bit-identical to the single-PS session.  ``backbone_bps``
+        optionally prices the cross-PS sync over one shared backbone link
+        instead of per-PS NICs."""
+        if n_ps is None or n_ps > 1 or diloco is not None:
+            from repro_torch.train_loop import MultiPSTrainSession
+            return MultiPSTrainSession(
+                self, n_ps=n_ps, opt_cfg=opt_cfg, diloco=diloco,
+                backend=backend, kernel=kernel, dtype_policy=dtype_policy,
+                verify=verify, q_chunk=q_chunk, k_chunk=k_chunk,
+                loss_chunk=loss_chunk, dispatch=dispatch,
+                checkpoint=checkpoint, checkpoint_every=checkpoint_every,
+                backbone_bps=backbone_bps)
         from repro_torch.train_loop import FleetTrainSession
         return FleetTrainSession(self, opt_cfg=opt_cfg, backend=backend,
                                  kernel=kernel, dtype_policy=dtype_policy,
                                  verify=verify, q_chunk=q_chunk,
                                  k_chunk=k_chunk, loss_chunk=loss_chunk,
-                                 dispatch=dispatch, checkpoint=checkpoint)
+                                 dispatch=dispatch, checkpoint=checkpoint,
+                                 checkpoint_every=checkpoint_every)
 
     def train_step(self, params, opt_state, batch, *, opt_cfg=None,
                    backend: str = "torch", kernel: str = "auto",

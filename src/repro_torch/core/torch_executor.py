@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -82,6 +82,7 @@ class TorchExecutionReport(ExecutionReport):
     gflops: float = 0.0            # achieved GFLOP/s over exec_time
     tasks_per_s: float = 0.0
     verify_time: float = 0.0       # deferred Freivalds finalize wall-clock
+    verify_seed: Optional[int] = None   # the probes' seed (ops.rademacher)
 
 
 def _as_device(x, device: torch.device) -> torch.Tensor:
@@ -214,7 +215,7 @@ def execute_plan_torch_deferred(
         output=C, verified=True, n_tasks=len(tasks), n_recovered=n_rec,
         recovery=recovery, backend="torch", kernel=kernel, policy=pol.name,
         exec_time=exec_time, gflops=flops / max(exec_time, 1e-12) / 1e9,
-        tasks_per_s=len(tasks) / max(exec_time, 1e-12))
+        tasks_per_s=len(tasks) / max(exec_time, 1e-12), verify_seed=seed)
 
     def finalize() -> List[tuple]:
         corrected: List[tuple] = []

@@ -6,7 +6,9 @@ returns the port's params in the same layout (with ``dtype``, floating
 leaves are cast, except those the reference keeps in float32 whatever the
 param dtype is: the MoE router, the SSM's ``A_log`` and ``D``);
 :func:`from_jax_opt_state`
-carries an ``AdamState`` across the same way.  A numpy bfloat16 array
+carries an ``AdamState`` across the same way, :func:`from_jax_outer_state`
+a DiLoCo ``OuterState`` and :func:`from_jax_multi_ps_state` a whole
+``MultiPSState``.  A numpy bfloat16 array
 (``dtype.name == "bfloat16"``, from ``ml_dtypes``) is reinterpreted through
 ``uint16`` bits, so the port never imports ``ml_dtypes``.
 """
@@ -54,3 +56,28 @@ def from_jax_opt_state(state, device):
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
         mu=from_jax_params(state.mu, device),
         nu=from_jax_params(state.nu, device))
+
+
+def from_jax_outer_state(state, device):
+    """The reference's DiLoCo ``OuterState`` (``velocity``, ``anchor``;
+    leaves as numpy arrays) -> the port's
+    :class:`repro_torch.optim.diloco.OuterState` on ``device``."""
+    from repro_torch.optim.diloco import OuterState
+    return OuterState(velocity=from_jax_params(state.velocity, device),
+                      anchor=from_jax_params(state.anchor, device))
+
+
+def from_jax_multi_ps_state(state, device):
+    """The reference's ``MultiPSState`` (leaves as numpy arrays) -> the
+    port's :class:`repro_torch.train_loop.multi_ps.MultiPSState`: each
+    island's params and ``AdamState``, the outer state (or ``None``) and
+    the clocks."""
+    from repro_torch.train_loop.multi_ps import MultiPSState
+    return MultiPSState(
+        island_params=tuple(from_jax_params(p, device)
+                            for p in state.island_params),
+        island_opt=tuple(from_jax_opt_state(o, device)
+                         for o in state.island_opt),
+        outer=None if state.outer is None
+        else from_jax_outer_state(state.outer, device),
+        inner_step=int(state.inner_step), round=int(state.round))

@@ -16,6 +16,9 @@ Usage (from the repository root)::
       --backend fleet --steps 3 --fail-step 1 --fail-ids 3
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --layers 2 \\
       --d-model 64 --vocab 256 --steps 2 --batch 2 --seq 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 3 \\
+      --batch 2 --seq 16 --device cpu --backend fleet --ckpt-dir DIR \\
+      --ckpt-every 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
       --layers 4 --backend fleet --steps 3 --fail-step 1 --fail-ids 3
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -46,7 +49,10 @@ the reference's ``@`` keeps them there.
 Each step updates the params and the optimizer moments in place, as the
 reference's driver donates them (``donate_argnums=(0, 1)``): one
 full-width deepseek-v2-236b layer would not fit the card with a second
-copy.
+copy.  ``--ckpt-dir DIR`` saves ``{"params", "opt"}`` with the step's
+loss at every step that ``--ckpt-every`` divides, from step 0, as the
+reference's driver does (``checkpointing.checkpoint.CheckpointManager``,
+the newest 3 kept).
 """
 from __future__ import annotations
 
@@ -71,8 +77,9 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet: PS-side checkpoints come with "
-                         "multi-PS (ROADMAP A.4)")
+                    help="save params and optimizer state here every "
+                         "--ckpt-every steps (npz, the reference's keys)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default=None)
@@ -115,9 +122,6 @@ def main(argv=None):
     from repro_torch.models import model as M
     from repro_torch.optim import adam
 
-    if args.ckpt_dir:
-        raise SystemExit("--ckpt-dir: PS-side checkpoints are not ported "
-                         "yet (ROADMAP A.4, multi-PS and checkpoints)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -186,6 +190,11 @@ def main(argv=None):
         step_fn = make_train_step(cfg, opt_cfg, q_chunk=64, k_chunk=64,
                                   loss_chunk=64, donate=True)
 
+    mgr = None
+    if args.ckpt_dir:
+        from repro_torch.checkpointing.checkpoint import CheckpointManager
+        mgr = CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
+
     history = []
     t0 = time.perf_counter()
     for step in range(args.steps):
@@ -220,6 +229,10 @@ def main(argv=None):
                   f"({dt / (step + 1):.2f}s/step)")
             if fleet_session is not None:
                 print(f"           {metrics['fleet'].log_line()}")
+        if mgr is not None:
+            # copies every leaf to the host before the next in-place step
+            mgr.maybe_save(step, {"params": params, "opt": opt_state},
+                           {"loss": loss})
         if not np.isfinite(loss):
             raise SystemExit(f"loss diverged at step {step}")
 

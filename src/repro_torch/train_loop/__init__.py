@@ -8,7 +8,13 @@
                 runtime's numpy or torch fleet executor.
 ``train_step``  :class:`FleetTrainSession` / :func:`make_fleet_train_step`
                 -- one forward + backward + AdamW step with PS-hosted
-                non-GEMM ops, fleet metrics and mid-step failure injection.
+                non-GEMM ops, fleet metrics, mid-step failure injection
+                and periodic PS-side checkpoints.
+``multi_ps``    :class:`MultiPSTrainSession` -- K parameter-server islands
+                (``api.ShardedFleet``), each a ``FleetTrainSession`` over its
+                own subfleet, synced every H inner steps by the sharded
+                DiLoCo outer loop (``optim.diloco``); PS failures evict
+                whole islands.
 """
 from __future__ import annotations
 
@@ -19,6 +25,9 @@ _LAZY = {
     "FleetTrainSession": "repro_torch.train_loop.train_step",
     "make_fleet_train_step": "repro_torch.train_loop.train_step",
     "price_request": "repro_torch.train_loop.train_step",
+    "MultiPSState": "repro_torch.train_loop.multi_ps",
+    "MultiPSStepReport": "repro_torch.train_loop.multi_ps",
+    "MultiPSTrainSession": "repro_torch.train_loop.multi_ps",
 }
 
 __all__ = sorted(_LAZY) + ["hook"]

@@ -9,7 +9,9 @@ mirrors under autograd) lowers onto the session runtime's
 plan→execute→recover machinery.  Under the f32 policy, loss and updated
 parameters match the monolithic step to float32 tolerance (the fleet
 executors are numerically exact; the numpy backend even accumulates in
-float64).  Periodic checkpoints are not ported yet (ROADMAP A.4).
+float64).  With a checkpoint manager the session saves params and
+optimizer state every ``checkpoint_every`` steps, and :meth:`restore`
+resumes bit-exactly.
 
 Non-GEMM ops — embeddings, RMSNorm, RoPE, softmax/attention scores (the
 ``attention_scores="ps"`` convention), cross-entropy, AdamW — run on the PS
@@ -211,25 +213,31 @@ class FleetTrainSession:
 
     Built by :meth:`repro_torch.api.TorchCleaveRuntime.train_session` (or
     directly); :meth:`step` is the PS-centric analog of the monolithic
-    step.  ``checkpoint`` must stay ``None``: PS-side checkpoints come with
-    ROADMAP A.4 (multi-PS and checkpoints)."""
+    step.  ``checkpoint`` (a directory path or a
+    :class:`~repro_torch.checkpointing.checkpoint.CheckpointManager`)
+    enables periodic PS-side snapshots every ``checkpoint_every`` steps."""
 
     def __init__(self, runtime, cfg=None, opt_cfg=None, *,
                  backend: str = "torch", kernel: str = "auto",
                  dtype_policy=None, verify: bool = True,
                  q_chunk: int = 64, k_chunk: int = 64,
                  loss_chunk: int = 64, dispatch: str = "level",
-                 checkpoint=None):
+                 checkpoint=None, checkpoint_every: int = 100):
         from repro_torch.optim import adam
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "PS-side checkpoints are not ported yet (ROADMAP A.4, "
-                "multi-PS and checkpoints); pass checkpoint=None")
         self.rt = runtime
         self.cfg = cfg if cfg is not None else runtime.cfg
         self.opt_cfg = opt_cfg or adam.AdamConfig()
         self.dispatch = dispatch
-        self.checkpoint = None
+        # periodic PS-side checkpoints (§6): a directory path builds a
+        # CheckpointManager(every=checkpoint_every); a manager passes
+        # through.  AdamState.step is saved with the moments, so restore()
+        # resumes with the lr schedule intact
+        if isinstance(checkpoint, str):
+            from repro_torch.checkpointing.checkpoint import \
+                CheckpointManager
+            checkpoint = CheckpointManager(checkpoint,
+                                           every=checkpoint_every)
+        self.checkpoint = checkpoint
         self.gemms = FleetGemmSession(runtime, backend=backend,
                                       kernel=kernel,
                                       dtype_policy=dtype_policy,
@@ -346,7 +354,32 @@ class FleetTrainSession:
             "predicted_makespan": report.predicted_makespan,
             "failed_ids": list(report.failed_ids)})
         self.step_index += 1
+        if self.checkpoint is not None:
+            # the save copies every leaf to the host before it returns:
+            # with donate the next step updates these tensors in place
+            self.checkpoint.maybe_save(
+                self.step_index, {"params": params2, "opt_state": opt2},
+                metadata={"loss": float(loss)})
         return params2, opt2, metrics
+
+    # ----------------------------------------------------------- restore --
+
+    def restore(self, params_like, opt_state_like):
+        """Resume from the newest checkpoint in the session's manager:
+        returns ``(params, opt_state, step)`` with ``step_index``
+        fast-forwarded so the resumed trajectory -- losses, lr schedule,
+        checkpoint cadence -- bit-matches the uninterrupted run.  The
+        restored leaves take the types and devices of the ``_like`` trees.
+        With no snapshot on disk the ``_like`` trees pass through at step
+        0."""
+        if self.checkpoint is None:
+            raise RuntimeError("session has no checkpoint manager")
+        step, tree = self.checkpoint.restore_latest(
+            {"params": params_like, "opt_state": opt_state_like})
+        if step is None:
+            return params_like, opt_state_like, 0
+        self.step_index = step
+        return tree["params"], tree["opt_state"], step
 
     # ----------------------------------------------------------- internals --
 

@@ -20,6 +20,7 @@ COPIED = [
     "core/cost_model.py", "core/scheduler.py", "core/churn.py",
     "core/executor.py", "core/gemm_dag.py", "core/verify.py",
     "core/seeding.py", "core/tail.py", "core/streaming.py",
+    "core/dataflow.py",
     "sim/engine.py", "sim/events.py", "sim/devices.py",
     "api/fleet.py", "api/accounting.py", "api/mitigation.py",
     "serving/batcher.py", "serving/loadgen.py", "train_loop/hook.py",
@@ -31,7 +32,14 @@ COPIED = [
 # to the reference's (up to the package name); the rest of each module is
 # the port's own
 COPIED_DEFS = {
+    "api/ps_group.py": ["ShardedFleet"],
+    "checkpointing/checkpoint.py": ["_flatten", "load_metadata",
+                                    "CheckpointManager"],
     "data/pipeline.py": ["DataConfig", "SyntheticLM"],
+    "optim/diloco.py": ["DiLoCoConfig", "OuterState", "ParamPartition",
+                        "communication_per_round", "sync_traffic"],
+    "train_loop/multi_ps.py": ["MultiPSState", "MultiPSStepReport",
+                               "_Island"],
     "train_loop/train_step.py": ["FleetStepReport", "PS_LOCAL_GEMMS",
                                  "fleet_lowered", "price_request",
                                  "price_trace_emulated"],
@@ -104,6 +112,20 @@ def test_default_device_entry_points_raise_without_cuda():
         TorchCleaveRuntime(arch="llama3-8b", fleet=Fleet.sample(4, seed=0))
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--batch", "1", "--gen", "2"])
+    # a multi-PS session: its islands' runtimes take the template's
+    # device, so a default-device session raises too
+    from repro_torch.api import PSGroup
+    from repro_torch.train_loop import MultiPSTrainSession
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchCleaveRuntime(arch="llama3-8b", fleet=Fleet.sample(8, seed=0)
+                           ).train_session(n_ps=2)
+    cpu = TorchCleaveRuntime(arch="llama3-8b", fleet=Fleet.sample(8, seed=0),
+                             device="cpu")
+    cpu.device = torch.device("cuda")      # a card template, as it would be
+    with pytest.raises(RuntimeError, match="cuda"):
+        MultiPSTrainSession(cpu, n_ps=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        PSGroup(ps_id=0, fleet=Fleet.sample(4, seed=0)).runtime_for(cpu)
 
 
 def _run_smoke(cwd):

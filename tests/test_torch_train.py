@@ -5,6 +5,8 @@ the synthetic data, the monolithic step, and the PS-centric fleet step
 failure in the backward.  Tolerances are the reference's own: 1e-4
 relative for the training state (``tests/test_train_loop.py``), 1e-5 on
 the loss, 1e-6 on one AdamW update."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -284,12 +286,23 @@ def test_runtime_train_step_caches_sessions_by_value(ref):
     assert m1["fleet"].loss == m2["fleet"].loss
 
 
-def test_unported_training_options_raise(ref):
+def test_unported_training_options_raise(ref, tmp_path):
+    """The training options the port once refused now build sessions:
+    ``n_ps=2`` (or a DiLoCo config) the multi-PS session on the runtime's
+    device, ``checkpoint`` a single-PS session with a checkpoint manager;
+    and every model family trains (the name is the test's history)."""
+    from repro_torch.checkpointing.checkpoint import CheckpointManager
+    from repro_torch.optim.diloco import DiLoCoConfig
+    from repro_torch.train_loop import MultiPSTrainSession
     _, _, _, rt, _, _ = _port_setup(ref)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        rt.train_session(n_ps=2)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        rt.train_session(checkpoint="ckpts")
+    multi = rt.train_session(n_ps=2)
+    assert isinstance(multi, MultiPSTrainSession) and multi.n_islands == 2
+    assert all(isl.rt.device == rt.device for isl in multi.islands)
+    assert isinstance(rt.train_session(diloco=DiLoCoConfig()),
+                      MultiPSTrainSession)
+    single = rt.train_session(checkpoint=str(tmp_path), checkpoint_every=3)
+    assert isinstance(single.checkpoint, CheckpointManager)
+    assert single.checkpoint.every == 3
     # MoE, MLA, M-RoPE, the encoder-decoder and the hybrid (hymba-1.5b,
     # the last family) train since their slices: hymba's session opens
     # and the model takes one value_and_grad
@@ -324,5 +337,23 @@ def test_train_driver_on_cpu(backend, tmp_path):
     if backend == "fleet":
         assert all(r["fleet_verified"] for r in rows)
         assert rows[1]["fleet_recovered"] > 0
-    with pytest.raises(SystemExit, match="A.4"):
-        train.main(argv + ["--ckpt-dir", str(tmp_path)])
+    # checkpoints as the reference's driver writes them: every
+    # --ckpt-every steps from step 0, {"params", "opt"} and the loss
+    from repro.checkpointing import checkpoint as jckpt
+    from repro_torch.checkpointing import checkpoint as ckpt
+    ck = tmp_path / "ckpt"
+    assert train.main(argv + ["--ckpt-dir", str(ck), "--ckpt-every",
+                              "1"]) == 0
+    mgr = ckpt.CheckpointManager(str(ck))
+    assert mgr.steps() == [0, 1]
+    jcfg = dataclasses.replace(jget_config(ARCH).reduced(), n_layers=1,
+                               d_model=64, d_ff=256, vocab_size=256)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    want = jckpt._flatten({"params": jparams,
+                           "opt": jadam.init(jparams, jadam.AdamConfig())})
+    with np.load(mgr._path(1)) as z:
+        assert set(z.files) == set(want)
+        assert all(z[k].shape == np.shape(v) for k, v in want.items())
+    meta = jckpt.load_metadata(mgr._path(1))
+    assert meta["step"] == 1 and meta["loss"] == pytest.approx(
+        json.loads(out.read_text())[1]["loss"])
