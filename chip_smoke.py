@@ -254,6 +254,36 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               each passed again by the same acceptance test on f64
               residuals with the step's own probes); each walk's wall,
               predictions, launches and ``PadCache`` hit rate.
+27. sim    -- the paper's cost model on the card's host (numpy; no tensor,
+              no kernel): ``TorchCleaveRuntime.simulate`` for llama3-8b at
+              full width and depth (32 layers), B 8 x S 128 on
+              ``Fleet.sample(16, seed=0)`` and B 128 x S 1024 on 512
+              devices, on the analytic, event and event-array backends
+              (the event replay within 1e-6 of the closed form; the array
+              engine within 1e-9 of the scalar one, also under a
+              fail/join/slowdown script whose failure lands mid-work:
+              makespan, level times, recovery latency, which must be
+              positive on both); ``stream_profile`` of its d_ff GEMM under
+              Pareto(2) jitter; ``compare_systems("llama2-13b", 128,
+              1024, 512)`` (Table 8's row); ``ArrayTimelineEngine
+              .add_chains_bulk`` at 10,000 devices (the reference's core
+              bench row), its events/s and wall beside the host's CPU.
+28. examples -- every ``examples_torch/*.py`` ``main`` on the card at the
+              reference's sizes (``train_e2e`` at ``scripts/check_docs.py``'s
+              smoke arguments, monolithic and on the fleet with a
+              failure; ``serve_decode`` also under the f32 policy):
+              torch-backend outputs within 1e-5 of the f64 product
+              (relative to its largest value) and verified, tasks
+              recovered where a failure fires, warm steps after churn on
+              cached plans, the six served requests drained (under f32
+              their tokens equal to token-by-token monolithic decoding),
+              the multi-PS rounds with both islands alive; every band
+              GEMM, flash-attention, flash-decode and paged-decode launch
+              held against its plain version on the same inputs (1e-5 of
+              the largest output in f32, one bf16 ulp in bf16), the
+              counts checked equal to the launches; B1, B3, B4, B5 (and
+              the other kernels') launches counted around each run, the
+              totals in the kernels line as ``launches_examples``.
 
 In ``full``, ``train_full``, ``rwkv_full``, ``moe_full``, ``mla_full``,
 ``mrope_full``, ``encdec_full``, ``hymba_full`` and ``multips_full`` every
@@ -295,6 +325,7 @@ call (``f32sets``, ``attnsets``).
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import contextlib
 import dataclasses
@@ -315,7 +346,7 @@ PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
           "bgemm", "moe_reduced", "moe_full", "mla_reduced", "mla_full",
           "mrope_reduced", "mrope_full", "encdec_reduced", "encdec_full",
           "hymba_reduced", "hymba_full", "multips_reduced", "multips_full",
-          "batch")
+          "batch", "sim", "examples")
 EXTRA_PHASES = ("split", "f32sets", "attnsets")   # run only when named
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
@@ -444,6 +475,90 @@ def band_gemm_audit(verify: bool, entry: str = "block_gemm_batched_shared"):
         yield audit
     finally:
         setattr(bg, entry, real)
+
+
+ATTENTION_KERNELS = ("flash_attention", "flash_decode", "paged_decode")
+
+
+@contextlib.contextmanager
+def attention_audit():
+    """Wraps the attention kernels' wrappers while a path runs -- flash
+    attention (``attend``, which ``ops.mha_flash`` calls), flash decode and
+    the paged decode -- and holds every launch's result against the plain
+    version on the same inputs: within 1e-5 of the largest output in f32
+    (sums in another order), one bf16 ulp of it (2^-7) in bf16 (both round
+    p and the output to bf16).  The plain calls launch no kernel.  Per
+    kernel: launches checked, the worst relative error, and the shapes
+    checked with their counts."""
+    import torch
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    audit = {k: {"checked": 0, "max_rel_err": 0.0,
+                 "shapes": collections.Counter()} for k in ATTENTION_KERNELS}
+    real = {"flash_attention": fa.attend, "flash_decode": dec.flash_decode,
+            "paged_decode": dec.flash_decode_paged}
+
+    def hold(kernel, got, want, shape):
+        scale = max(float(want.float().abs().max()), 1e-30)
+        rel = float((got.float() - want.float()).abs().max()) / scale
+        tol = 1e-5 if got.dtype == torch.float32 else BF16_OUT_TOL
+        check(rel <= tol, f"{kernel} launch {shape}: rel err {rel:.3g} "
+              f"against the plain version (limit {tol:g})")
+        a = audit[kernel]
+        a["checked"] += 1
+        a["max_rel_err"] = max(a["max_rel_err"], rel)
+        a["shapes"][shape] += 1
+
+    def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
+               _block_q=None):
+        n = fa.launches
+        real["flash_attention"](q, k, v, out, causal=causal, window=window,
+                                q_offset=q_offset, _block_q=_block_q)
+        if fa.launches > n:
+            with torch.no_grad():
+                want = fa._attend_plain(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset)
+            hold("flash_attention", out, want,
+                 (tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                  bool(causal), int(window), int(q_offset),
+                  str(q.dtype).rsplit(".", 1)[-1]))
+        return out
+
+    def flash_decode(q, k_cache, v_cache, valid, *, _split=None):
+        n = dec.flash_decode_launches
+        got = real["flash_decode"](q, k_cache, v_cache, valid, _split=_split)
+        if dec.flash_decode_launches > n:
+            with torch.no_grad():
+                want = dec.flash_decode_plain(q, k_cache, v_cache, valid,
+                                              split=_split)
+            hold("flash_decode", got, want,
+                 (tuple(q.shape), tuple(k_cache.shape),
+                  str(k_cache.dtype).rsplit(".", 1)[-1]))
+        return got
+
+    def flash_decode_paged(q, k_pool, v_pool, page_table, lengths, *,
+                           _split=None):
+        n = dec.launches
+        got = real["paged_decode"](q, k_pool, v_pool, page_table, lengths,
+                                   _split=_split)
+        if dec.launches > n:
+            with torch.no_grad():
+                want = dec.flash_decode_paged_plain(
+                    q, k_pool, v_pool, page_table, lengths, split=_split)
+            hold("paged_decode", got, want,
+                 (tuple(q.shape), tuple(k_pool.shape),
+                  tuple(page_table.shape),
+                  str(k_pool.dtype).rsplit(".", 1)[-1]))
+        return got
+
+    fa.attend, dec.flash_decode = attend, flash_decode
+    dec.flash_decode_paged = flash_decode_paged
+    try:
+        yield audit
+    finally:
+        fa.attend = real["flash_attention"]
+        dec.flash_decode = real["flash_decode"]
+        dec.flash_decode_paged = real["paged_decode"]
 
 
 def time_band_gemm_set(shapes, entry: str = "block_gemm_batched_shared"):
@@ -4377,6 +4492,380 @@ def phase_batch(cfg):
                        ("escapes", "f64_passes", "worst_f64_margin")}}
 
 
+def _rel(a: float, b: float) -> float:
+    """|a - b| over the larger magnitude (0 when both are 0)."""
+    return abs(a - b) / max(abs(a), abs(b), 1e-300)
+
+
+def _levels_rel(a, b) -> float:
+    check(len(a.level_times) == len(b.level_times),
+          f"sim: {len(a.level_times)} level times against "
+          f"{len(b.level_times)}")
+    return max((_rel(x, y) for x, y in zip(a.level_times, b.level_times)),
+               default=0.0)
+
+
+def host_cpu() -> str:
+    """The host's CPU as ``lscpu`` names it (vendor, model name, family and
+    model; else the machine type) and its core count."""
+    import platform
+    fields = {}
+    with contextlib.suppress(OSError, subprocess.SubprocessError):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        fields = dict(ln.split(":", 1) for ln in out.splitlines()
+                      if ":" in ln)
+    name = ", ".join(f"{k} {fields[k].strip()}" for k in
+                     ("Vendor ID", "Model name", "CPU family", "Model")
+                     if k in fields)
+    return f"{name or platform.machine()} ({os.cpu_count()} cores)"
+
+
+# the 10,000-device row of the array engine's fleet-scaling bench: devices,
+# DAG levels, items a chain, PS island size
+BULK_ROW = (10_000, 6, 3, 64)
+
+
+def sim_bulk_row():
+    """``ArrayTimelineEngine.add_chains_bulk`` at 10,000 devices, as the
+    reference's core bench builds its first fleet-scaling row: random
+    devices (seed 7), per-island PS links sized just above the chains'
+    peak rates, two failures and a slowdown, 6 levels of one 3-item chain a
+    device (workloads seed 11); the run's events, wall and event rate."""
+    import numpy as np
+    from repro_torch.core.cost_model import Device
+    from repro_torch.sim import events as ev
+    from repro_torch.sim.engine_array import ArrayTimelineEngine
+    n, n_levels, ipc, island = BULK_ROW
+    rng = np.random.default_rng(7)
+    devs = [Device(flops=float(f), dl_bw=float(dl), ul_bw=float(ul),
+                   device_id=i)
+            for i, (f, dl, ul) in enumerate(zip(
+                rng.uniform(0.5e12, 4e12, n), rng.uniform(2e7, 2e8, n),
+                rng.uniform(1e7, 1e8, n)))]
+    eng = ArrayTimelineEngine(
+        devs, ps_egress_bps=2e8 * island * 1.1,
+        ps_ingress_bps=1e8 * island * 1.1,
+        ps_of={i: i // island for i in range(n)},
+        events=[ev.fail(0.05, device_id=3),
+                ev.slowdown(0.07, device_id=11, factor=2.0),
+                ev.fail(0.2, device_id=n // 2)])
+    dids = np.arange(n)
+    wl = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    for lv in range(n_levels):
+        eng.add_chains_bulk(dids, wl.uniform(1e5, 1e6, n),
+                            wl.uniform(1e8, 1e9, n),
+                            wl.uniform(5e4, 5e5, n), dl_lat=0.001,
+                            ul_lat=0.002, level=lv, items_per_chain=ipc)
+    t_build = time.perf_counter() - t0
+    rep = eng.run()
+    check(rep.n_failures == 2 and rep.makespan > 0
+          and math.isfinite(rep.makespan),
+          f"sim: the 10k-device bulk row {rep.n_failures} failures, "
+          f"makespan {rep.makespan}")
+    return {"devices": n, "levels": n_levels, "items_per_chain": ipc,
+            "backend": rep.backend, "n_events": rep.n_events,
+            "n_failures": rep.n_failures, "makespan_s": rep.makespan,
+            "build_wall_s": t_build, "sim_wall_s": rep.wall_time,
+            "events_per_sec": rep.events_per_sec}
+
+
+def phase_sim():
+    """The paper's cost model on the card's host (numpy; no tensor, no
+    kernel), through the runtime built for the card: llama3-8b at full
+    width and full depth priced analytically and replayed on the event and
+    event-array engines at B 8 x S 128 on ``Fleet.sample(16, seed=0)``
+    (train_full's fleet) and at B 128 x S 1024 on 512 devices -- the replay
+    within 1e-6 of the closed form, the array engine within 1e-9 of the
+    scalar one with and without a fail/join/slowdown script (the failure
+    mid-work: both engines price a repair);
+    ``stream_profile`` of its d_ff GEMM under Pareto(2) jitter; Table 8's
+    llama2-13b row; the 10,000-device bulk row."""
+    from repro_torch.api import Fleet, TorchCleaveRuntime, fail, join, slowdown
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import cost_model as cm
+    from repro_torch.sim import simulator as S
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3-8b")
+    joiner = cm.Device(flops=5e13, dl_bw=2e8, ul_bw=5e7, device_id=10_000)
+    cells, runtimes = {}, {}
+    for cell, (B, Sq, n_dev) in {"train_full_fleet": (8, 128, 16),
+                                  "fleet512": (128, 1024, 512)}.items():
+        rt = runtimes[cell] = TorchCleaveRuntime(
+            arch=cfg, fleet=Fleet.sample(n_dev, seed=0))
+        t0 = time.perf_counter()
+        ana = rt.simulate(B, Sq, backend="analytic")
+        t_ana = time.perf_counter() - t0
+        det = rt.simulate(B, Sq, backend="event")
+        arr = rt.simulate(B, Sq, backend="event-array")
+        busy = sorted(det.device_busy, key=det.device_busy.get)
+        mk = det.makespan
+        rest = [slowdown(mk * 0.1, busy[-2], 4.0),
+                slowdown(mk * 0.6, busy[-2], 0.25), join(mk * 0.05, joiner)]
+        # the busiest device fails mid-work, so that its repair is priced:
+        # a thousandth into the level in flight at 0.3 of the makespan,
+        # when every chain of that level has started (the levels' opening
+        # times from a traced replay of the other events, which is the
+        # scenario's timeline up to the failure)
+        traced = rt.simulate(B, Sq, backend="event", events=rest,
+                             trace=True)
+        opens = [t for t, kind, _ in traced.trace if kind == "level"]
+        lv = bisect.bisect_right(opens, mk * 0.3) - 1
+        t_fail = opens[lv] + 1e-3 * ((opens + [traced.gemm_time])[lv + 1]
+                                     - opens[lv])
+        evs = [fail(t_fail, busy[-1])] + rest
+        sca_ev = rt.simulate(B, Sq, backend="event", events=evs)
+        arr_ev = rt.simulate(B, Sq, backend="event-array", events=evs)
+        row = {
+            "devices": n_dev, "batch": [B, Sq], "n_layers": cfg.n_layers,
+            "analytic_s": ana.makespan, "event_s": det.makespan,
+            "event_vs_analytic": max(_rel(det.makespan, ana.makespan),
+                                     _levels_rel(det, ana)),
+            "array_vs_event": max(_rel(arr.makespan, det.makespan),
+                                  _levels_rel(arr, det)),
+            "n_levels": len(det.level_times), "n_events": det.n_events,
+            "analytic_wall_s": t_ana, "event_wall_s": det.wall_time,
+            "event_array_wall_s": arr.wall_time,
+            "event_events_per_sec": det.events_per_sec,
+            "event_array_events_per_sec": arr.events_per_sec,
+            "scenario": {
+                "fail_at_s": t_fail, "fail_level": lv,
+                "makespan_s": sca_ev.makespan,
+                "recovery_latency_s": sca_ev.recovery_latency,
+                "recomputed_fraction": sca_ev.recomputed_fraction,
+                "counts": [sca_ev.n_failures, sca_ev.n_joins,
+                           sca_ev.n_slowdowns],
+                "array_vs_event": max(
+                    _rel(arr_ev.makespan, sca_ev.makespan),
+                    _levels_rel(arr_ev, sca_ev),
+                    _rel(arr_ev.recovery_latency, sca_ev.recovery_latency)),
+                "event_wall_s": sca_ev.wall_time,
+                "event_array_wall_s": arr_ev.wall_time,
+                "n_events": sca_ev.n_events}}
+        cells[cell] = row
+        emit({"phase": "sim_cell", "cell": cell, **row})
+        check(row["event_vs_analytic"] <= 1e-6,
+              f"sim {cell}: the event replay {row['event_vs_analytic']} "
+              "off the closed form")
+        check(row["array_vs_event"] <= 1e-9
+              and row["scenario"]["array_vs_event"] <= 1e-9,
+              f"sim {cell}: the array engine off the scalar one: {row}")
+        check(row["scenario"]["counts"] == [1, 1, 2],
+              f"sim {cell}: scenario events {row['scenario']['counts']}")
+        check(sca_ev.recovery_latency > 0 and arr_ev.recovery_latency > 0,
+              f"sim {cell}: the failure priced no repair (recovery "
+              f"latency {sca_ev.recovery_latency}, array "
+              f"{arr_ev.recovery_latency})")
+    d_ff = cm.GEMM(m=8 * 128, n=cfg.d_model, q=cfg.d_ff)
+    st = runtimes["train_full_fleet"].stream_profile(d_ff, pareto_alpha=2.0)
+    stream = {"gemm": [d_ff.m, d_ff.n, d_ff.q], "pareto_alpha": 2.0,
+              "serial_s": st.serial_time, "pipelined_s": st.pipelined_time,
+              "jittered_s": st.jittered_time,
+              "overlap_speedup": st.overlap_speedup}
+    check(all(math.isfinite(v) and v > 0 for v in
+              (st.serial_time, st.pipelined_time, st.jittered_time))
+          and st.overlap_speedup > 1.0, f"sim: stream_profile {stream}")
+    t0 = time.perf_counter()
+    table8 = S.compare_systems("llama2-13b", 128, 1024, 512)
+    table8["wall_s"] = time.perf_counter() - t0
+    check(table8["cleave"] < table8["dtfm"] < table8["alpa"]
+          and abs(table8["cloud"] - 33.6) / 33.6 < 0.05,
+          f"sim: Table 8's row {table8}")
+    bulk = sim_bulk_row()
+    cpu = host_cpu()
+    out = {"cells": cells, "stream_profile": stream, "table8": table8,
+           "bulk_10k": bulk, "host_cpu": cpu,
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "sim", "stream_profile": stream, "table8": table8,
+          "bulk_10k": bulk, "host_cpu": cpu, "phase_s": out["phase_s"]})
+    return out
+
+
+# scripts/check_docs.py's smoke arguments for examples/train_e2e.py
+E2E_SMOKE = ["--steps", "2", "--layers", "2", "--d-model", "128", "--vocab",
+             "512", "--batch", "2", "--seq", "64"]
+EXAMPLE_RUNS = (
+    ("quickstart", []), ("churn_recovery", []), ("edge_simulation", []),
+    ("fleet_timeline", []), ("torch_executor_level", []),
+    ("serve_decode", []), ("serve_decode", ["--dtype-policy", "f32"]),
+    ("train_e2e", E2E_SMOKE),
+    ("train_e2e", E2E_SMOKE + ["--backend", "fleet", "--fail-step", "1"]),
+    ("train_multi_ps", []))
+# the kernels each run must launch (the rest may launch too)
+EXAMPLE_KERNELS = {
+    "quickstart": ("band_gemm",), "churn_recovery": ("band_gemm",),
+    "torch_executor_level": ("band_gemm",),
+    "serve_decode": ("band_gemm", "flash_attention", "flash_decode"),
+    "serve_decode_f32": ("band_gemm", "flash_attention", "flash_decode"),
+    "train_e2e": ("flash_attention",),
+    "train_e2e_fleet": ("band_gemm", "flash_attention"),
+    "train_multi_ps": ("band_gemm", "flash_attention")}
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}",
+        os.path.join(ROOT, "examples_torch", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_checks(name: str, fig: dict) -> dict:
+    """The example's own bars; returns the figures its line reports."""
+    import numpy as np
+    tol = 1e-5
+    if name in ("quickstart", "churn_recovery"):
+        step, step2 = fig["step"], fig["step2"]
+        row = {"err": fig["err"], "err_after_churn": fig["err2"],
+               "n_tasks": step.n_tasks, "n_recovered": step.n_recovered,
+               "kernel": step.kernel, "warm_plan_cached": step2.plan_cached}
+        ok = (fig["err"] <= tol and fig["err2"] <= tol and step.verified
+              and step2.verified and step.n_recovered > 0
+              and step2.plan_cached and step.kernel == step2.kernel == "cuda")
+    elif name == "edge_simulation":
+        row = {k: fig["table8"][k] for k in ("cleave", "dtfm", "alpa",
+                                            "cloud")}
+        ok = all(math.isfinite(v) for v in row.values())
+    elif name == "fleet_timeline":
+        row = {"analytic_s": fig["analytic"].makespan,
+               "event_s": fig["deterministic"].makespan,
+               "failure_s": fig["failure"].makespan,
+               "jitter_s": fig["jitter"].makespan}
+        ok = _rel(row["analytic_s"], row["event_s"]) <= 1e-6
+    elif name == "torch_executor_level":
+        lev, step, batch = fig["level"], fig["step"], fig["batch"]
+        row = {"parity": fig["parity"], "err": fig["err"],
+               "n_tasks": lev.n_tasks, "n_recovered": step.n_recovered,
+               "batch_levels": batch.n_levels, "batch_tasks": batch.n_tasks}
+        ok = (fig["parity"] <= tol and fig["err"] <= tol and lev.verified
+              and step.verified and step.n_recovered > 0 and batch.verified
+              and all(s.kernel == "cuda" for s in lev.steps + [step]))
+    elif name in ("serve_decode", "serve_decode_f32"):
+        rep = fig["report"]
+        row = {"n_requests": rep.n_requests, "n_tokens": rep.n_tokens,
+               "n_steps": rep.n_steps, "n_recovered": rep.n_recovered,
+               "tokens_per_sec": rep.tokens_per_sec,
+               "tokens_per_sec_priced": rep.tokens_per_sec_priced,
+               "pages_in_use": rep.cache.n_used}
+        ok = (rep.n_requests == 6 and rep.n_tokens == 36
+              and rep.n_recovered > 0 and rep.cache.n_used == 0
+              and all(s.verified for s in fig["steps"]))
+        if name == "serve_decode_f32":
+            # under the f32 policy every request's tokens equal the
+            # port's token-by-token monolithic decoding of its prompt
+            import torch
+            from repro_torch import ieee_f32
+            ieee_f32()
+            sess = fig["session"]
+            got = {r.rid: list(r.tokens) for r in fig["finished"]}
+            want = {r.rid: _monolithic_greedy(
+                        sess.cfg, sess.params, r.prompt, r.max_new,
+                        sess.cache_len, torch.device("cuda"))
+                    for r in fig["finished"]}
+            row["tokens_match_monolithic"] = got == want
+            check(got == want, f"examples {name}: tokens {got} != "
+                  f"monolithic {want}")
+    elif name == "train_e2e":
+        hist = fig["history"]
+        row = {"loss": [h["loss"] for h in hist]}
+        ok = len(hist) == 2 and all(np.isfinite(row["loss"]))
+    elif name == "train_e2e_fleet":
+        hist = fig["history"]
+        row = {"loss": [h["loss"] for h in hist],
+               "tasks": [h["fleet_tasks"] for h in hist],
+               "recovered": [h["fleet_recovered"] for h in hist],
+               "cache_hit_rate": [h["fleet_cache_hit_rate"] for h in hist]}
+        ok = (len(hist) == 2 and all(np.isfinite(row["loss"]))
+              and all(h["fleet_verified"] for h in hist)
+              and hist[1]["fleet_recovered"] > 0
+              and hist[1]["fleet_cache_hit_rate"] == 1.0)
+    else:                                   # train_multi_ps
+        reps = fig["reports"]
+        row = {"rounds": fig["rounds"], "inner_steps": fig["inner_steps"],
+               "n_islands": fig["n_islands"], "loss": fig["loss"],
+               "sync_bytes": sum(r.cross_ps_sync_bytes for r in reps)}
+        ok = ((fig["rounds"], fig["inner_steps"], fig["n_islands"])
+              == (2, 4, 2) and math.isfinite(fig["loss"])
+              and all(i.verified for r in reps for i in r.island_reports))
+    check(ok, f"examples {name}: {row}")
+    return row
+
+
+def phase_examples():
+    """Every ported example's ``main`` on the card, at the reference's
+    sizes (train_e2e at ``scripts/check_docs.py``'s smoke arguments, on
+    the monolithic backend and on the fleet with a failure; serve_decode
+    also under the f32 policy, its tokens against monolithic decoding),
+    each example's bars checked, every band GEMM and attention launch held
+    against its plain version, and the kernels' launches counted around
+    each run."""
+    import torch
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6
+    t_phase = time.perf_counter()
+    totals = collections.Counter()
+    rows = {}
+    worst = 0.0
+    worst_attn = dict.fromkeys(ATTENTION_KERNELS, 0.0)
+    shapes_attn = {k: collections.Counter() for k in ATTENTION_KERNELS}
+    for name, argv in EXAMPLE_RUNS:
+        run = name + ("_fleet" if "fleet" in argv else "") \
+            + ("_f32" if "--dtype-policy" in argv else "")
+        mod = load_example(name)
+        bg.launches = bg.batched_launches = bg.block_gemm_launches = 0
+        dec.launches = dec.flash_decode_launches = 0
+        fa.launches = wkv6.launches = 0
+        reset_body_counts()
+        t0 = time.perf_counter()
+        with band_gemm_audit(verify=True) as audit, \
+                attention_audit() as attn:
+            fig = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"band_gemm": bg.launches, "paged_decode": dec.launches,
+                  "flash_attention": fa.launches,
+                  "flash_decode": dec.flash_decode_launches,
+                  "block_gemm_batched": bg.batched_launches,
+                  "block_gemm": bg.block_gemm_launches,
+                  "wkv6": wkv6.launches}
+        bodies = check_bodies(f"examples {run}", audit)
+        check(audit["checked"] == counts["band_gemm"],
+              f"examples {run}: {audit['checked']} band GEMM launches "
+              f"checked of {counts['band_gemm']}")
+        for k in ATTENTION_KERNELS:
+            check(attn[k]["checked"] == counts[k],
+                  f"examples {run}: {attn[k]['checked']} {k} launches "
+                  f"checked of {counts[k]}")
+            worst_attn[k] = max(worst_attn[k], attn[k]["max_rel_err"])
+            shapes_attn[k].update(attn[k]["shapes"])
+        missing = [k for k in EXAMPLE_KERNELS.get(run, ()) if not counts[k]]
+        check(not missing, f"examples {run}: no launch of {missing}")
+        worst = max(worst, audit["max_rel_err"])
+        rows[run] = {"wall_s": wall, "launches": counts, "bodies": bodies,
+                     "band_gemm_max_rel_vs_plain": audit["max_rel_err"],
+                     **{f"{k}_max_rel_vs_plain": attn[k]["max_rel_err"]
+                        for k in ATTENTION_KERNELS if counts[k]},
+                     **_example_checks(run, fig)}
+        totals.update(counts)
+        emit({"phase": "example", "name": run, **rows[run]})
+    max_rel = {"band_gemm": worst, **worst_attn}
+    shapes = {k: [[list(sh), n] for sh, n in shapes_attn[k].items()]
+              for k in ATTENTION_KERNELS}
+    out = {"launches": dict(totals), "runs": rows, "max_rel_vs_plain":
+           max_rel, "attention_shapes": shapes,
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "examples", "launches": out["launches"],
+          "max_rel_vs_plain": max_rel, "attention_shapes": shapes,
+          "phase_s": out["phase_s"]})
+    return out
+
+
 def profiled_step(step):
     """Runs ``step()`` once under ``torch.profiler`` (the card's activity
     only); returns (its wall seconds, the seconds of device activity it
@@ -4473,6 +4962,9 @@ def main(argv=None) -> int:
         else None
     multips = phase_multips_full(full) if "multips_full" in phases else None
     batch = phase_batch(full) if "batch" in phases else None
+    if "sim" in phases:
+        phase_sim()
+    examples = phase_examples() if "examples" in phases else None
     if "split" in phases:
         phase_split()
     if "f32sets" in phases:
@@ -4486,9 +4978,10 @@ def main(argv=None) -> int:
     if all(x is not None for x in (gemm, paged, flash, decode, wkv,
                                    launches, train, rwkv, bgemm, moe,
                                    mla, mrope, encdec, hymba, multips_r,
-                                   multips, batch)) \
+                                   multips, batch, examples)) \
             and len(cells) == 7:
         train_launches, gset = train
+        ex = examples["launches"]
         dec_serve, dec_long = (decode["timed"]["serving_float32"],
                                decode["timed"]["cache32k_bfloat16"])
         paged_main = paged["timed"]["main_path_float32"]
@@ -4536,6 +5029,9 @@ def main(argv=None) -> int:
                  multips_r["launches"]["band_gemm"],
              "launches_multips_training": multips["training"]["band_gemm"],
              "launches_batch": batch["band_gemm"],
+             "launches_examples": ex["band_gemm"],
+             "examples_max_rel_vs_plain":
+                 examples["max_rel_vs_plain"]["band_gemm"],
              "batch_poison_escapes": batch["poison"],
              "mrope_training_step": {
                  "ms_of": "the launches of mrope_full's first training step "
@@ -4566,6 +5062,9 @@ def main(argv=None) -> int:
              "launches": launches["paged_decode"],
              "launches_serving_moe": moe["paged_decode"],
              "launches_serving_mrope": mrope["serving"]["paged_decode"],
+             "launches_examples": ex["paged_decode"],
+             "examples_max_rel_vs_plain":
+                 examples["max_rel_vs_plain"]["paged_decode"],
              "launches_by_route": launches["paged_decode_by_route"],
              "ms_of": "one launch at the serving path's shape (4 requests "
                       "of 23 tokens, pages of 16, f32 pools)",
@@ -4604,6 +5103,9 @@ def main(argv=None) -> int:
                  multips_r["launches"]["flash_attention"],
              "launches_multips_training":
                  multips["training"]["flash_attention"],
+             "launches_examples": ex["flash_attention"],
+             "examples_max_rel_vs_plain":
+                 examples["max_rel_vs_plain"]["flash_attention"],
              "hymba_shape": {
                  "ms_of": "one launch at hymba-1.5b's training shape (B 8, "
                           "Sq 128 after 128 meta keys, Sk 256, q_offset "
@@ -4638,6 +5140,9 @@ def main(argv=None) -> int:
              "launches_mrope_serving": mrope["serving"]["flash_decode"],
              "launches_encdec_serving": encdec["serving"]["flash_decode"],
              "launches_hymba_serving": hymba["serving"]["flash_decode"],
+             "launches_examples": ex["flash_decode"],
+             "examples_max_rel_vs_plain":
+                 examples["max_rel_vs_plain"]["flash_decode"],
              "launches_by_route": launches["flash_decode_by_route"],
              "ms_of": "one launch at the serving path's shape (4 requests, "
                       "cache of 32, f32 pools)",
@@ -4658,6 +5163,7 @@ def main(argv=None) -> int:
                            "cp.async prefetch",
              "launches": rwkv["training"],
              "launches_serving": rwkv["serving"],
+             "launches_examples": ex["wkv6"],
              "ms_of": "one launch at the RWKV training shape (B 8, S 128, "
                       "64 heads of 64, bf16 r/k/v)",
              "max_abs_err": wkv["max_abs_err"], "ms": wkv["kernel_ms"],
@@ -4676,6 +5182,7 @@ def main(argv=None) -> int:
              "launches_by_body": moe["bodies"],
              "launches_mla_training": mla["training"]["bgemm"],
              "launches_mla_serving": mla["serving"]["bgemm"],
+             "launches_examples": ex["block_gemm_batched"],
              "max_abs_err_mla": mla["max_abs_err"],
              "mla_training_step": {
                  "ms_of": "the launches of mla_full's first training step "
@@ -4702,6 +5209,7 @@ def main(argv=None) -> int:
              "replaces": "src/repro/kernels/block_gemm.py:125",
              "launches": b3["launches"],
              "launches_by_body": b3["launches_by_body"],
+             "launches_examples": ex["block_gemm"],
              "redesigned": "f32: wide cp.async FMA tiling, split-K",
              "ms_of": "one launch of ops.block_gemm at 512 x 512 x 512 f32 "
                       "(benchmarks/kernels_bench.py's shape); "

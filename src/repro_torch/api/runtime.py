@@ -8,8 +8,10 @@ band GEMM kernel on ``device``, with device-side Freivalds residuals).
 ``execute_batch`` runs a batch's whole GEMM DAG, level by level or
 readiness-driven (``core/dataflow.py``); ``train_session`` builds
 single-PS or multi-PS (DiLoCo islands) sessions with periodic
-checkpoints.  ``stream_profile`` and ``simulate`` belong to a later slice
-of the port.
+checkpoints.  ``stream_profile`` prices the streamed DL/compute/UL
+pipeline (Eq. 9') and ``simulate`` replays a batch on the analytic,
+discrete-event or array event engine (``sim/``) with injectable
+fail/join/slowdown events; both are host-side numpy and touch no tensor.
 
 Typical session::
 
@@ -17,6 +19,7 @@ Typical session::
     step = rt.execute_step(A, B, fail_ids=[7])    # the torch backend
     rt.on_failure([7])            # evict + patch cached plans
     batch = rt.execute_batch(8, 128)              # the whole DAG
+    tl = rt.simulate(8, 128, events=[fail(1.0, 3)])  # a what-if, priced
     sess = rt.serve_session(params, slots=4)
     train = rt.train_session()                    # train.step(params, ...)
 """
@@ -41,6 +44,7 @@ from repro_torch.core.gemm_dag import GemmDag, build_dag
 from repro_torch.core.scheduler import (SchedulePlan, plan_shape_key,
                                         reprice_plan, schedule,
                                         solve_level_gemm)
+from repro_torch.sim.events import TimelineEvent, TimelineReport
 
 BACKENDS = ("numpy", "torch")
 
@@ -169,6 +173,21 @@ class ChurnReport:
     recomputed_fraction: float
     solve_time: float
     fleet_signature: str
+
+
+@dataclass
+class StreamReport:
+    """Result of :meth:`CleaveRuntime.stream_profile`: the three-stage
+    DL/compute/UL pipeline (Eq. 9') with optional Pareto jitter and the
+    session's mitigation policy applied."""
+    serial_time: float
+    pipelined_time: float
+    jittered_time: float
+    mitigation: MitigationReport
+
+    @property
+    def overlap_speedup(self) -> float:
+        return self.serial_time / max(self.pipelined_time, 1e-12)
 
 
 def _check_backend(backend: str) -> None:
@@ -828,6 +847,138 @@ class TorchCleaveRuntime:
         """Admit a joiner into the fleet for the next round."""
         self.fleet = self.fleet.admit(device, keep_id=keep_id)
         return self.fleet
+
+    # -------------------------------------------------------------- stream --
+
+    def stream_profile(self, gemm: cm.GEMM, *, alpha: int = 10,
+                       beta: int = 10, k: int = 64,
+                       pareto_alpha: float = 0.0,
+                       device: Optional[cm.Device] = None,
+                       n_trials: int = 20) -> StreamReport:
+        """Profile the streamed row-column pipeline (Eq. 9') for ``k``
+        (alpha x beta) work quanta on a representative edge device, with
+        optional Pareto(α) stage jitter, and apply the session mitigation
+        policy to the jittered latency.
+
+        ``device`` is a :class:`cost_model.Device` of the fleet, not the
+        torch device the runtime keeps its tensors on (``self.device``);
+        the default is the fleet's median device by flops.
+        ``pareto_alpha=0`` (the default) means a deterministic profile; any
+        other value must exceed 1 for a finite-mean Pareto, matching the
+        ``tail``/``streaming`` entry points.  Jittered trials draw from the
+        session's ``rng``."""
+        from repro_torch.core import streaming, tail
+        if pareto_alpha != 0.0:
+            tail.require_alpha_gt1(pareto_alpha, "stream_profile")
+        edge = device
+        if edge is None:
+            devs = sorted(self.fleet.devices, key=lambda d: d.flops)
+            edge = devs[len(devs) // 2]
+        c = streaming.pair_cost(gemm, edge, alpha=alpha, beta=beta)
+        serial = k * (edge.dl_lat + c.t_dl + c.t_comp + c.t_ul
+                      + edge.ul_lat)
+        piped = streaming.pipeline_time(c, k, dl_lat=edge.dl_lat,
+                                        ul_lat=edge.ul_lat)
+        if pareto_alpha > 1.0:
+            jittered = float(np.mean([
+                streaming.simulate_stream(c, k, edge.dl_lat, edge.ul_lat,
+                                          jitter=self.rng,
+                                          pareto_alpha=pareto_alpha)
+                for _ in range(n_trials)]))
+        else:
+            jittered = piped
+        report = StreamReport(serial_time=serial, pipelined_time=piped,
+                              jittered_time=jittered,
+                              mitigation=self.mitigation.mitigate(jittered))
+        self.history.append({
+            "event": "stream_profile", "k": k,
+            "overlap_speedup": report.overlap_speedup})
+        return report
+
+    # ------------------------------------------------------------ simulate --
+
+    def simulate(self, batch: Optional[int] = None,
+                 seq: Optional[int] = None, *,
+                 request: Optional[PlanRequest] = None,
+                 events: Sequence[TimelineEvent] = (),
+                 backend: str = "event",
+                 jitter_alpha: float = 0.0,
+                 ps_contention: bool = False,
+                 seed: Optional[int] = None,
+                 trace: bool = False) -> TimelineReport:
+        """Price one batch on a simulation backend (host-side numpy: no
+        tensor is made and no kernel runs).
+
+        ``backend="analytic"`` returns the closed-form accounting
+        (Eq. 1/2-5) as a :class:`TimelineReport`, but cannot price events.
+        ``backend="event"`` replays the solved schedule on the
+        discrete-event fleet engine: ``events`` (``sim.events``
+        ``fail``/``join``/``slowdown``) are injected on the timeline,
+        ``jitter_alpha`` adds per-stage Pareto(α) jitter drawn from
+        ``seed`` (the session's seed by default), and ``ps_contention=True``
+        bounds aggregate transfers by the session ``PSConfig.net_bw`` (§6).
+        With no events, jitter or contention the event backend reproduces
+        the analytic unicast batch time (to 1e-6 relative).
+        ``backend="event-array"`` prices the same scenario on the
+        struct-of-arrays engine (``sim.engine_array``) to <=1e-9, replaying
+        on the scalar engine outside its bit-exact envelope.
+
+        Simulation never mutates the session's fleet: a ``fail`` event here
+        prices the what-if; :meth:`on_failure` evicts devices."""
+        if request is None:
+            if batch is None or seq is None:
+                raise ValueError("simulate() needs batch+seq or a "
+                                 "PlanRequest")
+            request = PlanRequest(
+                batch=batch, seq=seq,
+                attention_scores=self.attention_scores,
+                heterogeneity_aware=self.heterogeneity_aware)
+        from repro_torch.sim import engine as eng_mod
+        from repro_torch.sim.events import validate_events
+        evs = validate_events(list(events))
+        if backend == "analytic":
+            if evs or jitter_alpha or ps_contention:
+                raise ValueError(
+                    "backend='analytic' cannot price injected events, "
+                    "jitter, or PS contention; use backend='event'")
+            sp = self.plan(request=request).schedule
+            report = TimelineReport(
+                backend="analytic", makespan=sp.batch_time,
+                gemm_time=sp.gemm_time, opt_tail=sp.opt_tail,
+                level_times=list(sp.level_times))
+        elif backend in ("event", "event-array"):
+            from repro_torch.sim.events import FailEvent, SlowdownEvent
+            known = {d.device_id for d in self.fleet.devices}
+            known |= {e.device.device_id for e in evs
+                      if not isinstance(e, (FailEvent, SlowdownEvent))}
+            for e in evs:
+                if isinstance(e, (FailEvent, SlowdownEvent)) \
+                        and e.device_id not in known:
+                    raise ValueError(
+                        f"{e!r} targets device {e.device_id}, which is "
+                        f"neither in the session fleet nor joined by an "
+                        f"earlier event")
+            sp = self.plan(request=request).schedule
+            cap = self.ps.net_bw if ps_contention else None
+            rng = np.random.default_rng(self.seed if seed is None else seed)
+            engine_cls = None
+            if backend == "event-array":
+                from repro_torch.sim.engine_array import ArrayTimelineEngine
+                engine_cls = ArrayTimelineEngine
+            report = eng_mod.simulate_schedule(
+                sp, events=evs, ps_egress_bps=cap, ps_ingress_bps=cap,
+                jitter_alpha=jitter_alpha, rng=rng,
+                heterogeneity_aware=request.heterogeneity_aware,
+                trace=trace, engine_cls=engine_cls)
+        else:
+            raise ValueError(f"unknown backend {backend!r}; expected "
+                             "'analytic', 'event', or 'event-array'")
+        self.history.append({
+            "event": "simulate", "backend": backend,
+            "batch": request.batch, "seq": request.seq,
+            "n_events": report.n_events, "makespan": report.makespan,
+            "n_failures": report.n_failures, "n_joins": report.n_joins})
+        return report
 
     # ----------------------------------------------------------- internals --
 

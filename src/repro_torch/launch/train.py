@@ -64,7 +64,10 @@ import time
 import numpy as np
 
 
-def main(argv=None):
+def run(argv=None) -> list:
+    """Trains as the command line ``argv`` says; returns the per-step
+    history (loss, grad_norm, lr and, on the fleet backend, the step's
+    fleet figures) that ``--metrics-out`` writes."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--reduced", action="store_true",
@@ -243,6 +246,11 @@ def main(argv=None):
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f)
+    return history
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

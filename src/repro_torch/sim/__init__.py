@@ -1,1 +1,2 @@
-"""Copies of the discrete-event pricing engine."""
+"""Copies of the discrete-event pricing engines (scalar and array), the
+baselines and the per-batch simulator of the reference."""

@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from test_torch_examples import port_example
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -20,8 +21,9 @@ COPIED = [
     "core/cost_model.py", "core/scheduler.py", "core/churn.py",
     "core/executor.py", "core/gemm_dag.py", "core/verify.py",
     "core/seeding.py", "core/tail.py", "core/streaming.py",
-    "core/dataflow.py",
+    "core/dataflow.py", "core/analysis.py", "core/bandit.py",
     "sim/engine.py", "sim/events.py", "sim/devices.py",
+    "sim/baselines.py", "sim/engine_array.py",
     "api/fleet.py", "api/accounting.py", "api/mitigation.py",
     "serving/batcher.py", "serving/loadgen.py", "train_loop/hook.py",
 ] + sorted(f"configs/{p.name}"
@@ -33,11 +35,20 @@ COPIED = [
 # the port's own
 COPIED_DEFS = {
     "api/ps_group.py": ["ShardedFleet"],
+    "api/runtime.py": ["StreamReport"],
     "checkpointing/checkpoint.py": ["_flatten", "load_metadata",
                                     "CheckpointManager"],
     "data/pipeline.py": ["DataConfig", "SyntheticLM"],
     "optim/diloco.py": ["DiLoCoConfig", "OuterState", "ParamPartition",
                         "communication_per_round", "sync_traffic"],
+    # all but _cleave (the port's runtime, built on the host) and
+    # cleave_batch_time (its message names the port's runtime)
+    "sim/simulator.py": ["CleaveResult", "compare_systems",
+                         "straggler_experiment", "churn_experiment",
+                         "scaling_devices", "scaling_model",
+                         "scaling_batch", "ablation",
+                         "adaptive_experiment", "_evaluate_on",
+                         "memory_experiment"],
     "train_loop/multi_ps.py": ["MultiPSState", "MultiPSStepReport",
                                "_Island"],
     "train_loop/train_step.py": ["FleetStepReport", "PS_LOCAL_GEMMS",
@@ -67,8 +78,12 @@ def _imports(path: Path):
             yield node.module
 
 
+EXAMPLES = ROOT / "examples_torch"
+
+
 def test_port_imports_neither_jax_nor_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted(EXAMPLES.glob("*.py"))
     assert len(files) > 30
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
@@ -126,6 +141,12 @@ def test_default_device_entry_points_raise_without_cuda():
         MultiPSTrainSession(cpu, n_ps=2)
     with pytest.raises(RuntimeError, match="cuda"):
         PSGroup(ps_id=0, fleet=Fleet.sample(4, seed=0)).runtime_for(cpu)
+    # every ported example, before it draws or plans anything
+    names = sorted(p.stem for p in EXAMPLES.glob("*.py"))
+    assert len(names) == 8
+    for name in names:
+        with pytest.raises(RuntimeError, match="cuda"):
+            port_example(name).main([])
 
 
 def _run_smoke(cwd):

@@ -53,6 +53,18 @@ N_STEPS, FAIL_STEP, FAIL_IDS = 3, 1, (3,)
 FAIL_AT = 25
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op torch thread for this module.  Its tensors are small,
+    and with pytest-xdist's workers sharing the host's cores torch's
+    default pool (a thread a core in every worker) spends most of its time
+    waiting for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 

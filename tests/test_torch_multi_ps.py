@@ -578,3 +578,29 @@ def test_sharded_fleet_islands_run_on_the_template_device():
     assert island is sf[0].runtime_for(rt)
     assert island.fleet.signature() == sf[0].fleet.signature()
     assert isinstance(sf[0], PSGroup)
+
+
+def test_multi_ps_example_matches_reference(ref, capsys):
+    """``examples_torch/train_multi_ps.py`` (``--steps 2``, the round's
+    length) sets up what this module's reference run does (llama3-8b
+    reduced, ``Fleet.sample(8, seed=0)``, K=2/H=2, chunks of 16, B 2 x S 32,
+    data seeds 0 and 7): its step reports equal the reference's in
+    everything but the losses (its own initial weights) and the wall
+    clocks -- islands, rounds, fleet GEMMs and tasks, the sync volume and
+    every priced time -- and it ends with both islands alive."""
+    from test_torch_examples import port_example
+    got = port_example("train_multi_ps").main(["--steps", "2", "--device",
+                                               "cpu"])
+    assert "2 inner steps, 1 outer rounds, 2 island(s) alive" \
+        in capsys.readouterr().out
+    assert (got["inner_steps"], got["rounds"], got["n_islands"]) == (2, 1, 2)
+
+    def figures(r):
+        return (r.step, r.round, r.n_islands, r.synced,
+                r.cross_ps_sync_bytes, r.predicted_sync_time,
+                r.predicted_makespan, r.evicted_ps,
+                [(i.n_gemms, i.n_tasks, i.n_recovered, i.verified,
+                  i.predicted_makespan) for i in r.island_reports])
+    assert [figures(r) for r in got["reports"]] == \
+        [figures(r) for r in ref["reports"]]
+    assert all(i.verified for r in got["reports"] for i in r.island_reports)
