@@ -36,7 +36,8 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               bidirectional encoder, the causal decoder, the
               cross-attention over Sk = 2 Sq, a prefill's), and at
               hymba-1.5b's (G 5, D 64, causal after 128 meta keys, so at
-              q_offset 128: the training step's and a prefill's), in f32
+              q_offset 128: the training step's and a prefill's; the meta
+              keys always visible under windows of 64 and 2048), in f32
               and bf16, two launches bit for bit; timed at llama's
               training shape (f32), MLA's (f32 and bf16), seamless's
               cross-attention (bf16) and hymba's training shape (f32 and
@@ -284,6 +285,36 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               counts checked equal to the launches; B1, B3, B4, B5 (and
               the other kernels') launches counted around each run, the
               totals in the kernels line as ``launches_examples``.
+29. mesh_reduced -- the mesh layer on four ranks sharing the card (the
+              threaded process group: gloo's processes crash on CUDA
+              tensors there): the CLEAVE-sharded train step against the
+              single-device one for llama3-8b and granite-moe-1b-a400m on
+              2x2 and on the pod axis 2x1x2 (``launch.mesh_check``; the
+              script's tolerances, and 1e-5 where the MoE capacity does
+              not bind), the sharded MoE against the global path on the
+              same tokens without drops, the sharded flash-decode against
+              the unsharded decode, and prefill then serve under decode
+              rules against the unsharded port (greedy tokens equal);
+              the eight other families on 2x2 against single-device
+              (loss and a decode step's logits 1e-5, gradients 1e-4 in
+              relative L2); every
+              B2, B4 and B5 launch held against its plain version, the
+              counts checked equal to the launches.
+30. mesh_full -- ``launch.dryrun`` for rank 0 at full width on the
+              production meshes, in a fake process group of the mesh's
+              world size (collectives move no data, so the launches'
+              data mean nothing: each launch's signature, its operands'
+              layouts and mask flags, is recorded, and every signature
+              is then held to its plain version on fresh inputs, 1e-5
+              in f32, 2^-7 in bf16; B5 must not launch): llama3-8b
+              train_4k and decode_32k on 16x16, granite-moe-1b-a400m
+              train_4k on 2x16x16, deepseek-v2-236b train_4k on 16x16
+              (16 of 60 layers, its 16 microbatches kept); per case the
+              peak of ``torch.cuda.max_memory_allocated``, ``fits_hbm``,
+              FLOPs, collective bytes by kind, the roofline terms, the
+              step's ms by CUDA events, the card's busy ms and idle
+              share under ``torch.profiler``, and the B2, B4 and B5
+              launches.
 
 In ``full``, ``train_full``, ``rwkv_full``, ``moe_full``, ``mla_full``,
 ``mrope_full``, ``encdec_full``, ``hymba_full`` and ``multips_full`` every
@@ -346,7 +377,7 @@ PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
           "bgemm", "moe_reduced", "moe_full", "mla_reduced", "mla_full",
           "mrope_reduced", "mrope_full", "encdec_reduced", "encdec_full",
           "hymba_reduced", "hymba_full", "multips_reduced", "multips_full",
-          "batch", "sim", "examples")
+          "batch", "sim", "examples", "mesh_reduced", "mesh_full")
 EXTRA_PHASES = ("split", "f32sets", "attnsets")   # run only when named
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
@@ -510,17 +541,19 @@ def attention_audit():
         a["shapes"][shape] += 1
 
     def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
-               _block_q=None):
+               prefix=0, _block_q=None):
         n = fa.launches
         real["flash_attention"](q, k, v, out, causal=causal, window=window,
-                                q_offset=q_offset, _block_q=_block_q)
+                                q_offset=q_offset, prefix=prefix,
+                                _block_q=_block_q)
         if fa.launches > n:
             with torch.no_grad():
                 want = fa._attend_plain(q, k, v, causal=causal,
-                                        window=window, q_offset=q_offset)
+                                        window=window, q_offset=q_offset,
+                                        prefix=prefix)
             hold("flash_attention", out, want,
                  (tuple(q.shape), tuple(k.shape), tuple(v.shape),
-                  bool(causal), int(window), int(q_offset),
+                  bool(causal), int(window), int(q_offset), int(prefix),
                   str(q.dtype).rsplit(".", 1)[-1]))
         return out
 
@@ -964,6 +997,13 @@ FLASH_CASES = (
     # (hymba_full's training step and a prefill of 4 prompts of 16)
     ("hymba_train", 8, 128, 256, 25, 5, 64, 64, True, 0, 128),
     ("hymba_prefill", 4, 16, 144, 25, 5, 64, 64, True, 0, 128),
+    # the same with the meta keys always visible under a sliding window
+    # (a 12th field: the prefix): at the training shape with a window of
+    # 64, and a 4096-token sequence under hymba's long-context window of
+    # 2048 (the key loop visits the prefix's tiles, then jumps)
+    ("hymba_prefix_w64", 8, 128, 256, 25, 5, 64, 64, True, 64, 128, 128),
+    ("hymba_prefix_w2048", 1, 4096, 4224, 25, 5, 64, 64, True, 2048, 128,
+     128),
 )
 # the cases timed: llama's training shape (f32), MLA's (f32 and bf16),
 # seamless's cross-attention and qwen2-vl's training shape (bf16, as
@@ -972,12 +1012,17 @@ FLASH_CASES = (
 FLASH_TIMED = (("train", "float32"), ("mla_train", "float32"),
                ("mla_train", "bfloat16"), ("encdec_cross", "bfloat16"),
                ("mrope_train", "bfloat16"), ("hymba_train", "float32"),
-               ("hymba_train", "bfloat16"))
+               ("hymba_train", "bfloat16"),
+               ("hymba_prefix_w64", "float32"),
+               ("hymba_prefix_w64", "bfloat16"),
+               ("hymba_prefix_w2048", "float32"),
+               ("hymba_prefix_w2048", "bfloat16"))
 
 
-def _visible_keys(Sq, Sk, causal, window, q_offset=0):
-    """Keys each query row attends to, summed over rows (one head); query
-    row i sits at position q_offset + i."""
+def _visible_mask(Sq, Sk, causal, window, q_offset=0, prefix=0):
+    """(Sq, Sk) bool: which keys each query row attends to; query row i
+    sits at position q_offset + i, and the first ``prefix`` keys are
+    always visible."""
     import numpy as np
     q = q_offset + np.arange(Sq)[:, None]
     k = np.arange(Sk)[None, :]
@@ -986,7 +1031,13 @@ def _visible_keys(Sq, Sk, causal, window, q_offset=0):
         ok &= k <= q
     if window:
         ok &= k > q - window
-    return int(ok.sum())
+    return ok | (k < prefix)
+
+
+def _visible_keys(Sq, Sk, causal, window, q_offset=0, prefix=0):
+    """Keys each query row attends to, summed over rows (one head)."""
+    return int(_visible_mask(Sq, Sk, causal, window, q_offset,
+                             prefix).sum())
 
 
 def phase_flash():
@@ -999,7 +1050,9 @@ def phase_flash():
     gen = torch.Generator(device=dev).manual_seed(2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"max_abs_err": 0.0, "timed": {}}
-    for tag, B, S, Sk, H, K, Dk, Dv, causal, window, q_off in FLASH_CASES:
+    for tag, B, S, Sk, H, K, Dk, Dv, causal, window, q_off, *pre \
+            in FLASH_CASES:
+        prefix = pre[0] if pre else 0
         G = H // K
         q32 = torch.randn((B * H, S, Dk), generator=gen, device=dev)
         k32 = torch.randn((B * K, Sk, Dk), generator=gen, device=dev)
@@ -1008,7 +1061,9 @@ def phase_flash():
                          ("bfloat16", torch.bfloat16)):
             q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
             opts = dict(causal=causal, window=window, groups=G,
-                        q_offset=q_off)
+                        q_offset=q_off, prefix=prefix)
+            mha = dict(causal=causal, window=window, q_offset=q_off,
+                       prefix=prefix)
             got = fa.flash_attention(q, k, v, **opts)
             again = fa.flash_attention(q, k, v, **opts)
             want = fa.flash_attention_plain(q, k, v, **opts)
@@ -1024,6 +1079,7 @@ def phase_flash():
             row = {"phase": "flash", "case": tag, "dtype": name, "B": B,
                    "S": S, "Sk": Sk, "H": H, "K": K, "Dk": Dk, "Dv": Dv,
                    "causal": causal, "window": window, "q_offset": q_off,
+                   "prefix": prefix,
                    "plan": list(fa.plan(Dk, Dv)), "max_abs_err": err,
                    "rel_err": rel}
             if (tag, name) in FLASH_TIMED:
@@ -1031,29 +1087,28 @@ def phase_flash():
                 q4 = q.reshape(B, H, S, Dk).transpose(1, 2).contiguous()
                 k4 = k.reshape(B, K, Sk, Dk).transpose(1, 2).contiguous()
                 v4 = v.reshape(B, K, Sk, Dv).transpose(1, 2).contiguous()
-                via_ops = ops.mha_flash(q4, k4, v4, causal=causal,
-                                        q_offset=q_off)
+                via_ops = ops.mha_flash(q4, k4, v4, **mha)
                 check(torch.equal(
                     via_ops.transpose(1, 2).reshape(B * H, S, Dv), got),
                     "flash: mha_flash layout differs")
                 row["kernel_ms"] = time_ms(
-                    lambda: ops.mha_flash(q4, k4, v4, causal=causal,
-                                          q_offset=q_off))
+                    lambda: ops.mha_flash(q4, k4, v4, **mha))
                 row["plain_ms"] = time_ms(
                     lambda: fa.flash_attention_plain(q, k, v, **opts),
                     iters=3, reps=3)
                 row["device_ms"] = time_ms(
-                    lambda: ops.mha_flash(q4, k4, v4, causal=causal,
-                                          q_offset=q_off),
+                    lambda: ops.mha_flash(q4, k4, v4, **mha),
                     hide_host=True)
                 qh = q.reshape(B, H, S, Dk)
                 kh = k.reshape(B, K, Sk, Dk).repeat_interleave(G, dim=1)
                 vh = v.reshape(B, K, Sk, Dv).repeat_interleave(G, dim=1)
                 # SDPA's is_causal aligns the mask top-left: an offset
-                # query block takes its mask as a boolean tensor
-                lib = dict(is_causal=causal) if not q_off else dict(
-                    attn_mask=torch.arange(Sk, device=dev)[None, :]
-                    <= q_off + torch.arange(S, device=dev)[:, None])
+                # query block, a window or a prefix takes its mask as a
+                # boolean tensor
+                lib = dict(is_causal=causal) if not (
+                    q_off or window or prefix) else dict(
+                    attn_mask=torch.as_tensor(_visible_mask(
+                        S, Sk, causal, window, q_off, prefix), device=dev))
                 try:
                     row["library_ms"] = time_ms(
                         lambda: sdpa(qh, kh, vh, **lib))
@@ -1066,7 +1121,7 @@ def phase_flash():
                 nbytes = esz * (B * H * S * (Dk + Dv)
                                 + B * K * Sk * (Dk + Dv))
                 flops = 2.0 * (Dk + Dv) * B * H * _visible_keys(
-                    S, Sk, causal, window, q_off)
+                    S, Sk, causal, window, q_off, prefix)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     nbytes, flops, name)
                 out["timed"][f"{tag}_{name}"] = {k_: row.get(k_) for k_ in (
@@ -1898,9 +1953,10 @@ def phase_rwkv_reduced():
           f"rwkv_reduced: the bf16 control passed the params check {worst}")
     check(rows[1]["n_recovered"] > 0 and rows[1]["failed_ids"] == [2],
           "rwkv_reduced: the failure recovered nothing")
-    # 2 layers: one WKV launch per layer and step (monolithic and fleet
-    # runs; the control too), per prefill, and per decode step
-    check(train_wkv == 3 * 3 * cfg.n_layers,
+    # 2 layers: one WKV launch per layer and step in the fleet runs (the
+    # control too), two in the monolithic step (its backward recomputes
+    # each layer: remat), one per prefill and per decode step
+    check(train_wkv == 3 * (2 + 1 + 1) * cfg.n_layers,
           f"rwkv_reduced: {train_wkv} WKV launches in training")
     check(serve_wkv == (1 + 40 + 2 * 8) * cfg.n_layers,
           f"rwkv_reduced: {serve_wkv} WKV launches in serving")
@@ -4866,6 +4922,420 @@ def phase_examples():
     return out
 
 
+# ------------------------------------------------------------------- mesh --
+
+# mesh_reduced's train-step cases: (arch, mesh dims, config overrides);
+# the capacity factor of 2 holds every routed token of the reduced MoE
+# (4 experts, top 2), so the sharded and the global routing drop none
+MESH_STEP_CASES = (("llama3-8b", (2, 2), None),
+                   ("granite-moe-1b-a400m", (2, 2), None),
+                   ("llama3-8b", (2, 1, 2), None),
+                   ("granite-moe-1b-a400m", (2, 1, 2), None),
+                   ("granite-moe-1b-a400m", (2, 2),
+                    {"capacity_factor": 2.0}))
+MESH_STRICT = 1e-5
+# the other families, each held sharded against single-device on 2x2
+# (``launch.mesh_check.family_parity``): loss and decode logits within
+# MESH_STRICT, each gradient leaf within FAMILY_GRAD_L2 in relative L2,
+# the bar the CPU parity tests hold RWKV, MoE, MLA and hymba params to:
+# a rank runs the recurrences on its batch rows, whose products the card
+# sums in another order than the whole batch's, and RWKV's smallest
+# gradient leaves read 4e-5 there (NVIDIA H100 80GB HBM3, 700.00 W; 1e-6
+# on the CPU)
+FAMILY_GRAD_L2 = 1e-4
+MESH_FAMILIES = ("deepseek-v2-236b", "hymba-1.5b", "rwkv6-7b",
+                 "qwen2-vl-72b", "seamless-m4t-medium", "qwen3-32b",
+                 "phi3-medium-14b", "qwen1.5-32b")
+
+
+def _mesh_rank_checks(rank, device="cuda"):
+    """One rank of mesh_reduced's threaded group: the train-step cases
+    (``launch.mesh_check.rank_body``), then the sharded MoE against the
+    global path, the sharded decode against the unsharded one, and
+    prefill then serve under decode rules against the unsharded port
+    (``device``: the card; the CPU for a rehearsal)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch import mesh_check as MC
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel.sharding import (make_rules, placements,
+                                               use_rules)
+    dev = torch.device(device)
+    out = {"steps": [dict(MC.rank_body(rank, 4, arch, dims, device, over),
+                          over=over)
+                     for arch, dims, over in MESH_STEP_CASES]}
+    mesh = MC.mesh_of((2, 2), device)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def put(t, spec, rules):
+        return distribute_tensor(t, mesh, placements(spec, rules.mesh),
+                                 src_data_rank=None)
+
+    # the sharded MoE on the global path's tokens, no token dropped
+    cfg = MC.reduced_config("granite-moe-1b-a400m", capacity_factor=2.0)
+    rules = make_rules(mesh, "train")
+    p = M.init_params(cfg, gen)["layers"]["moe"]
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn((4, 8, cfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        want, aux_w = MOE._moe_block_global(cfg, p, x)
+        with use_rules(rules):
+            dp = {k: put(v, SP._leaf_spec("moe/" + k, v.shape, rules),
+                         rules) for k, v in p.items()}
+            got, aux_g = MOE.moe_block(cfg, dp, put(x, ("data", None,
+                                                        "model"), rules))
+            got, aux_g = got.full_tensor(), aux_g.full_tensor()
+    out["moe_rel"] = float((got - want).abs().max() / want.abs().max())
+    out["moe_aux_rel"] = float((aux_g - aux_w).abs() / aux_w.abs())
+
+    # the sharded decode (cache sequence on 'model') against the unsharded
+    B, S, H, K, D, slot = 4, 64, 8, 2, 64, 37
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev)
+    kn, vn = (torch.randn((B, 1, K, D), generator=gen, device=dev)
+              for _ in range(2))
+    ck, cv = (torch.randn((B, S, K, D), generator=gen, device=dev)
+              for _ in range(2))
+    valid = torch.arange(S, device=dev) < slot + 1
+    drules = make_rules(mesh, "decode")
+    with torch.no_grad():
+        wk, wv = ck.clone(), cv.clone()
+        wk[:, slot], wv[:, slot] = kn[:, 0], vn[:, 0]
+        want = A.decode_attention(q, wk, wv, valid)
+        with use_rules(drules):
+            st = torch.tensor(slot, device=dev)
+            got = A.decode_attention(
+                put(q, ("data",), drules),
+                A._write_slot(put(ck, ("data", "model"), drules),
+                              put(kn, ("data",), drules), st),
+                A._write_slot(put(cv, ("data", "model"), drules),
+                              put(vn, ("data",), drules), st),
+                valid).full_tensor()
+    out["decode_rel"] = float((got - want).abs().max() / want.abs().max())
+
+    # prefill, then serve under decode rules, against the unsharded port
+    cfg = MC.reduced_config("llama3-8b")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (4, 8), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        logits, cache = M.prefill(cfg, params, {"tokens": tok})
+        want = [logits[:, -1].argmax(-1)]
+        for _ in range(3):
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          want[-1][:, None])
+            want.append(logits[:, -1].argmax(-1))
+    prules = make_rules(mesh, "prefill")
+    cpl = {n: placements(SP._divisible_spec(
+        drules, t.shape, [None if x == "layers" else x
+                          for x in SP.CACHE_LOGICAL[n]]), mesh)
+        for n, t in cache.items()}
+    prefill = ST.make_prefill_step(cfg, rules=prules, cache_placements=cpl)
+    serve = ST.make_serve_step(cfg, rules=drules)
+    logits, dcache = prefill(SP.shard_params(params, prules),
+                             {"tokens": put(tok, ("data", None), prules)})
+    got = [logits.full_tensor()[:, -1].argmax(-1)]
+    dparams = SP.shard_params(params, drules)
+    for _ in range(3):
+        logits, dcache = serve(dparams, dcache,
+                               put(got[-1][:, None], ("data", None),
+                                   drules))
+        got.append(logits.full_tensor()[:, -1].argmax(-1))
+    out["serve_tokens_equal"] = all(torch.equal(a, b)
+                                    for a, b in zip(got, want))
+    out["serve_tokens"] = [t.tolist() for t in got]
+    out["families"] = {a: MC.family_parity(a, device) for a in MESH_FAMILIES}
+    return out
+
+
+def phase_mesh_reduced():
+    """The mesh layer's checks on four ranks sharing the card: every B2
+    and B4 launch of the run held against its plain version (the audits
+    wrap the kernels for every rank thread)."""
+    import torch
+    from repro_torch import ieee_f32
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh_check as MC
+    ieee_f32()
+    torch.cuda.set_device(0)
+    bg.batched_launches = fa.launches = dec.flash_decode_launches = 0
+    t0 = time.perf_counter()
+    with band_gemm_audit(verify=True, entry="block_gemm_batched") as b2, \
+            attention_audit() as attn:
+        res = MC.run_threaded(4, _mesh_rank_checks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"block_gemm_batched": bg.batched_launches,
+                "flash_attention": fa.launches,
+                "flash_decode": dec.flash_decode_launches}
+    steps = [{k: r[k] for k in ("arch", "mesh", "over", "loss_single",
+                                "loss_mesh", "loss_rel",
+                                "params_worst_rel_l2", "params_allclose",
+                                "ok", "backend")} for r in res["steps"]]
+    row = {"phase": "mesh_reduced", "group": "threaded", "ranks": 4,
+           "wall_s": wall, "steps": steps, "moe_rel": res["moe_rel"],
+           "moe_aux_rel": res["moe_aux_rel"],
+           "decode_rel": res["decode_rel"],
+           "serve_tokens_equal": res["serve_tokens_equal"],
+           "families": res["families"],
+           "launches": launches, "b2_checked": b2["checked"],
+           "b2_max_rel_err": b2["max_rel_err"],
+           "b4_checked": attn["flash_attention"]["checked"],
+           "b4_max_rel_err": attn["flash_attention"]["max_rel_err"],
+           "b5_checked": attn["flash_decode"]["checked"],
+           "b5_max_rel_err": attn["flash_decode"]["max_rel_err"]}
+    emit(row)
+    for r in steps:
+        check(r["ok"], f"mesh_reduced {r['arch']} {r['mesh']}: {r}")
+        if r["arch"] == "llama3-8b" or r["over"]:
+            check(r["loss_rel"] <= MESH_STRICT
+                  and r["params_worst_rel_l2"] <= MESH_STRICT,
+                  f"mesh_reduced {r['arch']} {r['mesh']} off 1e-5: {r}")
+    check(res["moe_rel"] <= MESH_STRICT and res["moe_aux_rel"] <= MESH_STRICT,
+          f"mesh_reduced: sharded MoE off the global path {row}")
+    check(res["decode_rel"] <= MESH_STRICT,
+          f"mesh_reduced: sharded decode off {row}")
+    check(res["serve_tokens_equal"], f"mesh_reduced: serve tokens {row}")
+    for arch, r in res["families"].items():
+        check(r["loss_rel"] <= MESH_STRICT and r["decode_rel"] <= MESH_STRICT
+              and r["grad_rel"] <= FAMILY_GRAD_L2,
+              f"mesh_reduced {arch}: sharded off single-device {r}")
+    check(launches["block_gemm_batched"] > 0
+          and launches["flash_attention"] > 0
+          and b2["checked"] == launches["block_gemm_batched"]
+          and attn["flash_attention"]["checked"]
+          == launches["flash_attention"]
+          and attn["flash_decode"]["checked"] == launches["flash_decode"],
+          f"mesh_reduced: launches {launches}, checked {b2['checked']} "
+          f"B2, {attn['flash_attention']['checked']} B4, "
+          f"{attn['flash_decode']['checked']} B5")
+    return row
+
+
+# mesh_full's cases: (arch, shape, multi-pod, layers or None for the
+# config's own depth).  deepseek-v2-236b runs 16 of its 60 layers: its 16
+# microbatches take ~3.6 s a layer on rank 0 (at full depth the step took
+# 228 s and peaked at 19.6 GB on an NVIDIA H100 80GB HBM3, 700.00 W), and
+# at 30 layers the whole script took 763 s of its 1200, past the half of
+# its limit that it keeps to
+MESH_FULL_CASES = (("llama3-8b", "train_4k", False, None),
+                   ("llama3-8b", "decode_32k", False, None),
+                   ("granite-moe-1b-a400m", "train_4k", True, None),
+                   ("deepseek-v2-236b", "train_4k", False, 16))
+
+
+def _host_rss_gb(who=None) -> float:
+    """Peak resident host memory (GB) of this process, or of its finished
+    children with ``who="children"``."""
+    import resource
+    r = resource.getrusage(resource.RUSAGE_CHILDREN if who == "children"
+                           else resource.RUSAGE_SELF)
+    return r.ru_maxrss / 1e6
+
+
+def _layout(t) -> list:
+    return [list(t.shape), list(t.stride()), str(t.dtype).rsplit(".", 1)[-1]]
+
+
+@contextlib.contextmanager
+def launch_recorder():
+    """Wraps the B2, B4 and B5 wrappers while a path runs and counts each
+    launch by its signature: every operand's shape, strides and type, and
+    B4's mask flags.  Nothing is compared here: after a fake collective
+    the data mean nothing (:func:`check_launch_signatures` holds each
+    signature to its plain version on fresh data instead)."""
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    sigs = {"B2": collections.Counter(), "B4": collections.Counter(),
+            "B5": collections.Counter()}
+    real = (bg.block_gemm_batched, fa.attend, dec.flash_decode)
+
+    def block_gemm_batched(a, b):
+        n = bg.batched_launches
+        c = real[0](a, b)
+        if bg.batched_launches > n:
+            sigs["B2"][json.dumps([_layout(a), _layout(b)])] += 1
+        return c
+
+    def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
+               prefix=0, _block_q=None):
+        n = fa.launches
+        real[1](q, k, v, out, causal=causal, window=window,
+                q_offset=q_offset, prefix=prefix, _block_q=_block_q)
+        if fa.launches > n:
+            sigs["B4"][json.dumps([_layout(q), _layout(k), _layout(v),
+                                   _layout(out), bool(causal), int(window),
+                                   int(q_offset), int(prefix)])] += 1
+        return out
+
+    def flash_decode(q, k_cache, v_cache, valid, *, _split=None):
+        n = dec.flash_decode_launches
+        got = real[2](q, k_cache, v_cache, valid, _split=_split)
+        if dec.flash_decode_launches > n:
+            sigs["B5"][json.dumps([_layout(q), _layout(k_cache)])] += 1
+        return got
+
+    bg.block_gemm_batched, fa.attend = block_gemm_batched, attend
+    dec.flash_decode = flash_decode
+    try:
+        yield sigs
+    finally:
+        bg.block_gemm_batched, fa.attend, dec.flash_decode = real
+
+
+def mesh_full_case(arch, shape, multi_pod, layers, out_path):
+    """One mesh_full case, in a process of its own: ``python -m
+    repro_torch.launch.dryrun``'s ``main`` for rank 0 on the card, with
+    every B2, B4 and B5 launch's signature recorded; writes the dry run's
+    result with the signatures to ``out_path``."""
+    from repro_torch.launch import dryrun
+    argv = ["--arch", arch, "--shape", shape, "--out", out_path]
+    argv += ["--multi-pod"] if multi_pod == "1" else []
+    argv += ["--layers", layers] if layers != "0" else []
+    with launch_recorder() as sigs:
+        rc = dryrun.main(argv)
+    with open(out_path) as f:
+        res = json.load(f)
+    res[0]["launch_signatures"] = {k: dict(v) for k, v in sigs.items()}
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return rc
+
+
+def _strided_randn(layout, gen, dev, scale=1.0):
+    """A tensor of a recorded layout (shape, strides, type), filled with
+    N(0, scale^2)."""
+    import torch
+    shape, stride, dt = layout
+    t = torch.empty_strided(shape, stride, dtype=torch.float32, device=dev)
+    t.copy_(torch.randn(shape, generator=gen, device=dev) * scale)
+    return t.to(getattr(torch, dt))
+
+
+def check_launch_signatures(sigs, what: str) -> dict:
+    """Each recorded B2 and B4 signature (:func:`launch_recorder`) run
+    once on fresh inputs of its layout, kernel against plain version: B2
+    within 1e-5 of the largest output (both sum exact products in f32),
+    B4 within 1e-5 in f32 and one bf16 ulp (2^-7) in bf16.  B5 must not
+    have launched (nothing here rebuilds its validity mask).  Returns per
+    kernel the signatures checked and the worst relative error."""
+    import torch
+    from repro_torch.kernels import block_gemm as bg
+    from repro_torch.kernels import flash_attention as fa
+    check(not sigs["B5"], f"{what}: B5 launched, its launches unchecked "
+          f"{sigs['B5']}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    res = {k: {"signatures": len(sigs[k]), "checked": 0, "max_rel_err": 0.0}
+           for k in ("B2", "B4")}
+
+    def hold(kernel, got, want, sig, tol):
+        scale = max(float(want.float().abs().max()), 1e-30)
+        rel = float((got.float() - want.float()).abs().max()) / scale
+        check(rel <= tol, f"{what}: {kernel} launch {sig}: rel err "
+              f"{rel:.3g} against the plain version (limit {tol:g})")
+        res[kernel]["checked"] += 1
+        res[kernel]["max_rel_err"] = max(res[kernel]["max_rel_err"], rel)
+
+    with torch.no_grad():
+        for sig in sigs["B2"]:
+            la, lb = json.loads(sig)
+            a = _strided_randn(la, gen, dev)
+            b = _strided_randn(lb, gen, dev, la[0][-1] ** -0.5)
+            hold("B2", bg.block_gemm_batched(a, b),
+                 bg.block_gemm_batched_plain(a, b), sig, 1e-5)
+            del a, b
+        for sig in sigs["B4"]:
+            lq, lk, lv, lo, causal, window, q_offset, prefix = \
+                json.loads(sig)
+            q, k, v = (_strided_randn(x, gen, dev) for x in (lq, lk, lv))
+            out = _strided_randn(lo, gen, dev)
+            flags = dict(causal=causal, window=window, q_offset=q_offset,
+                         prefix=prefix)
+            fa.attend(q, k, v, out, **flags)
+            want = fa._attend_plain(q, k, v, **flags)
+            hold("B4", out, want, sig,
+                 1e-5 if out.dtype == torch.float32 else BF16_OUT_TOL)
+            del q, k, v, out, want
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase_mesh_full():
+    """Rank 0 of each production-mesh case run on the card by
+    ``python -m repro_torch.launch.dryrun``'s ``main``, one process a case
+    (each starts from a clean card and host), with its measured peak,
+    cost terms, step time and device idle share; then every B2 and B4
+    signature the case launched held to its plain version here."""
+    import tempfile
+
+    import torch
+    rows = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "sys.exit(chip_smoke.mesh_full_case(*sys.argv[2:]))")
+    for arch, shape, multi_pod, layers in MESH_FULL_CASES:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "out.json")
+            cmd = [sys.executable, "-c", code, ROOT, arch, shape,
+                   str(int(multi_pod)), str(layers or 0), out]
+            proc = subprocess.run(cmd, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            check(proc.returncode == 0, f"mesh_full {arch} {shape}: "
+                  f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+            with open(out) as f:
+                r = json.load(f)[0]
+        sigs = r["launch_signatures"]
+        recorded = {k: sum(v.values()) for k, v in sigs.items()}
+        checked = check_launch_signatures(sigs, f"mesh_full {arch} {shape}")
+        row = {"phase": "mesh_full", "arch": arch, "shape": shape,
+               "mesh": r["mesh"], "axes": r["axes"], "mode": r["mode"],
+               "n_layers": r["n_layers"],
+               "peak_per_device": r["memory"]["peak_per_device"],
+               "hbm_bytes": r["memory"]["hbm_bytes"],
+               "fits_hbm": r["memory"]["fits_hbm"],
+               "flops": r["cost"]["flops"], "bytes": r["cost"]["bytes"],
+               "kernel_flops": r["cost"]["kernel_flops"],
+               "collectives": r["collectives"],
+               "collective_bytes": r["collective_bytes"],
+               "roofline": r["roofline"], "dominant": r["dominant"],
+               "model_flops_per_device": r["model_flops_per_device"],
+               "useful_flops_ratio": r["useful_flops_ratio"],
+               "step_ms": r["step_ms"], "device_busy_ms": r["device_busy_ms"],
+               "device_idle_share": r["device_idle_share"],
+               "step_s": r["step_s"], "build_s": r["build_s"],
+               "launches": {"B2": r["launches"]["B2"],
+                            "B4": r["launches"]["B4"],
+                            "B5": r["launches"]["B5"]},
+               "signatures_checked": checked,
+               "host_rss_gb_children_peak": _host_rss_gb("children"),
+               "host_rss_gb_parent_peak": _host_rss_gb()}
+        emit(row)
+        rows[f"{arch}_{shape}"] = row
+        check(row["peak_per_device"] > 0 and row["flops"] > 0
+              and row["collective_bytes"] > 0,
+              f"mesh_full {arch} {shape}: empty measurement {row}")
+        check(recorded == row["launches"]
+              and all(c["checked"] == c["signatures"]
+                      for c in checked.values()),
+              f"mesh_full {arch} {shape}: launches {row['launches']}, "
+              f"recorded {recorded}, signatures checked {checked}")
+        check(row["launches"]["B4"] > 0 or shape == "decode_32k",
+              f"mesh_full {arch} {shape}: no attention launch {row}")
+        if arch.startswith(("granite", "deepseek")):
+            check(row["launches"]["B2"] > 0,
+                  f"mesh_full {arch} {shape}: no expert launch {row}")
+    return rows
+
+
 def profiled_step(step):
     """Runs ``step()`` once under ``torch.profiler`` (the card's activity
     only); returns (its wall seconds, the seconds of device activity it
@@ -4965,6 +5435,8 @@ def main(argv=None) -> int:
     if "sim" in phases:
         phase_sim()
     examples = phase_examples() if "examples" in phases else None
+    mesh_r = phase_mesh_reduced() if "mesh_reduced" in phases else None
+    mesh_f = phase_mesh_full() if "mesh_full" in phases else None
     if "split" in phases:
         phase_split()
     if "f32sets" in phases:
@@ -4978,7 +5450,8 @@ def main(argv=None) -> int:
     if all(x is not None for x in (gemm, paged, flash, decode, wkv,
                                    launches, train, rwkv, bgemm, moe,
                                    mla, mrope, encdec, hymba, multips_r,
-                                   multips, batch, examples)) \
+                                   multips, batch, examples, mesh_r,
+                                   mesh_f)) \
             and len(cells) == 7:
         train_launches, gset = train
         ex = examples["launches"]
@@ -5106,6 +5579,24 @@ def main(argv=None) -> int:
              "launches_examples": ex["flash_attention"],
              "examples_max_rel_vs_plain":
                  examples["max_rel_vs_plain"]["flash_attention"],
+             "launches_mesh_reduced":
+                 mesh_r["launches"]["flash_attention"],
+             "mesh_reduced_max_rel_vs_plain": mesh_r["b4_max_rel_err"],
+             "launches_mesh_full": {k: v["launches"]["B4"]
+                                    for k, v in mesh_f.items()},
+             "mesh_full_signatures_max_rel_vs_plain": max(
+                 v["signatures_checked"]["B4"]["max_rel_err"]
+                 for v in mesh_f.values()),
+             "hymba_prefix_window_shapes": {
+                 "ms_of": "one launch with hymba-1.5b's 128 meta keys "
+                          "always visible under a sliding window: at its "
+                          "training shape with a window of 64, and at B "
+                          "1, Sq 4096 with a window of 2048; library: "
+                          "scaled_dot_product_attention with the mask",
+                 **{k: flash["timed"][k] for k in (
+                     "hymba_prefix_w64_float32", "hymba_prefix_w64_bfloat16",
+                     "hymba_prefix_w2048_float32",
+                     "hymba_prefix_w2048_bfloat16")}},
              "hymba_shape": {
                  "ms_of": "one launch at hymba-1.5b's training shape (B 8, "
                           "Sq 128 after 128 meta keys, Sk 256, q_offset "
@@ -5143,6 +5634,10 @@ def main(argv=None) -> int:
              "launches_examples": ex["flash_decode"],
              "examples_max_rel_vs_plain":
                  examples["max_rel_vs_plain"]["flash_decode"],
+             "launches_mesh_reduced": mesh_r["launches"]["flash_decode"],
+             "mesh_reduced_max_rel_vs_plain": mesh_r["b5_max_rel_err"],
+             "launches_mesh_full": {k: v["launches"]["B5"]
+                                    for k, v in mesh_f.items()},
              "launches_by_route": launches["flash_decode_by_route"],
              "ms_of": "one launch at the serving path's shape (4 requests, "
                       "cache of 32, f32 pools)",
@@ -5183,6 +5678,14 @@ def main(argv=None) -> int:
              "launches_mla_training": mla["training"]["bgemm"],
              "launches_mla_serving": mla["serving"]["bgemm"],
              "launches_examples": ex["block_gemm_batched"],
+             "launches_mesh_reduced":
+                 mesh_r["launches"]["block_gemm_batched"],
+             "mesh_reduced_max_rel_vs_plain": mesh_r["b2_max_rel_err"],
+             "launches_mesh_full": {k: v["launches"]["B2"]
+                                    for k, v in mesh_f.items()},
+             "mesh_full_signatures_max_rel_vs_plain": max(
+                 v["signatures_checked"]["B2"]["max_rel_err"]
+                 for v in mesh_f.values()),
              "max_abs_err_mla": mla["max_abs_err"],
              "mla_training_step": {
                  "ms_of": "the launches of mla_full's first training step "

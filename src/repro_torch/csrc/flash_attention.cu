@@ -4,7 +4,8 @@
 // Replaces the Pallas kernel `flash_attention`
 // (src/repro/kernels/flash_attention.py:64, body `_flash_kernel`): per
 // (batch, head) and tile of query rows, s = (q·scale)·kᵀ in f32, masked
-// (kpos <= qpos when causal, kpos > qpos - window when a window is set),
+// (kpos <= qpos when causal, kpos > qpos - window when a window is set;
+// the first `prefix` keys, Hymba's meta tokens, are always visible),
 // then an online max, denominator and accumulator over key tiles, with
 // p = exp(s - m)·mask cast to v's type before the p·v product, and
 // out = acc / max(l, 1e-30) in q's type. It runs the attention forward of
@@ -49,6 +50,13 @@
 // changes. Ragged Sq, Sk and D are masked, not padded. Operands are
 // addressed through strides, so the (B, S, H, D) layout of the model is
 // read in place.
+//
+// A prefix of P always-visible keys (Hymba's meta tokens, put before the
+// sequence's keys by the caller, with q_offset raised by P) passes every
+// mask: keys j < P are visible to every row, and keys j >= P keep the
+// causal and window tests, whose positions are shifted alike. Under a
+// window the key loop visits the tiles that hold the prefix, then jumps
+// to the window's first tile; the tiles between are skipped as before.
 //
 // q and k may be wider than v (MLA: Dk = 192 of nope and rope columns, Dv
 // = 128): the kernel is templated on the two padded widths, Q and K tiles
@@ -245,7 +253,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int G, int Hk,
                  int Sq, int Sk, int Dk, int Dv, Strides qs, Strides ks,
                  Strides vs, Strides os, int causal, int window,
-                 int q_offset, float scale, int vec) {
+                 int q_offset, int prefix, float scale, int vec) {
   constexpr int NT = 2 * BQ;       // threads
   constexpr int C4 = DPK / 4;      // float4 columns of a q or k row
   constexpr int CV4 = DPV / 4;     // float4 columns of a v row
@@ -279,8 +287,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qlo = q_offset + pos_lo, qhi = q_offset + pos_hi;
   int kend = Sk;
   if (causal) kend = max(0, min(Sk, qhi + 1));
-  int kbeg = 0;
-  if (window > 0) kbeg = max(0, qlo - window + 1) / BK * BK;
+  // under a window: the prefix's tiles [0, pend), then the window's from
+  // wbeg; with no prefix the loop starts at wbeg
+  int kbeg = 0, pend = 0, wbeg = 0;
+  if (window > 0) {
+    wbeg = max(0, qlo - window + 1) / BK * BK;
+    pend = (min(prefix, Sk) + BK - 1) / BK * BK;
+    kbeg = pend > 0 ? 0 : wbeg;
+  }
+  // the key tile after k0
+  auto next_tile = [&](int k0) {
+    const int n = k0 + BK;
+    return (n >= pend && n < wbeg) ? wbeg : n;
+  };
   if (kbeg < kend) {
     stage_q<T, DPK, BQ, NT>(Qs, qb, qs, R0, G, Sq, Dk, vec, scale);
     cp_async_commit();
@@ -308,8 +327,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 4 * DJ; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    const bool more = k0 + BK < kend;
+  for (int k0 = kbeg; k0 < kend; k0 = next_tile(k0)) {
+    const int kn = next_tile(k0);
+    const bool more = kn < kend;
     cp_async_wait<1>();   // this K tile (and the queries) have landed
     __syncthreads();
 
@@ -337,7 +357,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
     __syncthreads();    // every QKᵀ read of Ks is done: load the next tile
-    if (more) stage_kv<T, DPK, NT>(Ks, kb, ks.s, k0 + BK, Sk, Dk, vec, true);
+    if (more) stage_kv<T, DPK, NT>(Ks, kb, ks.s, kn, Sk, Dk, vec, true);
     cp_async_commit();
 
     float corr[4], pr[4][8];
@@ -348,8 +368,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kpos = k0 + kl + 8 * j;
-        ok[j] = kpos < Sk && (!causal || kpos <= qpos[i]) &&
-                (window <= 0 || kpos > qpos[i] - window);
+        ok[j] = kpos < Sk &&
+                (kpos < prefix || ((!causal || kpos <= qpos[i]) &&
+                                   (window <= 0 || kpos > qpos[i] - window)));
         if (!ok[j]) s[i][j] = NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -405,7 +426,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();    // every read of Vs and Pt is done
-    if (more) stage_kv<T, DPV, NT>(Vs, vb, vs.s, k0 + BK, Sk, Dv, vec, false);
+    if (more) stage_kv<T, DPV, NT>(Vs, vb, vs.s, kn, Sk, Dv, vec, false);
     cp_async_commit();
   }
 
@@ -430,7 +451,8 @@ template <typename T, int DPK, int DPV, int BQ>
 int launch_dp(const T* q, const T* k, const T* v, T* o, int B, int H,
               int Hk, int Sq, int Sk, int Dk, int Dv, Strides qs,
               Strides ks, Strides vs, Strides os, int causal, int window,
-              int q_offset, float scale, int vec, cudaStream_t stream) {
+              int q_offset, int prefix, float scale, int vec,
+              cudaStream_t stream) {
   constexpr int smem = smem_bytes<DPK, DPV, BQ>();
   static bool ready[64] = {};   // the attributes, once per device
   int dev = 0;
@@ -452,7 +474,7 @@ int launch_dp(const T* q, const T* k, const T* v, T* o, int B, int H,
   dim3 grid(B * Hk, (unsigned)tiles);
   flash_fwd_kernel<T, DPK, DPV, BQ><<<grid, 2 * BQ, smem, stream>>>(
       q, k, v, o, G, Hk, Sq, Sk, Dk, Dv, qs, ks, vs, os, causal, window,
-      q_offset, scale, vec);
+      q_offset, prefix, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -465,7 +487,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hk, int Sq, int Sk, int Dk, int Dv,
            const long long* st, int causal, int window, int q_offset,
-           float scale, int dpk, int dpv, int bq, void* stream) {
+           int prefix, float scale, int dpk, int dpv, int bq,
+           void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaGetLastError();
   if (Hk <= 0 || H % Hk != 0 || Dk <= 0 || Dv <= 0 || Dk > dpk || Dv > dpv)
     return (int)cudaErrorInvalidValue;
@@ -487,7 +510,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (dpk == DPK && dpv == DPV && bq == BQ)                               \
     return launch_dp<T, DPK, DPV, BQ>(qp, kp, vp, op, B, H, Hk, Sq, Sk, Dk, \
                                       Dv, qs, ks, vs, os, causal, window,   \
-                                      q_offset, scale, vec, s);
+                                      q_offset, prefix, scale, vec, s);
   FLASH_CASE(32, 32, 64)
   FLASH_CASE(64, 64, 64)
   FLASH_CASE(96, 96, 64)
@@ -511,20 +534,22 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int Hk, int Sq, int Sk, int Dk, int Dv,
                                    const long long* strides, int causal,
-                                   int window, int q_offset, float scale,
-                                   int dpk, int dpv, int bq, void* stream) {
+                                   int window, int q_offset, int prefix,
+                                   float scale, int dpk, int dpv, int bq,
+                                   void* stream) {
   return launch<float>(q, k, v, o, B, H, Hk, Sq, Sk, Dk, Dv, strides,
-                       causal, window, q_offset, scale, dpk, dpv, bq,
-                       stream);
+                       causal, window, q_offset, prefix, scale, dpk, dpv,
+                       bq, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
                                     int Hk, int Sq, int Sk, int Dk, int Dv,
                                     const long long* strides, int causal,
-                                    int window, int q_offset, float scale,
-                                    int dpk, int dpv, int bq, void* stream) {
+                                    int window, int q_offset, int prefix,
+                                    float scale, int dpk, int dpv, int bq,
+                                    void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, Sq, Sk, Dk, Dv,
-                               strides, causal, window, q_offset, scale,
-                               dpk, dpv, bq, stream);
+                               strides, causal, window, q_offset, prefix,
+                               scale, dpk, dpv, bq, stream);
 }

@@ -26,7 +26,7 @@ BLOCK_Q = 64                 # (position, head) rows of a kernel block
 BLOCK_Q_MLA = 128            # the same at the (192, 128) tiles
 MAX_DK, MAX_DV = 192, 128    # head dims the kernel is built for
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3 \
+    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4 \
     + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
@@ -43,10 +43,10 @@ def plan(dk: int, dv: int) -> tuple:
     return MAX_DK, MAX_DV, BLOCK_Q_MLA
 
 
-def _attend_plain(q, k, v, *, causal, window, q_offset):
+def _attend_plain(q, k, v, *, causal, window, q_offset, prefix=0):
     """(B, H, Sq, Dk) x (B, Hk, Sk, Dk), (B, Hk, Sk, Dv) -> (B, H, Sq, Dv)
     in q's dtype, scaled by 1/sqrt(Dk); query head h reads kv head
-    h // (H // Hk)."""
+    h // (H // Hk).  Keys j < ``prefix`` are visible to every query."""
     B, H, Sq, D = q.shape
     Hk, Sk = k.shape[1], k.shape[2]
     G = H // Hk
@@ -66,6 +66,8 @@ def _attend_plain(q, k, v, *, causal, window, q_offset):
             mask &= kpos[None, :] <= qpos[:, None]
         if window:
             mask &= kpos[None, :] > qpos[:, None] - window
+        if prefix:
+            mask |= kpos[None, :] < prefix
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None]) * mask     # fully-masked-row safe
@@ -81,11 +83,12 @@ def _attend_plain(q, k, v, *, causal, window, q_offset):
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
-                          groups=1):
+                          groups=1, prefix=0):
     """Plain version of :func:`flash_attention` (same arguments)."""
     del groups                   # implied by the head counts
     return _attend_plain(q[None], k[None], v[None], causal=causal,
-                         window=window, q_offset=q_offset)[0]
+                         window=window, q_offset=q_offset,
+                         prefix=prefix)[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,14 +102,17 @@ def _kernel(dtype):
     return fn
 
 
-def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
+def attend(q, k, v, out, *, causal=True, window=0, q_offset=0, prefix=0,
            _block_q=None):
     """Write attention of ``q`` over ``k``/``v`` into ``out``.  q is (B, H,
     Sq, Dk), k (B, Hk, Sk, Dk), v (B, Hk, Sk, Dv) and out (B, H, Sq, Dv),
     all views with unit stride along the head dim (any other strides; the
     model's (B, S, H, D) tensors pass as ``x.transpose(1, 2)``), with H %
     Hk == 0.  Query row i sits at position ``q_offset + i``; the scale is
-    1/sqrt(Dk).  ``_block_q`` is for the block-shape sweep of
+    1/sqrt(Dk).  The first ``prefix`` keys pass every mask (Hymba's meta
+    tokens, put before the sequence with ``q_offset`` raised by their
+    count); the others keep the causal and window tests.  ``_block_q`` is
+    for the block-shape sweep of
     ``chip_smoke.py --phases build,split`` alone: the kernel's rows a
     block in place of :func:`plan`'s (32 and 128 are also built, for f32
     at (128, 128) tiles; the CPU path ignores it)."""
@@ -126,7 +132,7 @@ def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
         raise ValueError(f"operands on several devices: {devs}")
     if q.device.type == "cpu":
         out.copy_(_attend_plain(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset))
+                                q_offset=q_offset, prefix=prefix))
         return out
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
@@ -152,7 +158,8 @@ def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
             k.shape[1], Sq, k.shape[2], Dk, Dv, strides, int(bool(causal)),
-            int(window), int(q_offset), 1.0 / math.sqrt(Dk), dpk, dpv, bq)
+            int(window), int(q_offset), int(prefix), 1.0 / math.sqrt(Dk),
+            dpk, dpv, bq)
     # as the block GEMM's launch: the raw stream, and no device switch when
     # the card is already current
     idx = q.device.index
@@ -171,7 +178,7 @@ def attend(q, k, v, out, *, causal=True, window=0, q_offset=0,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
-                    groups: int = 1) -> torch.Tensor:
+                    groups: int = 1, prefix: int = 0) -> torch.Tensor:
     """q: (BH, Sq, Dk); k: (BH // groups, Sk, Dk); v: (BH // groups, Sk,
     Dv), float32 or bfloat16.  Query row bh reads kv row bh // groups
     (heads flattened batch-major, as ``ops.mha_flash`` lays them out).
@@ -185,5 +192,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty(q.shape[:2] + v.shape[2:], dtype=q.dtype,
                       device=q.device)
     attend(q[None], k[None], v[None], out[None], causal=causal,
-           window=window, q_offset=q_offset)
+           window=window, q_offset=q_offset, prefix=prefix)
     return out

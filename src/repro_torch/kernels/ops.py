@@ -88,7 +88,14 @@ def expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     in both operands (:class:`_ExpertMatmul`).  With no gradient asked, an
     f32 buffer meets bf16 weights as they are stored (the serving decode
     step): the kernel widens them exactly, so the result has the bits of
-    the promoted call without an f32 copy of every expert."""
+    the promoted call without an f32 copy of every expert.  The operands
+    are local tensors: under a mesh the caller runs this on each rank's
+    block (``parallel.spmd.region``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(a, DTensor) or isinstance(w, DTensor):
+        raise TypeError("expert_matmul takes local tensors, not DTensors: "
+                        "run it on each rank's block "
+                        "(repro_torch.parallel.spmd.region)")
     if a.dtype == torch.float32 and w.dtype == torch.bfloat16 and not (
             torch.is_grad_enabled() and (a.requires_grad or w.requires_grad)):
         with torch.profiler.record_function("moe.experts"):
@@ -481,16 +488,17 @@ def plan_gemm(a, b, rects, *, block=128, kernel="auto", compute_dtype=None,
     return blocks
 
 
-def mha_flash(q, k, v, *, causal=True, window=0, q_offset=0):
+def mha_flash(q, k, v, *, causal=True, window=0, q_offset=0, prefix=0):
     """GQA flash attention.  q: (B,Sq,H,Dk); k: (B,Sk,K,Dk); v: (B,Sk,K,Dv)
     with H % K == 0.  Returns (B,Sq,H,Dv) in q's dtype.  Query head h reads
     kv head h // (H // K) by index (no repeated copy of k and v), and the
-    kernel reads the (B, S, heads, D) layout in place."""
+    kernel reads the (B, S, heads, D) layout in place.  The first
+    ``prefix`` keys are visible to every query (``flash_attention.attend``)."""
     out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
                       device=q.device)
     _fa.attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                out.transpose(1, 2), causal=causal, window=window,
-               q_offset=q_offset)
+               q_offset=q_offset, prefix=prefix)
     return out
 
 

@@ -3,8 +3,10 @@ through the flash-attention kernel, decode attention against
 (per-request) KV caches, qk-norm and QKV bias, M-RoPE, cross-attention
 against an encoder's K/V, and DeepSeek-V2's multi-head latent attention
 with its absorbed decode, and Hymba's learned meta-token K/V prefixes
-(port of ``src/repro/models/attention.py`` but its mesh-sharded decode,
-``_decode_attention_sharded``).
+(port of ``src/repro/models/attention.py``).  On a mesh (DTensor inputs
+under ``parallel.sharding`` rules) the attention runs on each rank's
+block of batch and heads, and the decode through the sharded
+flash-decode (:func:`_decode_attention_sharded`).
 
 Every contraction runs in f32 on the operands' values (the reference's
 ``preferred_element_type=float32``); bf16 operands are upcast, which is
@@ -18,6 +20,8 @@ import torch
 from repro_torch import ieee_f32
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import (constrain, current_rules,
+                                           is_dtensor)
 
 NEG_INF = -1e30
 
@@ -29,11 +33,11 @@ def _chunk_sizes(sq, sk, q_chunk, k_chunk):
 
 
 def _chunked_reference(q, k, v, *, causal, window, q_offset, q_chunk,
-                       k_chunk):
+                       k_chunk, prefix=0):
     """The torch body of :func:`chunked_attention`, in f32: query chunks
     one after another, each against the full key set.  The attention
     backward differentiates it (recomputing the forward, as the reference's
-    remat'd chunks do)."""
+    remat'd chunks do).  Keys j < ``prefix`` are visible to every query."""
     B, Sq, H, Dk = q.shape
     K = k.shape[2]
     G = H // K
@@ -60,6 +64,8 @@ def _chunked_reference(q, k, v, *, causal, window, q_offset, q_chunk,
             mask &= kpos[None, :] <= qpos[:, None]
         if window:
             mask &= kpos[None, :] > qpos[:, None] - window
+        if prefix:
+            mask |= kpos[None, :] < prefix
         s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
         m = s.max(dim=-1, keepdim=True).values
         p = torch.exp(s - m) * mask[None, None]
@@ -76,12 +82,13 @@ class _FlashAttention(torch.autograd.Function):
     through a remat of its query chunks."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, k_chunk):
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, k_chunk,
+                prefix):
         ctx.save_for_backward(q, k, v)
         ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
-                        q_chunk=q_chunk, k_chunk=k_chunk)
+                        q_chunk=q_chunk, k_chunk=k_chunk, prefix=prefix)
         return ops.mha_flash(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
+                             q_offset=q_offset, prefix=prefix)
 
     @staticmethod
     def backward(ctx, g):
@@ -91,7 +98,7 @@ class _FlashAttention(torch.autograd.Function):
         with torch.enable_grad():
             out = _chunked_reference(*leaves, **ctx.opts)
             dq, dk, dv = torch.autograd.grad(out, leaves, g)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
@@ -104,27 +111,69 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     exact); ``q_chunk``/``k_chunk`` shape the backward's recompute.
 
     ``prefix_kv = (pk, pv)``, pk: (B,P,K,Dk), is an always-visible prefix
-    at positions < 0 (Hymba's meta tokens).  It is put before k and v and
-    the queries shifted by P: key j of the concatenation is then visible
-    to query i iff j <= P + q_offset + i, the reference's mask without a
-    window.  With a window the shift would hide prefix keys that the
-    reference keeps, so a prefix and a window together raise (the
-    mesh layer's long-context specs, ROADMAP A.7)."""
+    at positions < 0 (Hymba's meta tokens).  It is put before k and v,
+    the queries shifted by P, and the kernel told that the first P keys
+    pass every mask: the others keep the causal and window tests on the
+    shifted positions, the reference's mask."""
+    if is_dtensor(q):
+        return _chunked_attention_sharded(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            prefix_kv=prefix_kv, q_chunk=q_chunk, k_chunk=k_chunk)
     dtype = v.dtype
     k, v = k.float(), v.float()
+    P = 0
     if prefix_kv is not None:
-        if window:
-            raise NotImplementedError(
-                "attention with a meta-token prefix and a sliding window is "
-                "not ported (the mesh layer's long-context specs, ROADMAP "
-                "A.7)")
         pk, pv = prefix_kv
+        P = pk.shape[1]
         k = torch.cat([pk.float(), k], dim=1)
         v = torch.cat([pv.float(), v], dim=1)
-        q_offset = q_offset + pk.shape[1]
+        q_offset = q_offset + P
     out = _FlashAttention.apply(q.float(), k, v, causal, window, q_offset,
-                                q_chunk, k_chunk)
+                                q_chunk, k_chunk, P)
     return out.to(dtype)
+
+
+def _chunked_attention_sharded(q, k, v, *, prefix_kv, **opts):
+    """:func:`chunked_attention` on a mesh: each rank runs the kernel on
+    its block, batch on the batch axes and query heads on 'model' (heads
+    are independent, so each block's launch is exact).  As the
+    reference, k and v go to the full head count first (``repeat`` of
+    the kv heads, then the head constraint): here each rank reads the
+    kv heads whole and takes those its query heads use."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import constrained_spec, placements
+    rules = current_rules()
+    mesh = rules.mesh
+    H, K = q.shape[2], k.shape[2]
+    spec = constrained_spec(rules, q.shape, "batch", "seq", "heads",
+                            "head_dim")
+    qp = placements(spec, mesh)
+    kvp = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in qp)
+    head_axis = spec[2]
+    args = [q, k, v]
+    pls = [qp, kvp, kvp]
+    if prefix_kv is not None:
+        # the meta tokens broadcast over the batch: every rank reads them
+        # whole and keeps as many rows as its block has
+        args += list(prefix_kv)
+        pls += [(Replicate(),) * len(qp)] * 2
+
+    def body(ql, kl, vl, *pre):
+        h0, h1 = (spmd.block_range(H, mesh, head_axis) if head_axis
+                  else (0, H))
+        idx = torch.arange(h0, h1, device=ql.device) // (H // K)
+        kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        pkv = None
+        if pre:
+            Bl = ql.shape[0]
+            pkv = tuple(t[:Bl].index_select(2, idx) for t in pre)
+        return chunked_attention(ql, kl, vl, prefix_kv=pkv, **opts)
+
+    return spmd.region(body, mesh, tuple(pls), qp,
+                       tuple(q.shape[:3]) + (v.shape[3],))(*args)
 
 
 def decode_attention(q, k_cache, v_cache, valid, prefix_kv=None):
@@ -142,7 +191,11 @@ def decode_attention(q, k_cache, v_cache, valid, prefix_kv=None):
     row with no valid slot (which ``decode_step`` never forms) gives zeros
     on the card and the mean of V here.  int8 caches, which the reference
     reads without their scales (ROADMAP.md, faults), take the plain body
-    on both devices: no kernel of either package reads them."""
+    on both devices: no kernel of either package reads them.  On a mesh
+    (DTensors) :func:`_decode_attention_mesh` dispatches as the reference
+    does."""
+    if is_dtensor(q):
+        return _decode_attention_mesh(q, k_cache, v_cache, valid, prefix_kv)
     if not (q.is_cuda and k_cache.is_floating_point()):
         return decode_attention_plain(q, k_cache, v_cache, valid, prefix_kv)
     if prefix_kv is not None:
@@ -212,16 +265,16 @@ def init_attention(cfg, gen, lead=()):
 def _project_qkv(cfg, p, x):
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = L.pdot(x, p["wq"])
-    k = L.pdot(x, p["wk"])
-    v = L.pdot(x, p["wv"])
+    q = L.pdot(x, constrain(p["wq"], "w_in_use", "w_out"))
+    k = L.pdot(x, constrain(p["wk"], "w_in_use", "w_out"))
+    v = L.pdot(x, constrain(p["wv"], "w_in_use", "w_out"))
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    q = L.reshape(q, (B, S, H, hd))
+    k = L.reshape(k, (B, S, K, hd))
+    v = L.reshape(v, (B, S, K, hd))
     if cfg.qk_norm:
         q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -264,11 +317,17 @@ def attention_block(cfg, p, x, positions, *, causal=True, window=0,
         causal = False
     else:
         q, k = _rope_qk(cfg, q, k, positions)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             prefix_kv=_meta_kv(cfg, p, B),
                             q_chunk=q_chunk, k_chunk=k_chunk)
-    out = out.reshape(B, S, -1)
-    return L.pdot(out, p["wo"]), (k, v)
+    out = constrain(out, "batch", "seq", "heads", "head_dim")
+    out = L.reshape(out, (B, S, out.shape[2] * out.shape[3]))
+    out = constrain(L.pdot(out, constrain(p["wo"], "w_out", "w_in_use")),
+                    "batch", "seq", "embed")
+    return out, (k, v)
 
 
 def project_cross_kv(cfg, p, enc_x):
@@ -276,8 +335,10 @@ def project_cross_kv(cfg, p, enc_x):
     decode session, and for every decoder layer in training."""
     B, S, _ = enc_x.shape
     K, hd = cfg.n_kv_heads, cfg.head_dim
-    k = L.pdot(enc_x, p["wk"]).reshape(B, S, K, hd)
-    v = L.pdot(enc_x, p["wv"]).reshape(B, S, K, hd)
+    k = L.reshape(L.pdot(enc_x, constrain(p["wk"], "w_in_use", "w_out")),
+                  (B, S, K, hd))
+    v = L.reshape(L.pdot(enc_x, constrain(p["wv"], "w_in_use", "w_out")),
+                  (B, S, K, hd))
     if cfg.qk_norm:
         k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     return k, v
@@ -324,14 +385,87 @@ def attention_decode(cfg, p, x, pos, cache_k, cache_v, slot, valid,
                              device=ck.device)
         out = decode_attention(q, ck, cv, valid_c)
         k = v = None
-    out = out.reshape(B, 1, -1)
-    return L.pdot(out, p["wo"]), k, v
+    out = L.reshape(out, (B, 1, out.shape[2] * out.shape[3]))
+    return L.pdot(out, constrain(p["wo"], "w_out", "w_in_use")), k, v
+
+
+def _decode_attention_mesh(q, k_cache, v_cache, valid, prefix_kv):
+    """:func:`decode_attention` on a mesh, each rank on its block, with
+    the reference's dispatch: with the cache sequence on 'model', no
+    prefix and one mask for the batch, the sharded flash-decode
+    (:func:`_decode_attention_sharded`); otherwise the cache is gathered
+    over 'model' and the unsharded decode (the flash-decode kernel on the
+    card) runs on the whole of it."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import (axis_sizes, batch_axes,
+                                               placements)
+    mesh = current_rules().mesh
+    sizes = axis_sizes(mesh)
+    baxes = batch_axes(mesh)
+    nb = int(np.prod([sizes[a] for a in baxes]))
+    Smax = k_cache.shape[1]
+    sharded = (prefix_kv is None and valid.dim() == 1
+               and "model" in sizes and q.shape[0] % nb == 0
+               and Smax % sizes["model"] == 0)
+    bspec = baxes if q.shape[0] % nb == 0 else None
+    bp = placements((bspec,), mesh)
+    cp = placements((bspec, "model" if sharded else None), mesh)
+
+    def body(ql, ck, cv, *pre):
+        if sharded:
+            lo, hi = spmd.block_range(Smax, mesh, "model")
+            return _decode_attention_sharded(ql, ck, cv, valid[lo:hi],
+                                             mesh)
+        # the meta tokens broadcast over the batch: the block's rows
+        pkv = tuple(t[:ql.shape[0]] for t in pre) if pre else None
+        vl = valid if valid.dim() == 1 else valid[:ql.shape[0]]
+        return decode_attention(ql, ck, cv, vl, prefix_kv=pkv)
+
+    args, pls = [q, k_cache, v_cache], [bp, cp, cp]
+    if prefix_kv is not None:
+        args += list(prefix_kv)
+        pls += [(Replicate(),) * len(bp)] * 2
+    return spmd.region(body, mesh, tuple(pls), bp,
+                       tuple(q.shape[:3]) + (v_cache.shape[3],))(*args)
+
+
+def _decode_attention_sharded(q, k_cache, v_cache, valid, mesh):
+    """The reference's explicit flash-decode, on this rank's block: it
+    scores its cache-sequence slice in f32 (multiply and reduce, as the
+    reference's shard_map body), then the max, the denominator and the
+    output combine over 'model' (a max all-reduce, then sum
+    all-reduces).  q: (Bl,1,H,Dk); k_cache, v_cache: (Bl,Sl,K,·);
+    valid: (Sl,) bool.  Returns (Bl,1,H,Dv) in the cache dtype."""
+    from repro_torch.parallel import spmd
+    Bl, _, H, Dk = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    Dv = v_cache.shape[-1]
+    scale = 1.0 / np.sqrt(Dk)
+    qc = (q.reshape(Bl, K, G, Dk) * scale).float()
+    s = torch.sum(qc[:, None] * k_cache[:, :, :, None, :].float(), dim=-1)
+    vm = valid[None, :, None, None]
+    s = torch.where(vm, s, torch.full_like(s, NEG_INF))   # (Bl, Sl, K, G)
+    m = spmd.pmax(s.amax(dim=1), mesh, "model")            # (Bl, K, G)
+    p = torch.exp(s - m[:, None])
+    p = torch.where(vm, p, torch.zeros_like(p))
+    l = spmd.psum(p.sum(dim=1), mesh, "model")
+    o = torch.sum(p[..., None] * v_cache[:, :, :, None, :].float(), dim=1)
+    o = spmd.psum(o, mesh, "model")                        # (Bl, K, G, Dv)
+    out = (o / torch.clamp(l, min=1e-30)[..., None]).to(v_cache.dtype)
+    return out.reshape(Bl, 1, H, Dv)
 
 
 def _write_slot(cache, kv, slot):
     """A copy of ``cache`` (B,Smax,...) with ``kv`` (B,1,...) written at
     sequence index ``slot`` (scalar: same for the batch; (B,) vector: one
-    index per slot)."""
+    index per slot).  On a mesh each rank writes its block
+    (``spmd.write_at``)."""
+    if is_dtensor(cache):
+        from repro_torch.parallel import spmd
+        return spmd.write_at(cache, kv, slot, 1)
     out = cache.clone()
     if slot.dim() == 1:
         B = cache.shape[0]
@@ -377,10 +511,10 @@ def _mla_q(cfg, p, x):
     H, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     if cfg.q_lora_rank:
         qc = L.rmsnorm(p["q_norm"], L.pdot(x, p["w_dq"]), cfg.norm_eps)
-        q = L.pdot(qc, p["w_uq"])
+        q = L.pdot(qc, constrain(p["w_uq"], "w_in_use", "w_out"))
     else:
-        q = L.pdot(x, p["w_q"])
-    q = q.reshape(B, S, H, hd + rd)
+        q = L.pdot(x, constrain(p["w_q"], "w_in_use", "w_out"))
+    q = L.reshape(q, (B, S, H, hd + rd))
     return q[..., :hd], q[..., hd:]
 
 
@@ -388,7 +522,7 @@ def _mla_ckv(cfg, p, x, positions):
     """The normed latent c_kv (B,S,r) and the rotated rope key k_pe
     (B,S,rd), shared by every head."""
     r = cfg.kv_lora_rank
-    ckv_kpe = L.pdot(x, p["w_dkv"])
+    ckv_kpe = L.pdot(x, constrain(p["w_dkv"], "w_in_use", None))
     c_kv = L.rmsnorm(p["kv_norm"], ckv_kpe[..., :r], cfg.norm_eps)
     k_pe = L.apply_rope(ckv_kpe[..., None, r:], positions, cfg.rope_theta)
     return c_kv, k_pe[:, :, 0]
@@ -404,14 +538,21 @@ def mla_block(cfg, p, x, positions, *, window=0, q_chunk=256, k_chunk=512):
     q_nope, q_pe = _mla_q(cfg, p, x)
     q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)
     c_kv, k_pe = _mla_ckv(cfg, p, x, positions)
-    k_nope = L.pdot(c_kv, p["w_uk"]).reshape(B, S, H, hd)
-    v = L.pdot(c_kv, p["w_uv"]).reshape(B, S, H, vd)
+    k_nope = L.reshape(L.pdot(c_kv, constrain(p["w_uk"], None, "w_out")),
+                       (B, S, H, hd))
+    v = L.reshape(L.pdot(c_kv, constrain(p["w_uv"], None, "w_out")),
+                  (B, S, H, vd))
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None].expand(B, S, H, rd)], dim=-1)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "heads", "head_dim")
+    v = constrain(v, "batch", "seq", "heads", "head_dim")
     out = chunked_attention(q, k, v, causal=True, window=window,
                             q_chunk=q_chunk, k_chunk=k_chunk)
-    out = out.reshape(B, S, H * vd)
-    return L.pdot(out, p["wo"]), (c_kv, k_pe)
+    out = L.reshape(out, (B, S, H * vd))
+    out = constrain(L.pdot(out, constrain(p["wo"], "w_out", "w_in_use")),
+                    "batch", "seq", "embed")
+    return out, (c_kv, k_pe)
 
 
 def mla_decode(cfg, p, x, pos, cache_ckv, cache_kpe, slot, valid):
@@ -427,7 +568,15 @@ def mla_decode(cfg, p, x, pos, cache_ckv, cache_kpe, slot, valid):
     the context and its product with W_uv in f32, the output cast to x's
     dtype.  Every einsum runs in f32 on upcast operands (IEEE f32 on the
     card), as the reference's ``preferred_element_type``; none reaches a
-    Pallas kernel there, so none is a kernel here."""
+    Pallas kernel there, so none is a kernel here.  On a mesh each rank
+    decodes its batch rows over the whole latent cache
+    (``spmd.on_batch_rows``)."""
+    if is_dtensor(x):
+        from repro_torch.parallel import spmd
+        return tuple(spmd.on_batch_rows(
+            lambda xl, cl, kl, pl: mla_decode(cfg, pl, xl, pos, cl, kl, slot,
+                                              valid),
+            [x, cache_ckv, cache_kpe], p, 3))
     B = x.shape[0]
     H, hd, rd, r, vd = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
                         cfg.kv_lora_rank, cfg.v_dim)
@@ -458,5 +607,5 @@ def mla_decode(cfg, p, x, pos, cache_ckv, cache_kpe, slot, valid):
         w_uv = p["w_uv"].reshape(r, H, vd).float()
         out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
     out = out.reshape(B, 1, H * vd).to(x.dtype)
-    return (L.pdot(out, p["wo"]), c_kv_new.to(cache_ckv.dtype),
-            k_pe_new.to(cache_kpe.dtype))
+    return (L.pdot(out, constrain(p["wo"], "w_out", "w_in_use")),
+            c_kv_new.to(cache_ckv.dtype), k_pe_new.to(cache_kpe.dtype))

@@ -15,6 +15,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as T
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import constrain
 from repro_torch.train_loop import hook as _gemm_hook
 
 
@@ -70,7 +71,7 @@ def encode(cfg, enc_params, feats, *, q_chunk=256, k_chunk=512):
     GEMMs within a layer is autograd's (``down``'s dA and dW, the
     recompute, then the rest), where the reference's follows XLA's
     schedule; the set of GEMMs is the same."""
-    x = feats.to(L.dtype_of(cfg))
+    x = constrain(feats.to(L.dtype_of(cfg)), "batch", "seq", "embed")
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     hook = _gemm_hook.active()

@@ -19,6 +19,7 @@ init_cache(cfg, batch, cache_len, ...)   -> cache dict
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import tree as T
 from repro_torch.models import attention as A
@@ -27,6 +28,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
+from repro_torch.parallel.sharding import (constrain, current_rules,
+                                           is_dtensor, use_rules)
 
 
 def _has_ssm(cfg) -> bool:
@@ -103,22 +106,17 @@ def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
     self-attention and FFN sublayers (the encoder-decoder's decoder)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.rwkv:
-        B = x.shape[0]
-        H = cfg.d_model // cfg.rwkv_head_dim
-        hd = cfg.rwkv_head_dim
-        s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                         device=x.device)
-        zt = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
-        # the reference normalises with rmsnorm's default eps here and
-        # with cfg.norm_eps in decode_step; mirrored as written
-        h1 = L.rmsnorm(p["ln1"], x)
-        tm, tm_last, s_last = R.time_mix(cfg, p["time_mix"], h1, zt, s0,
-                                         chunk=32)
-        x = x + tm
-        h2 = L.rmsnorm(p["ln2"], x)
-        cm, cm_last = R.channel_mix(cfg, p["channel_mix"], h2, zt)
-        return x + cm, aux, (s_last, tm_last, cm_last)
+        if is_dtensor(x):
+            # on a mesh each rank runs the recurrence over its batch rows
+            from repro_torch.parallel import spmd
+            x, *states = spmd.on_batch_rows(
+                lambda xl, pl: _rwkv_layer(cfg, pl, xl), [x], p, 4)
+        else:
+            x, *states = _rwkv_layer(cfg, p, x)
+        return x, aux, tuple(states)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    # fsdp mode: gather the residual's feature dim once per layer here
+    h = constrain(h, "batch", "seq", "embed_use")
     branch, kv = None, ()
     if cfg.mla:
         branch, kv = A.mla_block(cfg, p["attn"], h, positions,
@@ -139,8 +137,27 @@ def layer_forward(cfg, p, x, positions, *, window=0, q_chunk=256,
     h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.moe:
         mo, a = MOE.moe_block(cfg, p["moe"], h2)
-        return x + mo, aux + a, kv
+        return x + mo, (a if is_dtensor(a) else aux + a), kv
     return x + L.swiglu(p["mlp"], h2), aux, kv
+
+
+def _rwkv_layer(cfg, p, x):
+    """An RWKV layer over a full sequence from zero states: (x,
+    s_last, tm_last, cm_last)."""
+    B = x.shape[0]
+    H = cfg.d_model // cfg.rwkv_head_dim
+    hd = cfg.rwkv_head_dim
+    s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    zt = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
+    # the reference normalises with rmsnorm's default eps here and with
+    # cfg.norm_eps in decode_step; mirrored as written
+    h1 = L.rmsnorm(p["ln1"], x)
+    tm, tm_last, s_last = R.time_mix(cfg, p["time_mix"], h1, zt, s0,
+                                     chunk=32)
+    x = x + tm
+    h2 = L.rmsnorm(p["ln2"], x)
+    cm, cm_last = R.channel_mix(cfg, p["channel_mix"], h2, zt)
+    return x + cm, s_last, tm_last, cm_last
 
 
 def fuse_inputs(cfg, params, batch):
@@ -161,17 +178,38 @@ def fuse_inputs(cfg, params, batch):
             positions = L.default_m_positions(B, S, x.device)
     else:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    return x, positions
+    if is_dtensor(x) and not is_dtensor(positions):
+        positions = _batch_sharded(positions)
+    return constrain(x, "batch", "seq", "embed"), positions
+
+
+def _batch_sharded(t):
+    """A tensor that every rank holds whole, as a DTensor with its first
+    dim on the batch axes (each rank keeps its rows; nothing moves)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.parallel.sharding import constrained_spec, placements
+    rules = current_rules()
+    spec = constrained_spec(rules, t.shape, "batch")
+    return distribute_tensor(t.contiguous(), rules.mesh,
+                             placements(spec, rules.mesh),
+                             src_data_rank=None)
 
 
 def forward(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
-            collect_kv=False):
+            collect_kv=False, remat=True):
     """Full forward to the final hidden states.  Returns (x, aux, kv): the
     layers' summed MoE load-balancing loss, and the layers' ``(k, v)`` --
     for MLA ``(c_kv, k_pe)``, for RWKV ``(wkv_state, tm_prev, cm_prev)``
     -- stacked over layers when ``collect_kv``.  The encoder-decoder
     encodes ``batch["encoder_feats"]`` first and runs each decoder
-    layer's cross-attention over the encoder output."""
+    layer's cross-attention over the encoder output.
+
+    ``remat`` (the reference's default, its ``jax.checkpoint`` of the
+    scanned layer) keeps only each layer's input for the backward and
+    recomputes the layer there; the values do not change.  The fleet
+    path passes ``remat=False``, as the reference's unrolled
+    ``scan_layers=False`` path runs without remat."""
     x, positions = fuse_inputs(cfg, params, batch)
     enc_out = None
     if cfg.enc_dec:
@@ -185,16 +223,35 @@ def forward(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
             cp = layer_params(params, i, "cross")
             cross_fn = lambda y, cp=cp: ED.cross_layer(  # noqa: E731
                 cfg, cp, y, enc_out, q_chunk=q_chunk, k_chunk=k_chunk)
-        x, a, kv = layer_forward(
-            cfg, layer_params(params, i), x, positions, window=window,
-            q_chunk=q_chunk, k_chunk=k_chunk, cross_fn=cross_fn)
-        aux = aux + a
+        opts = dict(window=window, q_chunk=q_chunk, k_chunk=k_chunk,
+                    cross_fn=cross_fn)
+        if remat and torch.is_grad_enabled():
+            x, a, kv = _checkpoint(layer_forward, cfg,
+                                   layer_params(params, i), x, positions,
+                                   **opts)
+        else:
+            x, a, kv = layer_forward(cfg, layer_params(params, i), x,
+                                     positions, **opts)
+        aux = a if is_dtensor(a) and not is_dtensor(aux) else aux + a
         if collect_kv:
             per_layer.append(kv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     kv = tuple(torch.stack(t) for t in zip(*per_layer)) if collect_kv \
         else ()
     return x, aux, kv
+
+
+def _checkpoint(fn, *args, **kwargs):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant).  The
+    recompute runs in the backward, on autograd's thread for the card,
+    so it re-enters the mesh rules active now (they are thread-local)."""
+    rules = current_rules()
+
+    def run(*a, **k):
+        with use_rules(rules):
+            return fn(*a, **k)
+    return torch.utils.checkpoint.checkpoint(run, *args,
+                                             use_reentrant=False, **kwargs)
 
 
 def _head(params):
@@ -213,19 +270,21 @@ def _vocab_mask(cfg, device):
 
 
 def loss_fn(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
-            loss_chunk=256):
+            loss_chunk=256, remat=True):
     """Mean cross-entropy over valid labels (labels < 0 are masked),
     computed over ``S // loss_chunk`` sequence chunks one after another so
     the (B, S, V) logits never exist at once.  Returns
     ``(loss + aux, {"loss", "aux_loss", "tokens"})``, ``aux`` the MoE
     load-balancing loss summed over layers (zero for the dense and RWKV
-    families)."""
+    families).  ``remat`` as in :func:`forward`."""
     x, aux, _ = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
-                        k_chunk=k_chunk)
+                        k_chunk=k_chunk, remat=remat)
     labels = batch["labels"].long()
     B, S = labels.shape
     c = loss_chunk if (S % loss_chunk == 0 and S >= loss_chunk) else S
     nc = S // c
+    if is_dtensor(x):
+        return _loss_sharded(cfg, params, x, aux, labels, c, remat)
     xr = x.reshape(B, nc, c, -1).transpose(0, 1)
     lr = labels.reshape(B, nc, c).transpose(0, 1)
     vmask = _vocab_mask(cfg, x.device)
@@ -243,6 +302,78 @@ def loss_fn(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512,
         del logits, lse, picked
     loss = tot / torch.clamp(cnt, min=1.0)
     return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": cnt}
+
+
+def _loss_sharded(cfg, params, x, aux, labels, c, remat=True):
+    """:func:`loss_fn`'s chunks on a mesh: each chunk's logits stay
+    vocab-sharded (batch on the batch axes), and the cross-entropy runs on
+    each rank's block (``_xent_block``): the max, the sum of exponentials
+    and the picked logit combine over 'model'.  With ``remat`` each chunk
+    is recomputed in the backward, as the reference's remat'd chunk scan,
+    so one chunk's logits live at a time."""
+    from repro_torch.parallel import spmd
+    from repro_torch.parallel.sharding import constrained_spec, placements
+    rules = current_rules()
+    mesh = rules.mesh
+    B, S = labels.shape
+    tot = cnt = None
+
+    def chunk(head, embed, xc, lc):
+        logits = L.lm_logits(head, embed, xc, cfg)
+        spec = constrained_spec(rules, logits.shape, "batch", "seq",
+                                "vocab")
+        tail = placements((spec[0],), mesh)
+        fn = spmd.region(
+            lambda lg, lb: _xent_block(cfg, mesh, spec[2], lg, lb), mesh,
+            (placements(spec, mesh), placements((spec[0], None), mesh)),
+            [_partial_over_batch(tail), _partial_over_batch(tail)])
+        return tuple(fn(logits, lc))
+
+    for j in range(S // c):
+        args = (_head(params), params["embed"], x[:, j * c:(j + 1) * c],
+                labels[:, j * c:(j + 1) * c])
+        if remat and torch.is_grad_enabled():
+            t, n = _checkpoint(chunk, *args)
+        else:
+            t, n = chunk(*args)
+        tot = t if tot is None else tot + t
+        cnt = n if cnt is None else cnt + n
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": cnt}
+
+
+def _partial_over_batch(pl):
+    """Placements of a scalar summed over the batch axes' ranks:
+    ``Partial`` where ``pl`` shards, ``Replicate`` elsewhere."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in pl)
+
+
+def _xent_block(cfg, mesh, vocab_axis, logits, labels):
+    """One rank's share of a chunk's summed cross-entropy and label
+    count: logits (Bl, c, V or V/n) hold this rank's vocab rows when
+    ``vocab_axis`` names a mesh axis."""
+    from repro_torch.parallel import spmd
+    V = L.padded_vocab(cfg)
+    lo, hi = (spmd.block_range(V, mesh, vocab_axis) if vocab_axis
+              else (0, V))
+    dev = logits.device
+    s = logits.float() + _vocab_mask(cfg, dev)[lo:hi]
+    m = s.amax(dim=-1).detach()
+    if vocab_axis:
+        m = spmd.pmax(m, mesh, vocab_axis)
+    se = torch.exp(s - m[..., None]).sum(dim=-1)
+    lab = torch.clamp(labels.long(), min=0)
+    mine = (lab >= lo) & (lab < hi)
+    picked = torch.gather(s, -1, torch.clamp(lab - lo, 0, hi - lo - 1)
+                          [..., None])[..., 0] * mine
+    if vocab_axis:
+        se = spmd.psum(se, mesh, vocab_axis)
+        picked = spmd.psum(picked, mesh, vocab_axis)
+    lse = m + torch.log(se)
+    w = (labels >= 0).float()
+    return torch.sum((lse - picked) * w), torch.sum(w)
 
 
 def value_and_grad(cfg, params, batch, **chunks):
@@ -339,9 +470,12 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
     unchanged."""
     if cfg.rwkv:
         return _rwkv_decode_step(cfg, params, cache, tokens)
+    cache = constrain_cache(cache)
     B = tokens.shape[0]
     x = L.embed_tokens(params["embed"], tokens, cfg)
-    pos = cache["pos"]
+    pos_in = cache["pos"]
+    # on a mesh the position is replicated: every rank reads it whole
+    pos = pos_in.to_local() if is_dtensor(pos_in) else pos_in
     vec_pos = pos.dim() == 1
     slot = valid = None
     kv_name = "ckv" if cfg.mla else "k"
@@ -390,13 +524,17 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
         else:
             x = x + L.swiglu(lp["mlp"], h2)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.lm_logits(_head(params), params["embed"], x, cfg)
-    logits = logits.float() + _vocab_mask(cfg, x.device)
+    logits = _masked_logits(cfg, L.lm_logits(_head(params), params["embed"],
+                                             x, cfg))
 
     new_cache = dict(cache)
-    bidx = torch.arange(B, device=x.device)
+    bidx = torch.arange(B, device=pos.device)
     for nm in (news[0] if news else ()):
         upd = torch.stack([n[nm] for n in news]).to(cache[nm].dtype)
+        if is_dtensor(cache[nm]):
+            from repro_torch.parallel import spmd
+            new_cache[nm] = spmd.write_at(cache[nm], upd, slot, 2)
+            continue
         out = cache[nm].clone()
         if vec_pos:
             out[:, bidx, slot.long()] = upd[:, :, 0]
@@ -407,34 +545,89 @@ def decode_step(cfg, params, cache, tokens, *, window=0):
     # recurrent states are replaced wholesale (they are small)
     for nm, vals in zip(("ssm_h", "ssm_conv"), zip(*states)):
         new_cache[nm] = torch.stack(vals)
-    new_cache["pos"] = pos + 1
-    return logits, new_cache
+    new_cache["pos"] = pos_in + 1
+    return logits, constrain_cache(new_cache)
+
+
+def _masked_logits(cfg, logits):
+    """Logits in f32 with the padded vocab rows at NEG_INF (a replicated
+    mask on a mesh)."""
+    vmask = _vocab_mask(cfg, logits.device)
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Replicate, distribute_tensor
+        vmask = distribute_tensor(vmask, logits.device_mesh,
+                                  (Replicate(),) * logits.device_mesh.ndim,
+                                  src_data_rank=None)
+    return logits.float() + vmask
+
+
+def constrain_cache(c):
+    """The decode cache's leaves at their logical layout (a no-op
+    outside a mesh)."""
+    out = dict(c)
+    for name in ("k", "v"):
+        if name in c:
+            out[name] = constrain(c[name], None, "cache_batch", "cache_seq",
+                                  "kv_heads", "head_dim")
+    for name in ("k_scale", "v_scale"):
+        if name in c:
+            out[name] = constrain(c[name], None, "cache_batch", "cache_seq",
+                                  "kv_heads")
+    for name in ("ckv", "kpe"):
+        if name in c:
+            out[name] = constrain(c[name], None, "cache_batch", "cache_seq",
+                                  None)
+    for name in ("cross_k", "cross_v"):
+        if name in c:
+            out[name] = constrain(c[name], None, "cache_batch", None,
+                                  "kv_heads", "head_dim")
+    if "wkv_state" in c:
+        out["wkv_state"] = constrain(c["wkv_state"], None, "cache_batch",
+                                     "heads", None, None)
+    if "ssm_h" in c:
+        out["ssm_h"] = constrain(c["ssm_h"], None, "cache_batch", "ffn",
+                                 None)
+    return out
 
 
 def _rwkv_decode_step(cfg, params, cache, tokens):
     x = L.embed_tokens(params["embed"], tokens, cfg)
     news = []
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        hq = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        y, _, s_last = R.time_mix(cfg, lp["time_mix"], hq,
-                                  cache["tm_prev"][i],
-                                  cache["wkv_state"][i], chunk=1)
-        x = x + y
-        h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        cm, _ = R.channel_mix(cfg, lp["channel_mix"], h2,
-                              cache["cm_prev"][i])
-        x = x + cm
-        news.append((s_last, hq[:, -1], h2[:, -1]))
+        states = [cache[nm][i] for nm in ("tm_prev", "wkv_state",
+                                          "cm_prev")]
+        if is_dtensor(x):
+            # on a mesh each rank steps its batch rows' states
+            from repro_torch.parallel import spmd
+            x, *new = spmd.on_batch_rows(
+                lambda xl, tl, sl, cl, pl: _rwkv_decode_layer(
+                    cfg, pl, xl, tl, sl, cl),
+                [x] + states, layer_params(params, i), 4)
+        else:
+            x, *new = _rwkv_decode_layer(cfg, layer_params(params, i), x,
+                                         *states)
+        news.append(new)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.lm_logits(_head(params), params["embed"], x, cfg)
-    logits = logits.float() + _vocab_mask(cfg, x.device)
+    logits = _masked_logits(cfg, L.lm_logits(_head(params), params["embed"],
+                                             x, cfg))
     new_cache = dict(cache)
     # recurrent states are replaced wholesale (they are small)
     for nm, vals in zip(("wkv_state", "tm_prev", "cm_prev"), zip(*news)):
         new_cache[nm] = torch.stack(vals).to(cache[nm].dtype)
     new_cache["pos"] = cache["pos"] + 1
     return logits, new_cache
+
+
+def _rwkv_decode_layer(cfg, lp, x, tm_prev, wkv_state, cm_prev):
+    """One RWKV layer's decode step: (x, the new WKV state, the last
+    normed inputs of the two token shifts)."""
+    hq = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    y, _, s_last = R.time_mix(cfg, lp["time_mix"], hq, tm_prev, wkv_state,
+                              chunk=1)
+    x = x + y
+    h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    cm, _ = R.channel_mix(cfg, lp["channel_mix"], h2, cm_prev)
+    return x + cm, s_last, hq[:, -1], h2[:, -1]
 
 
 def prefill(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512):
@@ -447,8 +640,8 @@ def prefill(cfg, params, batch, *, window=0, q_chunk=256, k_chunk=512):
     decode after this prefill starts the SSM from an empty state."""
     x, _, kv = forward(cfg, params, batch, window=window, q_chunk=q_chunk,
                        k_chunk=k_chunk, collect_kv=True)
-    logits = L.lm_logits(_head(params), params["embed"], x[:, -1:], cfg)
-    logits = logits.float() + _vocab_mask(cfg, x.device)
+    logits = _masked_logits(cfg, L.lm_logits(_head(params), params["embed"],
+                                             x[:, -1:], cfg))
     B, S = batch["tokens"].shape
     cache = init_cache(cfg, B, S, device=x.device)
     names = (("wkv_state", "tm_prev", "cm_prev") if cfg.rwkv

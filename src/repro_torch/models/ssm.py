@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import ieee_f32
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import is_dtensor
 
 
 def init_ssm(cfg, gen, lead=()):
@@ -220,7 +221,12 @@ class _SelectiveScan(torch.autograd.Function):
 
 
 def ssm_block(cfg, p, x, chunk=64):
-    """Training/prefill.  x: (B,S,d) -> (B,S,d)."""
+    """Training/prefill.  x: (B,S,d) -> (B,S,d).  On a mesh each rank
+    scans its batch rows (``spmd.on_batch_rows``)."""
+    if is_dtensor(x):
+        from repro_torch.parallel import spmd
+        return spmd.on_batch_rows(
+            lambda xl, pl: ssm_block(cfg, pl, xl, chunk), [x], p, 1)[0]
     if x.is_cuda:
         ieee_f32()
     B = x.shape[0]

@@ -1,6 +1,7 @@
 """AdamW with PS-offload semantics, over nested dicts of tensors (port of
-``src/repro/optim/adam.py``; the mesh ``constrain`` calls stay out until
-the mesh layer is ported).
+``src/repro/optim/adam.py``).  On a mesh the leaves are DTensors: each
+rank updates its own shards (the moments' layout, which may add a ZeRO
+'pod' shard to the param's), and the global norm sums every shard once.
 
 The paper keeps the optimizer state on the PS (bf16 weights and grads,
 f32 moments); here the PS is the card, and the moments are f32 tensors
@@ -15,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.parallel.sharding import is_dtensor
 
 
 @dataclass(frozen=True)
@@ -81,9 +83,14 @@ def global_norm(grads, *, sliced: bool = False) -> torch.Tensor:
     ``sliced`` slice by slice (:func:`_slices`), so that an f32 copy of a
     slice, not of a whole bf16 leaf, exists at a time."""
     parts = (s for g in T.leaves(grads)
-             for s in (_slices(g) if sliced else (g,)))
-    return torch.sqrt(sum(torch.sum(torch.square(s.to(torch.float32)))
-                          for s in parts))
+             for s in (_slices(g) if sliced and not is_dtensor(g) else (g,)))
+    return torch.sqrt(sum(_sum_sq(s) for s in parts))
+
+
+def _sum_sq(s):
+    q = torch.sum(torch.square(s.to(torch.float32)))
+    # a DTensor's sum is pending over its shards: reduce it
+    return q.full_tensor() if is_dtensor(q) else q
 
 
 def apply(params, grads, state: AdamState, cfg: AdamConfig = AdamConfig(),
@@ -138,13 +145,48 @@ def apply(params, grads, state: AdamState, cfg: AdamConfig = AdamConfig(),
                       T.leaves(state.mu), T.leaves(state.nu)))
     if donate:
         for leaf in leaves:
+            if is_dtensor(leaf[0]):
+                _upd_sharded(upd, *leaf, donate=True)
+                continue
             for sl in zip(*(_slices(t) for t in leaf)):
                 upd(*sl)
         out = [(p, m, v) for p, _, m, v in leaves]
     else:
-        out = [upd(*leaf) for leaf in leaves]
+        out = [_upd_sharded(upd, *leaf, donate=False) if is_dtensor(leaf[0])
+               else upd(*leaf) for leaf in leaves]
     new_p = T.unflatten(keys, [o[0] for o in out])
     new_m = T.unflatten(keys, [o[1] for o in out])
     new_v = T.unflatten(keys, [o[2] for o in out])
     metrics = {"grad_norm": gnorm, "lr": torch.as_tensor(lr)}
     return new_p, AdamState(step=step, mu=new_m, nu=new_v), metrics
+
+
+def _upd_sharded(upd, p, g, m, v, *, donate):
+    """``upd`` on one DTensor leaf, rank by rank in the moments' layout:
+    the gradient and the param are brought to it (a local slice where
+    the moments add a 'pod' shard), the elementwise update runs on the
+    local shards, and the new param goes back to its own layout (an
+    all-gather over 'pod').  With ``donate`` p, m and v are updated in
+    place."""
+    from torch.distributed.tensor import DTensor
+    mesh, mpl = m.device_mesh, tuple(m.placements)
+    g_l = g.redistribute(mesh, mpl).to_local()
+    same = tuple(p.placements) == mpl
+    p_m = p if same else p.redistribute(mesh, mpl)
+    p_l = p_m.to_local()
+    m_l, v_l = m.to_local(), v.to_local()
+    np_l, nm_l, nv_l = upd(p_l if (same or not donate) else p_l.clone(),
+                           g_l, m_l, v_l)
+
+    def wrap(t, like, pl):
+        return DTensor.from_local(t, mesh, pl, run_check=False,
+                                  shape=like.shape, stride=like.stride())
+    new_p = wrap(np_l, p, mpl)
+    if not same:
+        new_p = new_p.redistribute(mesh, tuple(p.placements))
+        if donate:
+            p.to_local().copy_(new_p.to_local())
+            new_p = p
+    if donate:
+        return p, m, v
+    return new_p, wrap(nm_l, m, mpl), wrap(nv_l, v, mpl)

@@ -291,8 +291,10 @@ class FleetTrainSession:
             with self.gemms.open() as fleet:
                 if fail_ids:
                     fleet.arm_failure(fail_ids, at_gemm=fail_at_gemm)
+                # no recompute: the fleet GEMMs run once each, as the
+                # reference's unrolled scan_layers=False path
                 (loss, metrics), grads = M.value_and_grad(
-                    self.cfg, params, batch, **self.chunks)
+                    self.cfg, params, batch, remat=False, **self.chunks)
                 with torch.profiler.record_function("ps.adam"):
                     params2, opt2, opt_metrics = adam.apply(
                         params, grads, opt_state, self.opt_cfg,

@@ -91,6 +91,33 @@ def test_port_imports_neither_jax_nor_reference():
     assert not bad, bad
 
 
+# the mesh layer: rewrites of reference modules that import JAX
+MESH_MODULES = ("parallel/__init__.py", "parallel/sharding.py",
+                "parallel/spmd.py", "launch/mesh.py", "launch/specs.py",
+                "launch/steps.py", "launch/cost_analysis.py",
+                "launch/dryrun.py", "launch/mesh_check.py")
+
+
+@pytest.mark.parametrize("rel", MESH_MODULES)
+def test_mesh_modules_import_neither_jax_nor_reference(rel):
+    path = PORT / rel
+    assert path.exists()
+    bad = [mod for mod in _imports(path) if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_mesh_entry_points_raise_without_cuda():
+    """The dry run and the mesh check default to the card and raise
+    before they start a process group or a rank."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from repro_torch.launch import dryrun, mesh_check
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh_check.main(["--arch", "llama3-8b"])
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_equals_original(rel):
     original = (ROOT / "src" / "repro" / rel).read_text()
