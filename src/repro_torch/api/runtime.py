@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import time
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -39,7 +39,7 @@ from repro_torch.api.fleet import Fleet
 from repro_torch.api.mitigation import (MitigationPolicy, MitigationReport,
                                         get_mitigation)
 from repro_torch.configs.base import get_config
-from repro_torch.core import churn, cost_model as cm, executor
+from repro_torch.core import churn, cost_model as cm, executor, spans
 from repro_torch.core.gemm_dag import GemmDag, build_dag
 from repro_torch.core.scheduler import (SchedulePlan, plan_shape_key,
                                         reprice_plan, schedule,
@@ -102,9 +102,12 @@ class StepReport:
     plan_cached: bool
     backend: str = "numpy"      # 'numpy' | 'torch'
     kernel: str = ""            # torch backend: resolved 'cuda' | 'torch'
-    gflops: float = 0.0         # torch backend: achieved GFLOP/s
     # torch backend: the seed of the Freivalds probes (ops.rademacher)
     verify_seed: Optional[int] = None
+    # self seconds by span and counts by counter (core.spans): the plan
+    # solve and the executor's phases, a deferred check's once it has run
+    spans: Dict[str, float] = field(default_factory=dict)
+    counters: Dict[str, int] = field(default_factory=dict)
 
 
 @dataclass
@@ -332,12 +335,15 @@ class TorchCleaveRuntime:
         device."""
         if gemm is None:
             gemm = cm.GEMM(m=A.shape[0], n=A.shape[1], q=B.shape[1])
-        plan, cached = self._solve_gemm(gemm)
-        report = self._execute_one(gemm, plan, cached, A, B,
-                                   fail_ids=fail_ids,
-                                   corrupt_ids=corrupt_ids, verify=verify,
-                                   backend=backend,
-                                   dtype_policy=dtype_policy, kernel=kernel)
+        with spans.collect() as tally:
+            plan, cached = self._solve_gemm(gemm)
+            report = self._execute_one(gemm, plan, cached, A, B,
+                                       fail_ids=fail_ids,
+                                       corrupt_ids=corrupt_ids,
+                                       verify=verify, backend=backend,
+                                       dtype_policy=dtype_policy,
+                                       kernel=kernel)
+        report.spans, report.counters = tally.spans, tally.counters
         self.history.append({
             "event": "execute_step", "shape": (gemm.m, gemm.n, gemm.q),
             "backend": report.backend,
@@ -363,7 +369,7 @@ class TorchCleaveRuntime:
                                         fail_ids=fail_ids,
                                         corrupt_ids=corrupt_ids,
                                         rng=self.rng, verify=verify)
-            kern, gflops, vseed = "", 0.0, None
+            kern, vseed = "", None
         else:
             from repro_torch.core import torch_executor
             rep = torch_executor.execute_plan_torch(
@@ -371,13 +377,13 @@ class TorchCleaveRuntime:
                 corrupt_ids=corrupt_ids, rng=self.rng, verify=verify,
                 policy=dtype_policy, kernel=kernel,
                 pad_cache=self._torch_pad_cache(), device=self.device)
-            kern, gflops, vseed = rep.kernel, rep.gflops, rep.verify_seed
+            kern, vseed = rep.kernel, rep.verify_seed
         return StepReport(
             gemm=gemm, plan=plan, output=rep.output, verified=rep.verified,
             n_tasks=rep.n_tasks, n_recovered=rep.n_recovered,
             recovery=rep.recovery, exec_time=time.perf_counter() - t0,
             plan_cached=cached, backend=backend, kernel=kern,
-            gflops=gflops, verify_seed=vseed)
+            verify_seed=vseed)
 
     def execute_step_deferred(self, A, B, *, gemm: Optional[cm.GEMM] = None,
                               fail_ids: Sequence[int] = (),
@@ -396,12 +402,14 @@ class TorchCleaveRuntime:
         ``executor.stage_operands_f64`` prefetched."""
         if gemm is None:
             gemm = cm.GEMM(m=A.shape[0], n=A.shape[1], q=B.shape[1])
-        plan, cached = self._solve_gemm(gemm)
-        step, fin = self._execute_one_deferred(
-            gemm, plan, cached, A, B, fail_ids=fail_ids,
-            corrupt_ids=corrupt_ids, verify=verify, backend=backend,
-            dtype_policy=dtype_policy, kernel=kernel, rng=rng,
-            staged=staged)
+        with spans.collect() as tally:
+            plan, cached = self._solve_gemm(gemm)
+            step, fin = self._execute_one_deferred(
+                gemm, plan, cached, A, B, fail_ids=fail_ids,
+                corrupt_ids=corrupt_ids, verify=verify, backend=backend,
+                dtype_policy=dtype_policy, kernel=kernel, rng=rng,
+                staged=staged)
+        step.spans, step.counters = tally.spans, tally.counters
         self.history.append({
             "event": "execute_step", "shape": (gemm.m, gemm.n, gemm.q),
             "backend": step.backend, "deferred": True,
@@ -430,7 +438,7 @@ class TorchCleaveRuntime:
                 self.fleet.devices, fail_ids=fail_ids,
                 corrupt_ids=corrupt_ids, rng=rng, verify=verify,
                 staged=staged)
-            kern, gflops, vseed = "", 0.0, None
+            kern, vseed = "", None
         else:
             from repro_torch.core import torch_executor
             rep, fin = torch_executor.execute_plan_torch_deferred(
@@ -438,16 +446,18 @@ class TorchCleaveRuntime:
                 corrupt_ids=corrupt_ids, rng=rng, verify=verify,
                 policy=dtype_policy, kernel=kernel,
                 pad_cache=self._torch_pad_cache(), device=self.device)
-            kern, gflops, vseed = rep.kernel, rep.gflops, rep.verify_seed
+            kern, vseed = rep.kernel, rep.verify_seed
         step = StepReport(
             gemm=gemm, plan=plan, output=rep.output, verified=rep.verified,
             n_tasks=rep.n_tasks, n_recovered=rep.n_recovered,
             recovery=rep.recovery, exec_time=time.perf_counter() - t0,
             plan_cached=cached, backend=backend, kernel=kern,
-            gflops=gflops, verify_seed=vseed)
+            verify_seed=vseed)
 
         def finalize():
-            corrected = fin()
+            with spans.collect() as tally:
+                corrected = fin()
+            spans.fold(step.spans, step.counters, tally)
             step.verified = rep.verified
             step.n_recovered = rep.n_recovered
             return corrected
@@ -481,14 +491,17 @@ class TorchCleaveRuntime:
         steps: List[StepReport] = []
         predicted = 0.0
         for g, (A, B) in zip(gemms, pairs):
-            plan, cached = self._solve_gemm(
-                g, heterogeneity_aware=heterogeneity_aware)
-            predicted = max(predicted, price_plan(g, plan,
-                                                  self.fleet.devices))
-            steps.append(self._execute_one(
-                g, plan, cached, A, B, fail_ids=fail_ids,
-                corrupt_ids=corrupt_ids, verify=verify, backend=backend,
-                dtype_policy=dtype_policy, kernel=kernel))
+            with spans.collect() as tally:
+                plan, cached = self._solve_gemm(
+                    g, heterogeneity_aware=heterogeneity_aware)
+                predicted = max(predicted, price_plan(g, plan,
+                                                      self.fleet.devices))
+                steps.append(self._execute_one(
+                    g, plan, cached, A, B, fail_ids=fail_ids,
+                    corrupt_ids=corrupt_ids, verify=verify,
+                    backend=backend, dtype_policy=dtype_policy,
+                    kernel=kernel))
+            steps[-1].spans, steps[-1].counters = tally.spans, tally.counters
         report = LevelReport(
             steps=steps, backend=backend,
             level_time=time.perf_counter() - t0,
@@ -641,31 +654,40 @@ class TorchCleaveRuntime:
         base_seed = int(self.rng.integers(2 ** 63 - 1))
         staged: Dict[int, tuple] = {}
 
+        # the workers run side by side, each on a span chain of its own
         def compute(k):
             A, B = operands[k]
-            return self._execute_one_deferred(
-                gemms[k], plans[k], cached[k], A, B, fail_ids=fail_ids,
-                corrupt_ids=corrupt_ids, verify=verify, backend=backend,
-                dtype_policy=dtype_policy, kernel=kernel,
-                rng=np.random.default_rng([base_seed, k]),
-                staged=staged.get(k))
+            with spans.collect(own=True) as tally:
+                step, fin = self._execute_one_deferred(
+                    gemms[k], plans[k], cached[k], A, B, fail_ids=fail_ids,
+                    corrupt_ids=corrupt_ids, verify=verify,
+                    backend=backend, dtype_policy=dtype_policy,
+                    kernel=kernel, rng=np.random.default_rng([base_seed, k]),
+                    staged=staged.get(k))
+            step.spans, step.counters = tally.spans, tally.counters
+
+            def finalize():
+                with spans.collect(own=True):
+                    return fin()
+            return step, finalize
 
         def prefetch(k):
-            A, B = operands[k]
-            if backend == "numpy":
-                staged[k] = executor.stage_operands_f64(
-                    _host_operand(A), _host_operand(B))
-            elif not fail_ids:
-                # warm the device-side PadCache with the node's padded
-                # operands (recovery reshapes the rects, so a failing run
-                # stages inside the launch instead)
-                from repro_torch.kernels import ops
-                rects = [(a.r0, a.r1, a.c0, a.c1)
-                         for a in plans[k].assignments]
-                if rects:
-                    ops.stage_plan_operands(
-                        A, B, rects, compute_dtype=compute_dtype,
-                        pad_cache=self._pad_cache, device=self.device)
+            with spans.collect(own=True):
+                A, B = operands[k]
+                if backend == "numpy":
+                    staged[k] = executor.stage_operands_f64(
+                        _host_operand(A), _host_operand(B))
+                elif not fail_ids:
+                    # warm the device-side PadCache with the node's padded
+                    # operands (recovery reshapes the rects, so a failing run
+                    # stages inside the launch instead)
+                    from repro_torch.kernels import ops
+                    rects = [(a.r0, a.r1, a.c0, a.c1)
+                             for a in plans[k].assignments]
+                    if rects:
+                        ops.stage_plan_operands(
+                            A, B, rects, compute_dtype=compute_dtype,
+                            pad_cache=self._pad_cache, device=self.device)
 
         steps, dfr = run_dataflow(len(included), deps, compute,
                                   prefetch=prefetch,
@@ -997,19 +1019,21 @@ class TorchCleaveRuntime:
     def _solve_gemm(self, gemm: cm.GEMM,
                     heterogeneity_aware: Optional[bool] = None
                     ) -> Tuple[cm.Plan, bool]:
-        het = self.heterogeneity_aware if heterogeneity_aware is None \
-            else heterogeneity_aware
-        cache = self._cache(het)
-        key = plan_shape_key(gemm) + (gemm.count,)
-        if key in cache:
-            return cache[key], True
-        if het:
-            plan = solve_level_gemm(gemm, self.fleet.table())
-        else:
-            plan = solve_level_gemm(gemm, self.fleet.homogenized_table())
-            reprice_plan(plan, self.fleet.table())
-        cache[key] = plan
-        return plan, False
+        with spans.span("fleet.plan"):
+            het = self.heterogeneity_aware if heterogeneity_aware is None \
+                else heterogeneity_aware
+            cache = self._cache(het)
+            key = plan_shape_key(gemm) + (gemm.count,)
+            if key in cache:
+                return cache[key], True
+            if het:
+                plan = solve_level_gemm(gemm, self.fleet.table())
+            else:
+                plan = solve_level_gemm(gemm,
+                                        self.fleet.homogenized_table())
+                reprice_plan(plan, self.fleet.table())
+            cache[key] = plan
+            return plan, False
 
 
 # ------------------------------------------------------------ plan patching --

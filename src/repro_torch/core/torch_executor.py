@@ -12,17 +12,24 @@ re-dispatch on a failed check.
 Operands, padded copies and the output stay on the device.  Only the
 per-rectangle residual scalars come to the host for the tolerance test,
 and only flagged blocks go to the host ``verify.freivalds`` oracle.
+
+Each phase runs in a span (``core.spans``): ``fleet.plan`` (the task
+list), ``fleet.stage``, ``fleet.launch`` and ``fleet.readback`` (in
+``ops.plan_gemm_buckets``), ``fleet.scatter``, ``fleet.sync`` and
+``fleet.verify`` (its child ``fleet.oracle``); the report carries their
+self times and the counters ``fleet.flagged`` and ``fleet.redispatched``.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import cost_model as cm
+from repro_torch.core import spans
 from repro_torch.core.executor import ExecutionReport, build_task_list
 from repro_torch.core.seeding import as_rng
 from repro_torch.core.verify import freivalds
@@ -73,16 +80,18 @@ def get_policy(policy: Union[str, DtypePolicy, None],
 
 @dataclass
 class TorchExecutionReport(ExecutionReport):
-    """ExecutionReport plus device-side throughput accounting.
+    """ExecutionReport plus the torch backend's host-clock accounting.
     ``output`` is a float32 tensor on the executing device."""
     backend: str = "torch"
     kernel: str = "cuda"           # 'cuda' | 'torch' (resolved)
     policy: str = "f32"
     exec_time: float = 0.0         # kernel + gather/scatter wall-clock
-    gflops: float = 0.0            # achieved GFLOP/s over exec_time
-    tasks_per_s: float = 0.0
     verify_time: float = 0.0       # deferred Freivalds finalize wall-clock
     verify_seed: Optional[int] = None   # the probes' seed (ops.rademacher)
+    # self seconds by span and counts by counter (core.spans), the
+    # deferred finalize's included once it has run
+    spans: Dict[str, float] = field(default_factory=dict)
+    counters: Dict[str, int] = field(default_factory=dict)
 
 
 def _as_device(x, device: torch.device) -> torch.Tensor:
@@ -152,97 +161,108 @@ def execute_plan_torch_deferred(
     tensors' device (else the card)."""
     from repro_torch.kernels import ops
 
-    dev = ops._device_of(A, B, device)
-    pol = get_policy(policy, dev)
-    kernel = ops.resolve_plan_kernel(kernel, dev)
-    rng = as_rng(rng)
-    m, q = gemm.m, gemm.q
-    assert tuple(A.shape) == (m, gemm.n) and tuple(B.shape) == (gemm.n, q)
-    corrupt = set(corrupt_ids)
+    with spans.collect() as tally:
+        with spans.span("fleet.plan"):
+            dev = ops._device_of(A, B, device)
+            pol = get_policy(policy, dev)
+            kernel = ops.resolve_plan_kernel(kernel, dev)
+            rng = as_rng(rng)
+            m, q = gemm.m, gemm.q
+            assert tuple(A.shape) == (m, gemm.n) \
+                and tuple(B.shape) == (gemm.n, q)
+            corrupt = set(corrupt_ids)
+            tasks, recovery = build_task_list(gemm, plan, devices, fail_ids)
+            n_rec = sum(1 for t in tasks if t.is_recovery)
 
-    tasks, recovery = build_task_list(gemm, plan, devices, fail_ids)
-    n_rec = sum(1 for t in tasks if t.is_recovery)
+            t0 = time.perf_counter()
+            rects = [(t.r0, t.r1, t.c0, t.c1) for t in tasks]
+            corrupt_mask = np.fromiter((t.device_id in corrupt for t in tasks),
+                                       np.float32, count=len(tasks))
+            seed = int(rng.integers(0, 2 ** 31 - 1)) if verify else None
+        runs = ops.plan_gemm_buckets(A, B, rects, block=block, kernel=kernel,
+                                     compute_dtype=pol.compute_dtype,
+                                     verify_seed=seed, corrupt=corrupt_mask,
+                                     pad_cache=pad_cache, device=dev)
 
-    t0 = time.perf_counter()
-    rects = [(t.r0, t.r1, t.c0, t.c1) for t in tasks]
-    corrupt_mask = np.fromiter((t.device_id in corrupt for t in tasks),
-                               np.float32, count=len(tasks))
-    seed = int(rng.integers(0, 2 ** 31 - 1)) if verify else None
-    runs = ops.plan_gemm_buckets(A, B, rects, block=block, kernel=kernel,
-                                 compute_dtype=pol.compute_dtype,
-                                 verify_seed=seed, corrupt=corrupt_mask,
-                                 pad_cache=pad_cache, device=dev)
+        with spans.span("fleet.scatter"):
+            C = torch.zeros((m, q), dtype=torch.float32, device=dev)
+            run_dims = []
+            written = []             # (r0, r1, c0, c1) of every write into C
+            for run in runs:
+                hs = run.band_hs.astype(np.int64)[run.bidx]
+                ws = (run.c1s - run.c0s).astype(np.int64)
+                run_dims.append((hs, ws))
+                # each band bulk-writes the contiguous runs of its rects'
+                # column union (one slice write per band for a grid
+                # partition)
+                Gb = len(run.band_r0s)
+                cover = np.zeros((Gb, q + 1), np.int32)
+                np.add.at(cover, (run.bidx, run.c0s), 1)
+                np.add.at(cover, (run.bidx, run.c1s), -1)
+                cover = np.cumsum(cover[:, :q], axis=1) > 0
+                for b in range(Gb):
+                    r0, h = int(run.band_r0s[b]), int(run.band_hs[b])
+                    edges = np.flatnonzero(np.diff(cover[b].astype(np.int8)))
+                    bounds = np.concatenate(
+                        ([0] if cover[b, 0] else [], edges + 1,
+                         [q] if cover[b, -1] else [])).astype(np.int64)
+                    for s0, s1 in bounds.reshape(-1, 2):
+                        C[r0:r0 + h, s0:s1] = run.out[b, :h, s0:s1]
+                        written.append((r0, r0 + h, int(s0), int(s1)))
+                if not verify:
+                    # unchecked poisoning lands in the output, same form as
+                    # the numpy executor
+                    for g in np.nonzero(corrupt_mask[run.idx])[0]:
+                        r0, c0 = rects[run.idx[g]][0], rects[run.idx[g]][2]
+                        C[r0, c0] += 1.0 + C[r0, c0].abs()
+        with spans.span("fleet.sync"):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        exec_time = time.perf_counter() - t0
 
-    C = torch.zeros((m, q), dtype=torch.float32, device=dev)
-    flops = 0.0
-    run_dims = []
-    written = []                 # (r0, r1, c0, c1) of every write into C
-    for run in runs:
-        hs = run.band_hs.astype(np.int64)[run.bidx]
-        ws = (run.c1s - run.c0s).astype(np.int64)
-        run_dims.append((hs, ws))
-        flops += 2.0 * gemm.n * float((hs * ws).sum())
-        # each band bulk-writes the contiguous runs of its rects' column
-        # union (one slice write per band for a grid partition)
-        Gb = len(run.band_r0s)
-        cover = np.zeros((Gb, q + 1), np.int32)
-        np.add.at(cover, (run.bidx, run.c0s), 1)
-        np.add.at(cover, (run.bidx, run.c1s), -1)
-        cover = np.cumsum(cover[:, :q], axis=1) > 0
-        for b in range(Gb):
-            r0, h = int(run.band_r0s[b]), int(run.band_hs[b])
-            edges = np.flatnonzero(np.diff(cover[b].astype(np.int8)))
-            bounds = np.concatenate(
-                ([0] if cover[b, 0] else [], edges + 1,
-                 [q] if cover[b, -1] else [])).astype(np.int64)
-            for s0, s1 in bounds.reshape(-1, 2):
-                C[r0:r0 + h, s0:s1] = run.out[b, :h, s0:s1]
-                written.append((r0, r0 + h, int(s0), int(s1)))
-        if not verify:
-            # unchecked poisoning lands in the output, same form as the
-            # numpy executor
-            for g in np.nonzero(corrupt_mask[run.idx])[0]:
-                r0, c0 = rects[run.idx[g]][0], rects[run.idx[g]][2]
-                C[r0, c0] += 1.0 + C[r0, c0].abs()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    exec_time = time.perf_counter() - t0
-
-    # the plan tiles the output, and so do the writes actually made
-    _check_partition(rects, m, q)
-    _check_partition(written, m, q)
-    report = TorchExecutionReport(
-        output=C, verified=True, n_tasks=len(tasks), n_recovered=n_rec,
-        recovery=recovery, backend="torch", kernel=kernel, policy=pol.name,
-        exec_time=exec_time, gflops=flops / max(exec_time, 1e-12) / 1e9,
-        tasks_per_s=len(tasks) / max(exec_time, 1e-12), verify_seed=seed)
+        with spans.span("fleet.scatter"):
+            # the plan tiles the output, and so do the writes actually made
+            _check_partition(rects, m, q)
+            _check_partition(written, m, q)
+            report = TorchExecutionReport(
+                output=C, verified=True, n_tasks=len(tasks),
+                n_recovered=n_rec, recovery=recovery, backend="torch",
+                kernel=kernel, policy=pol.name, exec_time=exec_time,
+                verify_seed=seed, spans=tally.spans,
+                counters=tally.counters)
 
     def finalize() -> List[tuple]:
         corrected: List[tuple] = []
         if not verify:
             return corrected
         t1 = time.perf_counter()
-        A_d, B_d = _as_device(A, dev), _as_device(B, dev)
-        for run, (hs, ws) in zip(runs, run_dims):
-            rtols = pol.freivalds_c * pol.eps * np.sqrt(
-                max(gemm.n, 1) / np.maximum(hs * ws, 1))
-            ok = np.all(
-                np.abs(run.lhs - run.rhs)
-                <= rtols[:, None] * np.abs(run.rhs)
-                + (rtols * (run.scale + 1e-30))[:, None], axis=1)
-            for g in np.nonzero(~ok)[0]:
-                # flagged on the device: confirm with the host oracle, then
-                # re-dispatch genuine corruption to a clean device
-                i = run.idx[g]
-                r0, r1, c0, c1 = rects[i]
-                if freivalds(_host(A_d[r0:r1]), _host(B_d[:, c0:c1]),
-                             _host(run.block(g)), rng,
-                             rtol=float(rtols[g])):
-                    continue
-                report.verified = False
-                C[r0:r1, c0:c1] = _redispatch(A_d[r0:r1], B_d[:, c0:c1], pol)
-                corrected.append((r0, r1, c0, c1))
+        with spans.collect() as vtally, spans.span("fleet.verify"):
+            A_d, B_d = _as_device(A, dev), _as_device(B, dev)
+            for run, (hs, ws) in zip(runs, run_dims):
+                rtols = pol.freivalds_c * pol.eps * np.sqrt(
+                    max(gemm.n, 1) / np.maximum(hs * ws, 1))
+                ok = np.all(
+                    np.abs(run.lhs - run.rhs)
+                    <= rtols[:, None] * np.abs(run.rhs)
+                    + (rtols * (run.scale + 1e-30))[:, None], axis=1)
+                for g in np.nonzero(~ok)[0]:
+                    # flagged on the device: confirm with the host oracle,
+                    # then re-dispatch genuine corruption to a clean device
+                    spans.count("fleet.flagged")
+                    i = run.idx[g]
+                    r0, r1, c0, c1 = rects[i]
+                    with spans.span("fleet.oracle"):
+                        if freivalds(_host(A_d[r0:r1]), _host(B_d[:, c0:c1]),
+                                     _host(run.block(g)), rng,
+                                     rtol=float(rtols[g])):
+                            continue
+                        report.verified = False
+                        C[r0:r1, c0:c1] = _redispatch(A_d[r0:r1],
+                                                      B_d[:, c0:c1], pol)
+                    spans.count("fleet.redispatched")
+                    corrected.append((r0, r1, c0, c1))
         report.verify_time += time.perf_counter() - t1
+        spans.fold(report.spans, report.counters, vtally)
         return corrected
 
     return report, finalize
@@ -268,7 +288,4 @@ def execute_plan_torch(gemm: cm.GEMM, plan: cm.Plan, A, B,
         kernel=kernel, block=block, pad_cache=pad_cache, device=device)
     finalize()
     report.exec_time += report.verify_time
-    report.gflops = (report.gflops * (report.exec_time - report.verify_time)
-                     / max(report.exec_time, 1e-12))
-    report.tasks_per_s = report.n_tasks / max(report.exec_time, 1e-12)
     return report

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import ieee_f32, resolve_device
+from repro_torch.core.spans import count, span
 from repro_torch.kernels import block_gemm as _bg
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
@@ -62,7 +63,7 @@ class _ExpertMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, w):
         ctx.save_for_backward(a, w)
-        with torch.profiler.record_function("moe.experts"):
+        with span("moe.experts"):
             return _bg.block_gemm_batched(a.contiguous(), w.contiguous()) \
                 .to(a.dtype)
 
@@ -71,7 +72,7 @@ class _ExpertMatmul(torch.autograd.Function):
         a, w = ctx.saved_tensors
         g = g.to(a.dtype).contiguous()
         da = dw = None
-        with torch.profiler.record_function("moe.experts"):
+        with span("moe.experts"):
             if ctx.needs_input_grad[0]:
                 da = _bg.block_gemm_batched(
                     g, w.transpose(1, 2).contiguous()).to(a.dtype)
@@ -98,7 +99,7 @@ def expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                         "(repro_torch.parallel.spmd.region)")
     if a.dtype == torch.float32 and w.dtype == torch.bfloat16 and not (
             torch.is_grad_enabled() and (a.requires_grad or w.requires_grad)):
-        with torch.profiler.record_function("moe.experts"):
+        with span("moe.experts"):
             return _bg.block_gemm_batched(a.contiguous(), w.contiguous())
     a, w = _promote(a, w)
     return _ExpertMatmul.apply(a, w)
@@ -175,9 +176,10 @@ def _staged_pad(arr, rows: int, cols: int, role: str,
         return arr
 
     def build():
-        # profiler range of every staging copy, the transposed operands of
-        # the dA and dW GEMMs included (launch/profile_train.py)
-        with torch.profiler.record_function("ops.stage_copy"):
+        # span of every staging copy, the transposed operands of the dA
+        # and dW GEMMs included (launch/profile_train.py)
+        count("fleet.stage_copies")
+        with span("ops.stage_copy"):
             src = arr if isinstance(arr, torch.Tensor) else \
                 torch.from_numpy(np.ascontiguousarray(arr))
             padded = torch.zeros((rows, cols), dtype=dtype, device=device)
@@ -414,44 +416,47 @@ def plan_gemm_buckets(a, b, rects, *, block=128, kernel="auto",
     also yields per-rect Freivalds residuals; ``corrupt`` is an optional
     per-rect flag vector of simulated poisoning devices.  Returns a list of
     :class:`BucketRun`."""
-    dev = _device_of(a, b, device)
-    kernel = resolve_plan_kernel(kernel, dev)
-    if dev.type == "cuda":
-        # the residual contractions are IEEE f32, never TF32
-        ieee_f32()
-    if compute_dtype is None:
-        compute_dtype = "bfloat16" if dev.type == "cuda" else "float32"
-    cd = torch_dtype(compute_dtype)
-    m = a.shape[0]
-    q = b.shape[1]
-    nk, qk, bands, buckets = _bucket_geometry(a.shape, b.shape, rects, block)
+    with span("fleet.stage"):
+        dev = _device_of(a, b, device)
+        kernel = resolve_plan_kernel(kernel, dev)
+        if dev.type == "cuda":
+            # the residual contractions are IEEE f32, never TF32
+            ieee_f32()
+        if compute_dtype is None:
+            compute_dtype = "bfloat16" if dev.type == "cuda" else "float32"
+        cd = torch_dtype(compute_dtype)
+        m = a.shape[0]
+        q = b.shape[1]
+        nk, qk, bands, buckets = _bucket_geometry(a.shape, b.shape, rects,
+                                                  block)
+        if not bands:
+            return []
+        pmax = max(buckets)
+        a_pad = _staged_pad(a, m + pmax, nk, "a", pad_cache, cd, dev)
+        b_op = _staged_pad(b, nk, qk, "b", pad_cache, cd, dev)
     runs: list = []
-    if not bands:
-        return runs
-    pmax = max(buckets)
-    a_pad = _staged_pad(a, m + pmax, nk, "a", pad_cache, cd, dev)
-    b_op = _staged_pad(b, nk, qk, "b", pad_cache, cd, dev)
     for pm, bucket_bands in buckets.items():
-        r0s = np.asarray([r0 for r0, _ in bucket_bands], np.int32)
-        hs = np.asarray([r1 - r0 for r0, r1 in bucket_bands], np.int32)
-        ia, bidx, slot = [], [], []
-        for bi, bk_ in enumerate(bucket_bands):
-            for si, i in enumerate(bands[bk_]):
-                ia.append(i)
-                bidx.append(bi)
-                slot.append(si)
-        ia = np.asarray(ia, np.int64)
-        bidx = np.asarray(bidx, np.int32)
-        slot = np.asarray(slot, np.int32)
-        c0s = np.asarray([rects[i][2] for i in ia], np.int32)
-        c1s = np.asarray([rects[i][3] for i in ia], np.int32)
-        if verify_seed is None:
-            out = _bucket_gemm(a_pad, b_op, r0s, pm=pm, kernel=kernel,
-                               compute_dtype=cd)
-            runs.append(BucketRun(idx=ia, pm=pm, q=q, band_r0s=r0s,
-                                  band_hs=hs, bidx=bidx, c0s=c0s, c1s=c1s,
-                                  out=out))
-        else:
+        with span("fleet.launch"):
+            r0s = np.asarray([r0 for r0, _ in bucket_bands], np.int32)
+            hs = np.asarray([r1 - r0 for r0, r1 in bucket_bands], np.int32)
+            ia, bidx, slot = [], [], []
+            for bi, bk_ in enumerate(bucket_bands):
+                for si, i in enumerate(bands[bk_]):
+                    ia.append(i)
+                    bidx.append(bi)
+                    slot.append(si)
+            ia = np.asarray(ia, np.int64)
+            bidx = np.asarray(bidx, np.int32)
+            slot = np.asarray(slot, np.int32)
+            c0s = np.asarray([rects[i][2] for i in ia], np.int32)
+            c1s = np.asarray([rects[i][3] for i in ia], np.int32)
+            if verify_seed is None:
+                out = _bucket_gemm(a_pad, b_op, r0s, pm=pm, kernel=kernel,
+                                   compute_dtype=cd)
+                runs.append(BucketRun(idx=ia, pm=pm, q=q, band_r0s=r0s,
+                                      band_hs=hs, bidx=bidx, c0s=c0s,
+                                      c1s=c1s, out=out))
+                continue
             corr = np.zeros(len(ia), np.float32) if corrupt is None \
                 else np.asarray(corrupt, np.float32)[ia]
             R = int(max(np.bincount(bidx))) if len(bidx) else 1
@@ -459,13 +464,14 @@ def plan_gemm_buckets(a, b, rects, *, block=128, kernel="auto",
                 a_pad, b_op, r0s, hs, bidx, slot, c0s, c1s, corr,
                 verify_seed, ia, pm=pm, R=R, kernel=kernel,
                 compute_dtype=cd, iters=freivalds_iters)
+        with span("fleet.readback"):
             # one device-to-host copy of the per-rect residual scalars
             res = torch.cat([lhs, rhs, scale[:, None]], dim=1).cpu().numpy()
-            it = freivalds_iters
-            runs.append(BucketRun(idx=ia, pm=pm, q=q, band_r0s=r0s,
-                                  band_hs=hs, bidx=bidx, c0s=c0s, c1s=c1s,
-                                  out=C, lhs=res[:, :it],
-                                  rhs=res[:, it:2 * it], scale=res[:, -1]))
+        it = freivalds_iters
+        runs.append(BucketRun(idx=ia, pm=pm, q=q, band_r0s=r0s,
+                              band_hs=hs, bidx=bidx, c0s=c0s, c1s=c1s,
+                              out=C, lhs=res[:, :it],
+                              rhs=res[:, it:2 * it], scale=res[:, -1]))
     return runs
 
 

@@ -12,11 +12,18 @@ row, as ``chip_smoke.py``'s mrope_full and encdec_full), runs one warm-up step
 ``torch.profiler``, times every band GEMM, WKV and batched block GEMM
 (MoE experts) launch of as many more with CUDA events, and prints one
 JSON object: wall time per step (untraced and traced), the fleet
-executors' host time by GEMM kind, the fleet GEMMs' bound on the card,
-device kernel time per step and the device's idle share, the kernel time
-launched under each profiler range of the step (``fleet.fwd``,
-``fleet.dA``, ``fleet.dW``, ``ops.stage_copy`` for the padded and
-transposed operand copies, ``ps.adam``, for RWKV ``rwkv.wkv_backward``,
+executors' host time by GEMM kind, the step's spans and counters
+(``FleetStepReport.spans``, self milliseconds a step by span, and
+``counters``, untraced and traced), the fleet GEMMs' bound on the card,
+device kernel time per step and the device's idle share (one less the
+union of its kernel, copy and set intervals over the traced steps' wall
+time), the kernel time launched under each span of the step
+(``fleet.fwd``, ``fleet.dA``, ``fleet.dW`` and their phases
+``fleet.plan``, ``fleet.stage``, ``fleet.launch``, ``fleet.readback``,
+``fleet.scatter``, ``fleet.sync``, ``fleet.verify`` and
+``fleet.oracle``, ``ops.stage_copy`` for the padded and transposed
+operand copies, ``ps.forward``, ``ps.backward``, ``ps.adam``,
+``ps.sync``, for RWKV ``rwkv.wkv_backward``,
 the WKV backward's torch recompute, for MoE ``moe.experts``, the
 expert products' forward and backward with their transposed copies, and
 ``moe.dispatch``, routing, sort, scatter and combine in the forward, and
@@ -46,9 +53,12 @@ import dataclasses
 import json
 import time
 
-RANGES = ("fleet.fwd", "fleet.dA", "fleet.dW", "ops.stage_copy", "ps.adam",
-          "rwkv.wkv_backward", "moe.experts", "moe.dispatch", "ssm.scan",
-          "ssm.scan_backward")
+RANGES = ("fleet.fwd", "fleet.dA", "fleet.dW", "fleet.plan", "fleet.stage",
+          "fleet.launch", "fleet.readback", "fleet.scatter", "fleet.sync",
+          "fleet.verify", "fleet.oracle", "ops.stage_copy", "ps.forward",
+          "ps.backward", "ps.adam", "ps.sync", "rwkv.wkv_backward",
+          "moe.experts", "moe.dispatch", "ssm.scan", "ssm.scan_backward")
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 ARCHS = ("llama3-8b", "rwkv6-7b", "granite-moe-1b-a400m", "deepseek-v2-236b",
          "qwen2-vl-72b", "seamless-m4t-medium", "hymba-1.5b")
 # one H100 SXM at 700 W (NVIDIA data sheet): memory rate, dense bf16 rate
@@ -89,6 +99,46 @@ def _range_kernel_us(prof, ranges=RANGES) -> dict:
                 out[node.name] += us
             node = node.cpu_parent
     return out
+
+
+def _device_busy_s(prof) -> float:
+    """The union of the card's kernel, copy and set intervals in the
+    trace, in seconds: the time it did work.  A span's own interval on
+    the device timeline is no work; where this torch's events carry no
+    activity type, a span is told by its name ("fleet.fwd")."""
+    iv = []
+    for e in prof.profiler.kineto_results.events():
+        if "cuda" not in str(e.device_type()).lower():
+            continue
+        if hasattr(e, "activity_type"):
+            if e.activity_type() not in DEVICE_WORK:
+                continue
+        elif "." in e.name() and "::" not in e.name():
+            continue
+        if hasattr(e, "start_ns"):
+            iv.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        else:
+            s = e.start_us() * 1000
+            iv.append((s, s + e.duration_us() * 1000))
+    busy, end = 0, None
+    for s, t in sorted(iv):
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    return busy * 1e-9
+
+
+def _per_step(reps, field, scale=1.0) -> dict:
+    """Mean a step of each entry of the reports' ``spans`` or
+    ``counters``."""
+    out = {}
+    for r in reps:
+        for k, v in getattr(r, field).items():
+            out[k] = out.get(k, 0.0) + v * scale / len(reps)
+    return dict(sorted(out.items()))
 
 
 @contextlib.contextmanager
@@ -248,6 +298,7 @@ def main(argv=None):
             k[0] += us
             k[1] += evt.count
     device_s = sum(v[0] for v in kernels.values()) / 1e6
+    busy_s = _device_busy_s(prof)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:args.top]
 
     def by_kind(reps):
@@ -265,11 +316,15 @@ def main(argv=None):
         "fleet_exec_s_per_step_untraced":
             sum(r.fleet_exec_time for r in untraced) / n,
         "fleet_exec_s_by_kind_untraced": by_kind(untraced),
+        "span_ms_per_step_untraced": _per_step(untraced, "spans", 1e3),
+        "counters_per_step_untraced": _per_step(untraced, "counters"),
+        "span_ms_per_step": _per_step(traced, "spans", 1e3),
         "gemms_per_step": untraced[0].n_gemms,
         "gemm_tflop_per_step": untraced[0].gemm_flops / 1e12,
         "gemm_bound_ms_per_step": _gemm_bound_ms(untraced[0].records),
         "device_kernel_s_per_step": device_s / n,
-        "device_idle_share": max(0.0, 1.0 - device_s / wall),
+        "device_busy_s_per_step": busy_s / n,
+        "device_idle_share": 1.0 - busy_s / wall,
         "range_kernel_ms_per_step": {
             k: v / 1e3 / n for k, v in _range_kernel_us(prof).items()},
         "band_gemm_ms_by_kind_per_step": band_ms,

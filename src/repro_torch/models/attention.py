@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import ieee_f32
+from repro_torch.core.spans import span
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.parallel.sharding import (constrain, current_rules,
@@ -588,7 +589,7 @@ def mla_decode(cfg, p, x, pos, cache_ckv, cache_kpe, slot, valid):
     cache_kpe = _write_slot(cache_kpe, k_pe_new, slot)
     if x.is_cuda:
         ieee_f32()
-    with torch.profiler.record_function("mla.decode"):
+    with span("mla.decode"):
         dt = cache_ckv.dtype
         ckv = cache_ckv.float()
         w_uk = p["w_uk"].reshape(r, H, hd).float()

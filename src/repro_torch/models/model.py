@@ -22,6 +22,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import tree as T
+from repro_torch.core.spans import span
 from repro_torch.models import attention as A
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
@@ -386,8 +387,11 @@ def value_and_grad(cfg, params, batch, **chunks):
     agree to f32 (or bf16) rounding, within the parity tolerances."""
     keys = T.paths(params)
     leaves = [p.detach().requires_grad_() for p in T.leaves(params)]
-    loss, metrics = loss_fn(cfg, T.unflatten(keys, leaves), batch, **chunks)
-    grads = torch.autograd.grad(loss, leaves)
+    with span("ps.forward"):
+        loss, metrics = loss_fn(cfg, T.unflatten(keys, leaves), batch,
+                                **chunks)
+    with span("ps.backward"):
+        grads = torch.autograd.grad(loss, leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), T.unflatten(keys, list(grads))
 

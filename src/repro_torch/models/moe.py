@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.parallel.sharding import (axis_names, axis_sizes,
@@ -65,7 +66,7 @@ def route(cfg, router, xt):
     softmax, top-k and renormalisation.  Returns ``(probs (T, E), top_p
     (T, k) renormalised, top_e (T, k) expert ids)``."""
     logits = L.pdot(xt.float(), router)                      # (T, E)
-    with torch.profiler.record_function("moe.dispatch"):
+    with span("moe.dispatch"):
         probs = torch.softmax(logits, dim=-1)
         top_p, top_e = torch.topk(probs, cfg.moe_top_k, dim=-1, sorted=True)
         top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
@@ -99,7 +100,7 @@ def _moe_block_global(cfg, p, x):
     dev = x.device
 
     probs, top_p, top_e = route(cfg, p["router"], xt)
-    with torch.profiler.record_function("moe.dispatch"):
+    with span("moe.dispatch"):
         # Switch-style load balance; the one-hot carries no gradient
         me = torch.mean(probs, dim=0)
         ce = torch.mean(torch.nn.functional.one_hot(top_e[:, 0], E).float(),
@@ -135,7 +136,7 @@ def _moe_block_global(cfg, p, x):
     eo = ops.expert_matmul(h, p["w_down"])
     eo = constrain(eo, "experts", None, "embed").reshape(E * C, d)
 
-    with torch.profiler.record_function("moe.dispatch"):
+    with span("moe.dispatch"):
         gathered = torch.where(keep[:, None],
                                eo[torch.clamp(slot, max=E * C - 1)],
                                torch.zeros((), dtype=eo.dtype, device=dev))
@@ -185,7 +186,7 @@ def _moe_block_sharded(cfg, p, x, rules):
         xt = x_full.reshape(T_loc, d)
         dev = xt.device
         probs, top_p, top_e = route(cfg, router, xt)
-        with torch.profiler.record_function("moe.dispatch"):
+        with span("moe.dispatch"):
             me = torch.mean(probs, dim=0)
             ce = torch.mean(torch.nn.functional.one_hot(top_e[:, 0], E)
                             .float(), dim=0)
@@ -222,7 +223,7 @@ def _moe_block_sharded(cfg, p, x, rules):
         h = torch.nn.functional.silu(g.float()).to(x_blk.dtype) * u
         eo = ops.expert_matmul(h, wd).reshape(E_loc * C, d)
 
-        with torch.profiler.record_function("moe.dispatch"):
+        with span("moe.dispatch"):
             gathered = torch.where(
                 keep[:, None], eo[torch.clamp(slot, max=E_loc * C - 1)],
                 torch.zeros((), dtype=eo.dtype, device=dev))

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import ieee_f32
+from repro_torch.core.spans import span
 from repro_torch.kernels import ops
 from repro_torch.kernels.wkv6 import wkv6_plain
 from repro_torch.models import layers as L
@@ -92,7 +93,7 @@ class _WKV(torch.autograd.Function):
         if gy.is_cuda:
             ieee_f32()          # the recompute's einsums, in IEEE f32
         with torch.enable_grad(), \
-                torch.profiler.record_function("rwkv.wkv_backward"):
+                span("rwkv.wkv_backward"):
             y, s = wkv6_plain(*leaves, chunk=ctx.chunk)
             grads = torch.autograd.grad((y, s), leaves, (gy, gs))
         return (*grads, None)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import ieee_f32
+from repro_torch.core.spans import span
 from repro_torch.models import layers as L
 from repro_torch.parallel.sharding import is_dtensor
 
@@ -184,7 +185,7 @@ class _SelectiveScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dt_, A, uf, Bm, Cm, h0, c):
         h, ys, hs = h0, [], []
-        with torch.profiler.record_function("ssm.scan"):
+        with span("ssm.scan"):
             for j in range(0, dt_.shape[1], c):
                 hs.append(h)
                 h, y = _drive_chunk(h, A, dt_[:, j:j + c], uf[:, j:j + c],
@@ -203,7 +204,7 @@ class _SelectiveScan(torch.autograd.Function):
         g_seq = {n: [] for n in ("dt", "u", "B", "C")}
         gA = torch.zeros_like(A)
         with torch.enable_grad(), \
-                torch.profiler.record_function("ssm.scan_backward"):
+                span("ssm.scan_backward"):
             for i in reversed(range(len(hs))):
                 j = i * c
                 leaves = [t.detach().requires_grad_() for t in (
@@ -249,7 +250,7 @@ def ssm_decode(cfg, p, x, h, conv_state):
     Returns (out, h, conv_state)."""
     if x.is_cuda:
         ieee_f32()
-    with torch.profiler.record_function("ssm.decode"):
+    with span("ssm.decode"):
         xz = L.matmul(x, p["w_in"])
         u, z = torch.chunk(xz, 2, dim=-1)
         u, conv_state = _conv1d(p, u, conv_state)

@@ -26,12 +26,13 @@ from __future__ import annotations
 
 import contextlib
 import time
-from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.train_loop import hook as _hook
 
 _SESSION: Optional["FleetGemmSession"] = None
@@ -53,6 +54,11 @@ class GemmRecord:
     failed_ids: Tuple[int, ...] = ()
     b: int = 4                  # element width the plan was solved for
     verify_time: float = 0.0    # dataflow dispatch: deferred check wall
+    # self seconds of the GEMM's phase spans and its counters
+    # (core.spans), the deferred check's joined by drain(); the
+    # ``fleet.<kind>`` span's own self time is the step's alone
+    spans: Dict[str, float] = field(default_factory=dict)
+    counters: Dict[str, int] = field(default_factory=dict)
 
     @property
     def flops(self) -> float:
@@ -131,11 +137,15 @@ class FleetGemmSession:
 
     def drain(self) -> Tuple[List[GemmRecord], list]:
         """Harvest (and clear) the step's GEMM trace and churn reports,
-        joining deferred verifications first; disarms a pending failure."""
+        joining deferred verifications first (their spans and counts go
+        to the GEMM's record and to the current tally); disarms a pending
+        failure."""
         for record, step, fut in self._pending:
-            record.verify_time = fut.result()
+            record.verify_time, tally = fut.result()
             record.verified = step.verified
             record.n_recovered = step.n_recovered
+            spans.fold(record.spans, record.counters, tally)
+            spans.merge(tally)
         self._pending = []
         out, self.records = self.records, []
         churn, self.churn_reports = self.churn_reports, []
@@ -155,12 +165,13 @@ class FleetGemmSession:
 
     def _price(self, gemm, plan) -> float:
         from repro_torch.sim.engine import price_plan
-        key = (gemm.m, gemm.n, gemm.q, gemm.b,
-               self.rt.fleet.signature())
-        if key not in self._price_memo:
-            self._price_memo[key] = price_plan(gemm, plan,
-                                               self.rt.fleet.devices)
-        return self._price_memo[key]
+        with spans.span("fleet.plan"):
+            key = (gemm.m, gemm.n, gemm.q, gemm.b,
+                   self.rt.fleet.signature())
+            if key not in self._price_memo:
+                self._price_memo[key] = price_plan(gemm, plan,
+                                                   self.rt.fleet.devices)
+            return self._price_memo[key]
 
     def price_step(self, records: Sequence[GemmRecord]) -> float:
         """Engine price of one step's executed GEMM trace: the barrier sum
@@ -189,9 +200,10 @@ class FleetGemmSession:
 
     def _execute(self, a: torch.Tensor, b: torch.Tensor,
                  kind: str) -> torch.Tensor:
-        # a profiler range per kind ("fleet.fwd", "fleet.dA", "fleet.dW"):
-        # launch/profile_train.py reads the kernel time under each
-        with torch.profiler.record_function(f"fleet.{kind}"):
+        # a span per kind ("fleet.fwd", "fleet.dA", "fleet.dW") around the
+        # GEMM's phase spans; the record holds the GEMM's tally, which the
+        # phases fill until the block ends
+        with spans.span(f"fleet.{kind}"), spans.collect() as tally:
             fail_ids: Tuple[int, ...] = ()
             armed = self._armed
             if armed is not None and not armed.fired \
@@ -211,9 +223,11 @@ class FleetGemmSession:
                     kernel=self.kernel)
 
                 def _timed_verify():
-                    t0 = time.perf_counter()
-                    fin()
-                    return time.perf_counter() - t0
+                    # on the worker's own chain: drain() joins its tally
+                    with spans.collect(own=True) as vtally:
+                        t0 = time.perf_counter()
+                        fin()
+                        return time.perf_counter() - t0, vtally
 
                 if self._verify_pool is None:
                     from concurrent.futures import ThreadPoolExecutor
@@ -232,16 +246,18 @@ class FleetGemmSession:
                 predicted_makespan=self._price(rep.gemm, rep.plan),
                 n_tasks=rep.n_tasks, n_recovered=rep.n_recovered,
                 verified=rep.verified, plan_cached=rep.plan_cached,
-                failed_ids=fail_ids, b=gemm.b)
+                failed_ids=fail_ids, b=gemm.b, spans=tally.spans,
+                counters=tally.counters)
             if self.dispatch == "dataflow":
                 self._pending[-1] = (record, rep, self._pending[-1][2])
             self.records.append(record)
             if fail_ids and armed is not None and armed.evict:
                 self.churn_reports.append(self.rt.on_failure(fail_ids))
-            out = rep.output
-            if isinstance(out, np.ndarray):
-                out = torch.from_numpy(np.ascontiguousarray(out))
-            return out.to(device=a.device, dtype=a.dtype)
+            with spans.span("fleet.scatter"):
+                out = rep.output
+                if isinstance(out, np.ndarray):
+                    out = torch.from_numpy(np.ascontiguousarray(out))
+                return out.to(device=a.device, dtype=a.dtype)
 
 
 # ------------------------------------------------------ autograd fleet dot

@@ -36,6 +36,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.train_loop.train_step import FleetStepReport, FleetTrainSession
 
 
@@ -254,7 +255,7 @@ class MultiPSTrainSession:
             from repro_torch.optim import diloco
             from repro_torch.sim.engine import price_outer_sync
             part = diloco.partition_params(new_params[0], k)
-            with torch.profiler.record_function("ps.outer_round"):
+            with span("ps.outer_round"):
                 merged, outer, traffic = diloco.outer_step_sharded(
                     outer, new_params, part, self.diloco, donate=donate)
             if not donate:

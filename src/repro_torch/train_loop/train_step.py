@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import spans
 from repro_torch.train_loop.fleet_gemm import FleetGemmSession, GemmRecord
 
 
@@ -75,6 +76,17 @@ class FleetStepReport:
                   f"recovered {self.n_recovered} tasks, "
                   f"{self.n_plans_patched} plans patched")
         return s
+
+
+@dataclass
+class SpannedStepReport(FleetStepReport):
+    """The port's :class:`FleetStepReport`: the step's self seconds by
+    span and its counts by counter (``core.spans``) -- every GEMM's phases
+    and ``fleet.<kind>`` spans, and the PS's ``ps.forward``,
+    ``ps.backward``, ``ps.adam`` and ``ps.sync`` with the model's spans
+    inside them."""
+    spans: Dict[str, float] = field(default_factory=dict)
+    counters: Dict[str, int] = field(default_factory=dict)
 
 
 # DAG GEMM families the pdot hook does NOT lower onto the fleet: per-expert
@@ -286,28 +298,31 @@ class FleetTrainSession:
         if self.rt.device.type == "cuda":
             ieee_f32()
         predicted, predicted_overlap = self._predict(batch)
-        t0 = time.perf_counter()
-        try:
-            with self.gemms.open() as fleet:
-                if fail_ids:
-                    fleet.arm_failure(fail_ids, at_gemm=fail_at_gemm)
-                # no recompute: the fleet GEMMs run once each, as the
-                # reference's unrolled scan_layers=False path
-                (loss, metrics), grads = M.value_and_grad(
-                    self.cfg, params, batch, remat=False, **self.chunks)
-                with torch.profiler.record_function("ps.adam"):
-                    params2, opt2, opt_metrics = adam.apply(
-                        params, grads, opt_state, self.opt_cfg,
-                        donate=donate)
-                del grads
-        finally:
-            # drain unconditionally: an exception mid-step must not leak a
-            # partial step's records / armed failure / GEMM counter into
-            # the next step of this (cached, reused) session
-            records, churn_reports = self.gemms.drain()
-        if self.rt.device.type == "cuda":
-            torch.cuda.synchronize(self.rt.device)
-        wall = time.perf_counter() - t0
+        with spans.collect() as tally:
+            t0 = time.perf_counter()
+            try:
+                with self.gemms.open() as fleet:
+                    if fail_ids:
+                        fleet.arm_failure(fail_ids, at_gemm=fail_at_gemm)
+                    # no recompute: the fleet GEMMs run once each, as the
+                    # reference's unrolled scan_layers=False path
+                    (loss, metrics), grads = M.value_and_grad(
+                        self.cfg, params, batch, remat=False, **self.chunks)
+                    with spans.span("ps.adam"):
+                        params2, opt2, opt_metrics = adam.apply(
+                            params, grads, opt_state, self.opt_cfg,
+                            donate=donate)
+                    del grads
+            finally:
+                # drain unconditionally: an exception mid-step must not
+                # leak a partial step's records / armed failure / GEMM
+                # counter into the next step of this (cached, reused)
+                # session
+                records, churn_reports = self.gemms.drain()
+            with spans.span("ps.sync"):
+                if self.rt.device.type == "cuda":
+                    torch.cuda.synchronize(self.rt.device)
+            wall = time.perf_counter() - t0
         # report what actually happened, not what was requested: an armed
         # failure whose at_gemm index was never reached fired nothing
         fired_ids = tuple(sorted({int(i) for r in records
@@ -322,7 +337,7 @@ class FleetTrainSession:
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
-        report = FleetStepReport(
+        report = SpannedStepReport(
             step=self.step_index, loss=float(loss),
             grad_norm=float(metrics["grad_norm"]),
             lr=float(metrics["lr"]),
@@ -340,7 +355,8 @@ class FleetTrainSession:
             n_plans_patched=n_patched, records=records,
             dispatch=self.dispatch,
             predicted_makespan_overlap=predicted_overlap,
-            fleet_verify_time=sum(r.verify_time for r in records))
+            fleet_verify_time=sum(r.verify_time for r in records),
+            spans=tally.spans, counters=tally.counters)
         # the caller's report carries the full per-GEMM trace; the
         # session-retained copy drops it so a long run doesn't grow
         # memory by ~90 records/step
