@@ -315,6 +315,21 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               step's ms by CUDA events, the card's busy ms and idle
               share under ``torch.profiler``, and the B2, B4 and B5
               launches.
+31. freivalds -- the fused Freivalds residual kernel against its plain
+              version at the benchmark cell's own buckets (deepseek-v2-236b
+              on ``Fleet.sample(16, seed=0, phone_fraction=0.6)``): the LM
+              head's dW (one band of 5,120 rows, 16 rectangles), ``wo``'s dW
+              (5 buckets), the router's forward (16 single-rectangle
+              bands), the LM head's forward and dA, each through ``ops.plan_gemm_buckets`` in bf16 and
+              f32 with a third of the rectangles poisoned: every number
+              within 1e-5 of the absolute sum of its terms, the poisoned
+              band products identical, the verdicts of the executor's
+              acceptance test equal to the plain version's with no clean
+              rectangle flagged (and, in f32, every poisoned one), one
+              call a bucket; the kernel's signs against ``ops.rademacher``
+              bit for bit; each GEMM's buckets timed with the host's gaps
+              hidden beside their bound (A and B once in their type, C
+              once in f32) and the plain version.
 
 In ``full``, ``train_full``, ``rwkv_full``, ``moe_full``, ``mla_full``,
 ``mrope_full``, ``encdec_full``, ``hymba_full`` and ``multips_full`` every
@@ -377,7 +392,8 @@ PHASES = ("build", "gemm", "paged", "flash", "decode", "wkv", "reduced",
           "bgemm", "moe_reduced", "moe_full", "mla_reduced", "mla_full",
           "mrope_reduced", "mrope_full", "encdec_reduced", "encdec_full",
           "hymba_reduced", "hymba_full", "multips_reduced", "multips_full",
-          "batch", "sim", "examples", "mesh_reduced", "mesh_full")
+          "batch", "sim", "examples", "mesh_reduced", "mesh_full",
+          "freivalds")
 EXTRA_PHASES = ("split", "f32sets", "attnsets")   # run only when named
 # one H100 SXM, dense peaks (NVIDIA data sheet), at the 700 W limit
 PEAK_BW = 3.35e12                 # bytes/s
@@ -4548,6 +4564,188 @@ def phase_batch(cfg):
                        ("escapes", "f64_passes", "worst_f64_margin")}}
 
 
+# the benchmark cell's fleet GEMMs that the freivalds phase runs: (name,
+# m, n, q); the LM head's are one of its 16 loss chunks
+FREIVALDS_GEMMS = (("head_dW", 5120, 256, 102400),
+                   ("wo_dW", 16384, 4096, 5120),
+                   ("router_fwd", 4096, 5120, 160),
+                   ("head_fwd", 256, 5120, 102400),
+                   ("head_dA", 256, 102400, 5120))
+# kernel against plain: each number within this share of the absolute sum
+# of its terms (both sides sum the same f32 products in another order)
+FREIVALDS_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def residual_audit():
+    """Wraps the fused residual kernel's entry while a path runs: each call
+    is held against the plain version on a copy of its band products
+    (every number within :data:`FREIVALDS_TOL` of the absolute sum of its
+    terms: Σ|C| over the rectangle for rhs and the scale, Σ_k Σ_m |A| |t|
+    for lhs; the poisoned band products equal); each call's operands and
+    the plain residuals are kept."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import freivalds as fv
+    real = fv.residuals_cuda
+    audit = {"calls": [], "worst": 0.0, "max_rel_err": 0.0}
+
+    def audited(As, b_op, C, meta, geom):
+        C_plain = C.clone()
+        got = real(As, b_op, C, meta, geom)
+        want = fv.residuals_plain(As, b_op, C_plain, meta, geom)
+        check(torch.equal(C, C_plain), "freivalds: the kernel's poisoned "
+              "band products differ from the plain version's")
+        f = fv.unpack(meta.cpu().numpy(), geom)
+        it, qk, pm = geom.iters, C.shape[2], As.shape[1]
+        bidx = torch.as_tensor(f["bidx"].astype(np.int64), device=C.device)
+        cols = torch.arange(qk, device=C.device)
+        c0 = torch.as_tensor(f["c0"].astype(np.int64), device=C.device)
+        c1 = torch.as_tensor(f["c1"].astype(np.int64), device=C.device)
+        s = fv.signs(torch.as_tensor(f["key_s"].astype(np.int64),
+                                     device=C.device), qk) \
+            * ((cols >= c0[:, None]) & (cols < c1[:, None]))[:, None]
+        t = torch.einsum("kq,riq->rik", b_op.double(), s.double()).abs()
+        rows = torch.arange(pm, device=C.device)
+        h = torch.as_tensor(f["h"].astype(np.int64), device=C.device)
+        colabs = (As.double().abs()
+                  * (rows[None, :, None] < h[:, None, None])).sum(1)
+        terms = torch.cat([(t * colabs[bidx][:, None]).sum(2),
+                           want[:, -1:].double().expand(-1, it + 1)], 1)
+        ratio = float(((got - want).double().abs()
+                       / (FREIVALDS_TOL * terms + 1e-30)).max())
+        audit["worst"] = max(audit["worst"], ratio)
+        audit["max_rel_err"] = max(audit["max_rel_err"], float(
+            ((got - want).double().abs() / (terms + 1e-30)).max()))
+        audit["calls"].append((As, b_op, C, meta, geom, want.cpu().numpy()))
+        del t, colabs, s, C_plain
+        return got
+
+    fv.residuals_cuda = audited
+    try:
+        yield audit
+    finally:
+        fv.residuals_cuda = real
+
+
+def phase_freivalds():
+    """The fused residual kernel at the benchmark cell's own buckets, held
+    to its plain version, its signs to ``ops.rademacher`` and its verdicts
+    to the executor's acceptance test; each GEMM's buckets timed."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Fleet, TorchCleaveRuntime
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.executor import build_task_list
+    from repro_torch.core.torch_executor import POLICIES
+    from repro_torch.kernels import freivalds as fv
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = TorchCleaveRuntime(arch="deepseek-v2-236b", device=dev,
+                            fleet=Fleet.sample(16, seed=0,
+                                               phone_fraction=0.6))
+    # the signs at the cell's widest product, bit for bit
+    keys = fv.probe_keys(2 ** 31 + 17, np.arange(16) * 131 + 5, 2, 1)
+    sign_equal = torch.equal(
+        fv.signs_cuda(keys, 102400, dev),
+        ops.rademacher(2 ** 31 + 17, np.arange(16) * 131 + 5, 2, 102400, 1,
+                       dev))
+    check(sign_equal, "freivalds: the kernel's signs differ from "
+          "ops.rademacher's")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rows = []
+    for name, m, n, q in FREIVALDS_GEMMS:
+        gemm = cm.GEMM(m=m, n=n, q=q, b=2)
+        plan, _ = rt._solve_gemm(gemm)
+        tasks, _ = build_task_list(gemm, plan, rt.fleet.devices)
+        rects = [(x.r0, x.r1, x.c0, x.c1) for x in tasks]
+        corrupt = (np.arange(len(rects)) % 3 == 1).astype(np.float32)
+        A = torch.randn((m, n), generator=gen, device=dev)
+        B = torch.randn((n, q), generator=gen, device=dev) / n ** 0.5
+        for dt, pol in (("bfloat16", "bf16"), ("float32", "f32")):
+            policy = POLICIES[pol]
+            n0 = fv.launches
+            with residual_audit() as audit:
+                runs = ops.plan_gemm_buckets(
+                    A.to(getattr(torch, dt)), B.to(getattr(torch, dt)),
+                    rects, compute_dtype=dt, verify_seed=2 ** 31 - 99,
+                    corrupt=corrupt, device=dev)
+                torch.cuda.synchronize()
+            calls = fv.launches - n0
+            flagged, poisoned = set(), set(np.flatnonzero(corrupt).tolist())
+            for run in runs:
+                hs = run.band_hs[run.bidx].astype(np.int64)
+                ws = (run.c1s - run.c0s).astype(np.int64)
+                rtols = policy.freivalds_c * policy.eps * np.sqrt(
+                    n / np.maximum(hs * ws, 1))
+                ok = np.all(np.abs(run.lhs - run.rhs)
+                            <= rtols[:, None] * np.abs(run.rhs)
+                            + (rtols * (run.scale + 1e-30))[:, None], axis=1)
+                flagged |= {int(run.idx[g]) for g in np.flatnonzero(~ok)}
+            # the plain version's verdicts on the same launches
+            plain_flagged = set()
+            for (*_, geom, res), run in zip(audit["calls"], runs):
+                it = geom.iters
+                hs = run.band_hs[run.bidx].astype(np.int64)
+                ws = (run.c1s - run.c0s).astype(np.int64)
+                rtols = policy.freivalds_c * policy.eps * np.sqrt(
+                    n / np.maximum(hs * ws, 1))
+                lhs, rhs, sc = res[:, :it], res[:, it:2 * it], res[:, -1]
+                ok = np.all(np.abs(lhs - rhs) <= rtols[:, None] * np.abs(rhs)
+                            + (rtols * (sc + 1e-30))[:, None], axis=1)
+                plain_flagged |= {int(run.idx[g])
+                                  for g in np.flatnonzero(~ok)}
+            # each bucket timed: the kernel with the host's gaps hidden,
+            # the plain version by events (its copies block the host)
+            ms = plain_ms = bound = 0.0
+            for As, b_op, C, meta, geom, _ in audit["calls"]:
+                ms += time_ms(lambda: fv.residuals_cuda(As, b_op, C, meta,
+                                                        geom),
+                              iters=5, reps=3, hide_host=True)
+                plain_ms += time_ms(lambda: fv.residuals_plain(
+                    As, b_op, C, meta, geom), iters=2, reps=3)
+                f = fv.unpack(meta.cpu().numpy(), geom)
+                esz = As.element_size()
+                area = int(((f["c1"] - f["c0"]).astype(np.int64)
+                            * f["h"][f["bidx"]]).sum())
+                bound += (esz * (int(f["h"].sum()) * As.shape[2]
+                                 + b_op.numel()) + 4 * area) / PEAK_BW * 1e3
+            fv.launches = n0 + calls
+            row = {"gemm": name, "m": m, "n": n, "q": q, "dtype": dt,
+                   "rects": len(rects), "buckets": len(runs),
+                   "launches": calls, "max_rel_err": audit["max_rel_err"],
+                   "worst_over_tol": audit["worst"],
+                   "poisoned": len(poisoned),
+                   "poisoned_flagged": len(flagged & poisoned),
+                   "clean_flagged": len(flagged - poisoned),
+                   "plain_poisoned_flagged": len(plain_flagged & poisoned),
+                   "verdicts_equal_plain": flagged == plain_flagged,
+                   "device_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": "bytes"}
+            rows.append(row)
+            emit({"phase": "freivalds_gemm", **row})
+            del audit, runs
+            check(calls == row["buckets"],
+                  f"freivalds: {calls} kernel calls for {row['buckets']} "
+                  f"buckets of {name}")
+            check(row["worst_over_tol"] <= 1.0, f"freivalds: {name} {dt} "
+                  f"differs from plain by {row['worst_over_tol']:.3g} x "
+                  "its tolerance")
+            check(row["clean_flagged"] == 0 and row["verdicts_equal_plain"],
+                  f"freivalds: {name} {dt} verdicts {row}")
+            check(pol != "f32" or row["poisoned_flagged"] == len(poisoned),
+                  f"freivalds: {name} f32 lets a poisoned rectangle pass")
+        del A, B
+    out = {"phase": "freivalds", "signs_bit_equal": sign_equal,
+           "launches": sum(r["launches"] for r in rows),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return {**out, "gemms": rows}
+
+
 def _rel(a: float, b: float) -> float:
     """|a - b| over the larger magnitude (0 when both are 0)."""
     return abs(a - b) / max(abs(a), abs(b), 1e-300)
@@ -5437,6 +5635,7 @@ def main(argv=None) -> int:
     examples = phase_examples() if "examples" in phases else None
     mesh_r = phase_mesh_reduced() if "mesh_reduced" in phases else None
     mesh_f = phase_mesh_full() if "mesh_full" in phases else None
+    fv = phase_freivalds() if "freivalds" in phases else None
     if "split" in phases:
         phase_split()
     if "f32sets" in phases:
@@ -5451,7 +5650,7 @@ def main(argv=None) -> int:
                                    launches, train, rwkv, bgemm, moe,
                                    mla, mrope, encdec, hymba, multips_r,
                                    multips, batch, examples, mesh_r,
-                                   mesh_f)) \
+                                   mesh_f, fv)) \
             and len(cells) == 7:
         train_launches, gset = train
         ex = examples["launches"]
@@ -5718,6 +5917,18 @@ def main(argv=None) -> int:
                       "(benchmarks/kernels_bench.py's shape); "
                       "launches_by_body counts it and one bf16 call",
              **{k: b3[k] for k in timed + device}},
+            {"name": "freivalds", "route": "cuda",
+             "source": "src/repro_torch/csrc/freivalds.cu",
+             "replaces": None,
+             "redesigned": "no Pallas kernel: the reference's XLA einsums "
+                           "(src/repro/kernels/ops.py:169); one product and "
+                           "one operand launch a bucket, signs hashed in "
+                           "registers, fixed-order partial sums",
+             "launches": fv["launches"],
+             "signs_bit_equal": fv["signs_bit_equal"],
+             "ms_of": "each GEMM's buckets, with the host's gaps hidden "
+                      "(plain: by events)",
+             "gemms": fv["gemms"]},
         ]
         emit({"kernels": kernels})
     print(smi.splitlines()[0], flush=True)

@@ -24,6 +24,7 @@ from repro_torch.core.spans import count, span
 from repro_torch.kernels import block_gemm as _bg
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import freivalds as _fv
 from repro_torch.kernels import wkv6 as _wkv
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -214,13 +215,13 @@ def resolve_plan_kernel(kernel: str = "auto",
 
 def _gather_bands(a_pad, r0s, pm, compute_dtype):
     """(Gb, pm, nk) stack of the row bands starting at ``r0s`` (a view for
-    a single band)."""
+    a single band, one copy of the band slices for several: no index
+    array goes to the device)."""
     if len(r0s) == 1:
         r0 = int(r0s[0])
         return a_pad[r0:r0 + pm].unsqueeze(0).to(compute_dtype)
-    idx = torch.as_tensor(np.asarray(r0s, np.int64)[:, None]
-                          + np.arange(pm)[None, :], device=a_pad.device)
-    return a_pad[idx].to(compute_dtype)
+    return torch.stack([a_pad[r0:r0 + pm] for r0 in r0s.tolist()]) \
+        .to(compute_dtype)
 
 
 def _band_matmul(As, b_op, kernel):
@@ -229,43 +230,16 @@ def _band_matmul(As, b_op, kernel):
     return _bg.block_gemm_batched_shared(As, b_op)
 
 
-# ---------------------------------------------------- Freivalds sign draws --
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(h, c: int):
-    """(h * c) mod 2^32 for integers below 2^32 held in int64 tensors or
-    uint64 arrays, with every partial product below 2^49 (no overflow)."""
-    lo = (h & 0xFFFF) * c
-    hi = ((h >> 16) * c) & 0xFFFF
-    return (lo + (hi << 16)) & _M32
-
-
-def _mix32(h):
-    """A 32-bit avalanche hash (bijective on [0, 2^32))."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x7FEB352D)
-    h = h ^ (h >> 15)
-    h = _mul32(h, 0x846CA68B)
-    return h ^ (h >> 16)
-
-
 def rademacher(seed: int, task_ids, iters: int, n: int, salt: int,
                device) -> torch.Tensor:
     """(len(task_ids), iters, n) float32 signs from a counter-based hash of
     ``(seed, salt, task_id, iter, index)``: the draw of a rectangle depends
     on its global task id, never on how rectangles were bucketed.  The
     per-(task, iter) keys are hashed on the host; the device runs two
-    rounds over the index."""
-    h = _mix32(np.uint64((int(seed) & _M32) ^ 0x9E3779B9))
-    h = _mix32(h ^ np.uint64(int(salt) & _M32))
-    tid = np.asarray(task_ids, np.uint64)[:, None] & np.uint64(_M32)
-    key = _mix32(_mix32(h ^ tid) ^ np.arange(iters, dtype=np.uint64))
-    k = torch.as_tensor(key.astype(np.int64), device=device)[:, :, None]
-    ix = torch.arange(n, dtype=torch.int64, device=device)
-    h = _mix32(_mix32(k ^ ix) ^ k)
-    return 1.0 - 2.0 * ((h >> 31) & 1).to(torch.float32)
+    rounds over the index (``freivalds.signs``; the residual kernel draws
+    the same signs in registers)."""
+    key = _fv.probe_keys(seed, task_ids, iters, salt)
+    return _fv.signs(torch.as_tensor(key.astype(np.int64), device=device), n)
 
 
 def _bucket_gemm(a_pad, b_op, r0s, *, pm, kernel, compute_dtype):
@@ -276,60 +250,22 @@ def _bucket_gemm(a_pad, b_op, r0s, *, pm, kernel, compute_dtype):
     return _band_matmul(As, b_op, kernel)
 
 
-def _bucket_gemm_verified(a_pad, b_op, r0s, hs, bidx, slot, c0s, c1s,
-                          corrupt, seed, task_ids, *, pm, R, kernel,
-                          compute_dtype, iters):
+def _bucket_gemm_verified(a_pad, b_op, r0s, meta, geom, *, pm, kernel,
+                          compute_dtype):
     """:func:`_bucket_gemm` plus device-side batched Freivalds residuals
-    (the reference's ``_bucket_gemm_verified``): per rectangle, masked sign
+    (the reference's ``_bucket_gemm_verified``): per rectangle, sign
     vectors ``r`` (iters x band rows) and ``s`` (iters x output columns),
     ``lhs = r·(A (B s))`` against ``rhs = (r·C)·s`` and the noise scale
-    Σ|C| over the rectangle, grouped ``(band, slot)`` so the band-shared
-    contractions batch.  ``corrupt`` flags poisoned rectangles, which get
-    the ``C[0,0] += 1 + |C[0,0]|`` injection before the residuals.  The
-    residual contractions are plain torch (XLA einsums in the reference);
-    only the band product runs the kernel."""
-    dev = a_pad.device
+    Σ|C| over the rectangle, after the ``C[0,0] += 1 + |C[0,0]|``
+    injection of poisoned rectangles.  ``meta`` is the bucket's packed
+    host buffer (``freivalds.pack``), which goes to the device in one copy;
+    on the card the residuals are the fused kernel's
+    (``freivalds.residuals``), on the CPU its plain version.  Returns
+    ``(C, residuals)``, the residuals ``(rects, 2 iters + 1)``."""
     As = _gather_bands(a_pad, r0s, pm, compute_dtype)
     C = _band_matmul(As, b_op, kernel)
-    qk = C.shape[2]
-    Gb = len(r0s)
-    bidx_t = torch.as_tensor(bidx, dtype=torch.int64, device=dev)
-    slot_t = torch.as_tensor(slot, dtype=torch.int64, device=dev)
-    c0_t = torch.as_tensor(c0s, dtype=torch.int64, device=dev)
-    c1_t = torch.as_tensor(c1s, dtype=torch.int64, device=dev)
-    zero = torch.zeros_like(bidx_t)
-    corr = torch.as_tensor(corrupt, dtype=torch.float32, device=dev)
-    c00 = C[bidx_t, zero, c0_t]
-    C.index_put_((bidx_t, zero, c0_t), corr * (1.0 + c00.abs()),
-                 accumulate=True)
-
-    r = rademacher(seed, task_ids, iters, pm, 0, dev)
-    s = rademacher(seed, task_ids, iters, qk, 1, dev)
-    hs_t = torch.as_tensor(hs, dtype=torch.int64, device=dev)
-    rowm = (torch.arange(pm, device=dev)[None, :]
-            < hs_t[:, None]).float()                       # (Gb, pm)
-    cols = torch.arange(qk, device=dev)[None, :]
-    colm = ((cols >= c0_t[:, None]) & (cols < c1_t[:, None])).float()
-    r = r * rowm[bidx_t][:, None, :]
-    s = s * colm[:, None, :]
-    Af = As.float()
-    Bf = b_op.float()
-    t = torch.einsum("kq,riq->rki", Bf, s)
-    t_g = torch.zeros((Gb, R) + tuple(t.shape[1:]), device=dev)
-    t_g[bidx_t, slot_t] = t
-    u = torch.einsum("bmk,brki->bmri", Af, t_g)
-    r_g = torch.zeros((Gb, R, iters, pm), device=dev)
-    r_g[bidx_t, slot_t] = r
-    lhs = torch.einsum("brim,bmri->bri", r_g, u)[bidx_t, slot_t]
-    s_g = torch.zeros((Gb, R, iters, qk), device=dev)
-    s_g[bidx_t, slot_t] = s
-    Cs = torch.einsum("bmq,briq->bmri", C, s_g)
-    rhs = torch.einsum("brim,bmri->bri", r_g, Cs)[bidx_t, slot_t]
-    colm_g = torch.zeros((Gb, R, qk), device=dev)
-    colm_g[bidx_t, slot_t] = colm
-    Csa = torch.einsum("bmq,brq->bmr", C.abs(), colm_g)
-    scale = torch.einsum("bm,bmr->br", rowm, Csa)[bidx_t, slot_t]
-    return C, lhs, rhs, scale
+    return C, _fv.residuals(As, b_op, C, _fv.to_device(meta, C.device),
+                            geom)
 
 
 @dataclasses.dataclass
@@ -420,7 +356,7 @@ def plan_gemm_buckets(a, b, rects, *, block=128, kernel="auto",
         dev = _device_of(a, b, device)
         kernel = resolve_plan_kernel(kernel, dev)
         if dev.type == "cuda":
-            # the residual contractions are IEEE f32, never TF32
+            # the PS re-dispatch's f32 products are IEEE f32, never TF32
             ieee_f32()
         if compute_dtype is None:
             compute_dtype = "bfloat16" if dev.type == "cuda" else "float32"
@@ -459,14 +395,14 @@ def plan_gemm_buckets(a, b, rects, *, block=128, kernel="auto",
                 continue
             corr = np.zeros(len(ia), np.float32) if corrupt is None \
                 else np.asarray(corrupt, np.float32)[ia]
-            R = int(max(np.bincount(bidx))) if len(bidx) else 1
-            C, lhs, rhs, scale = _bucket_gemm_verified(
-                a_pad, b_op, r0s, hs, bidx, slot, c0s, c1s, corr,
-                verify_seed, ia, pm=pm, R=R, kernel=kernel,
-                compute_dtype=cd, iters=freivalds_iters)
+            meta, geom = _fv.pack(hs, bidx, slot, c0s, c1s, corr,
+                                  verify_seed, ia, freivalds_iters)
+            C, res = _bucket_gemm_verified(a_pad, b_op, r0s, meta, geom,
+                                           pm=pm, kernel=kernel,
+                                           compute_dtype=cd)
         with span("fleet.readback"):
             # one device-to-host copy of the per-rect residual scalars
-            res = torch.cat([lhs, rhs, scale[:, None]], dim=1).cpu().numpy()
+            res = res.cpu().numpy()
         it = freivalds_iters
         runs.append(BucketRun(idx=ia, pm=pm, q=q, band_r0s=r0s,
                               band_hs=hs, bidx=bidx, c0s=c0s, c1s=c1s,
