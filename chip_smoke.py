@@ -327,9 +327,16 @@ Phases, each printing JSON lines; any failed check exits non-zero:
               acceptance test equal to the plain version's with no clean
               rectangle flagged (and, in f32, every poisoned one), one
               call a bucket; the kernel's signs against ``ops.rademacher``
-              bit for bit; each GEMM's buckets timed with the host's gaps
+              bit for bit, read through its residuals (``sign_probe``:
+              band products of powers of two on zero operands, at the
+              first, middle and last rows and columns of every
+              rectangle); each GEMM's buckets timed with the host's gaps
               hidden beside their bound (A and B once in their type, C
-              once in f32) and the plain version.
+              once in f32) and the plain version.  Every fleet phase
+              holds each step's fused residual launches to the verified
+              buckets the executor ran on the card and to the step's
+              ``fleet.residual_launches`` counter (``residual_since``);
+              the ``kernels`` line reads those main paths' counts.
 
 In ``full``, ``train_full``, ``rwkv_full``, ``moe_full``, ``mla_full``,
 ``mrope_full``, ``encdec_full``, ``hymba_full`` and ``multips_full`` every
@@ -449,6 +456,49 @@ def time_ms(fn, iters: int = 10, reps: int = 5,
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+# the verified band buckets the executor ran on the card (calls of
+# ops._bucket_gemm_verified with CUDA operands, counted by residual_mark's
+# wrapper), and the fused residual kernel's launches by phase
+VERIFIED_BUCKETS = {"card": 0}
+RESIDUALS_BY_PHASE: dict = {}
+
+
+def residual_mark() -> tuple:
+    """(fused residual launches, verified card buckets) so far, for
+    :func:`residual_since`; counts the buckets from the first call on."""
+    from repro_torch.kernels import freivalds as fv
+    from repro_torch.kernels import ops
+    real = ops._bucket_gemm_verified
+    if not getattr(real, "counted", False):
+        def counted(a_pad, *args, **kw):
+            if a_pad.device.type == "cuda":
+                VERIFIED_BUCKETS["card"] += 1
+            return real(a_pad, *args, **kw)
+        counted.counted = True
+        ops._bucket_gemm_verified = counted
+    return fv.launches, VERIFIED_BUCKETS["card"]
+
+
+def residual_since(mark: tuple, phase: str, report=None) -> dict:
+    """The fused residual kernel's launches and the verified buckets run on
+    the card since ``mark``, added to the phase's total: one launch a
+    bucket; where a training step's report (or its islands' reports) is
+    given, some launches, and its ``fleet.residual_launches`` counter the
+    same."""
+    from repro_torch.kernels import freivalds as fv
+    n, b = fv.launches - mark[0], VERIFIED_BUCKETS["card"] - mark[1]
+    check(n == b, f"{phase}: {n} fused residual launches for {b} verified "
+          "buckets on the card")
+    out = {"freivalds_launches": n, "verified_buckets": b}
+    if report is not None:
+        reps = report if isinstance(report, (list, tuple)) else [report]
+        c = sum(r.counters.get("fleet.residual_launches", 0) for r in reps)
+        check(n > 0 and c == n, f"{phase}: the step counts {c} residual "
+              f"launches, the kernel ran {n}")
+    RESIDUALS_BY_PHASE[phase] = RESIDUALS_BY_PHASE.get(phase, 0) + n
+    return out
 
 
 BLOCK_GEMM_COUNTERS = ("launches", "batched_launches", "block_gemm_launches",
@@ -1504,6 +1554,7 @@ def phase_full(cfg):
     dec.flash_decode_launches = dec.flash_decode_element_launches = 0
     fa.launches = 0
     reset_body_counts()
+    mark = residual_mark()
     t0 = time.perf_counter()
     with band_gemm_audit(verify=False) as audit:
         first = sess.step()
@@ -1511,6 +1562,7 @@ def phase_full(cfg):
         rep = sess.run(fail_ids=[3], fail_at_step=1)   # the session's step 2
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
+    residuals = residual_since(mark, "full")
     # the prefills of the four admissions run the flash kernel, one
     # launch per layer each; every decode step's attention the flash-decode
     # kernel, one launch per layer
@@ -1523,7 +1575,8 @@ def phase_full(cfg):
                 "flash_decode_by_route": {
                     "cp_async16": dec.flash_decode_launches
                     - dec.flash_decode_element_launches,
-                    "element": dec.flash_decode_element_launches}}
+                    "element": dec.flash_decode_element_launches},
+                "freivalds": residuals["freivalds_launches"]}
     bodies = check_bf16_body("full width", audit)
 
     # the first step against the port's monolithic decode on the same
@@ -1698,7 +1751,9 @@ def phase_train_reduced():
         p_m, o_m, met_m = mono(p_m, o_m, batch)
         # 16 forward GEMMs per step: GEMM 20 is in the backward
         with band_gemm_audit(verify=True) as audit:
+            mark = residual_mark()
             p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+            res = residual_since(mark, "train_reduced", met_f["fleet"])
         audits.append(audit)
         p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
         rep = met_f["fleet"]
@@ -1710,6 +1765,7 @@ def phase_train_reduced():
                      "n_gemms": rep.n_gemms, "verified": rep.verified,
                      "n_recovered": rep.n_recovered,
                      "failed_ids": list(rep.failed_ids),
+                     **res,
                      "band_gemm_checked": audit["checked"],
                      "band_gemm_max_rel_err": audit["max_rel_err"]})
     worst = {"params": _worst_rel(p_m, p_f), "mu": _worst_rel(o_m.mu, o_f.mu),
@@ -1792,6 +1848,7 @@ def phase_train_full(cfg):
     rows, reports, audits = [], [], []
     for step, batch in enumerate(batches):
         n_bg, n_fa = bg.launches, fa.launches
+        mark = residual_mark()
         torch.cuda.reset_peak_memory_stats()
         # 30 forward GEMMs per step: GEMM 45 is in the backward
         with band_gemm_audit(verify=step == audited) as audit:
@@ -1801,6 +1858,7 @@ def phase_train_full(cfg):
         audits.append(audit)
         rep = met["fleet"]
         reports.append(rep)
+        res = residual_since(mark, "train_full", rep)
         kinds = {}
         for r in rep.records:
             kinds[r.kind] = kinds.get(r.kind, 0) + 1
@@ -1814,7 +1872,7 @@ def phase_train_full(cfg):
             "failed_ids": list(rep.failed_ids), "verified": rep.verified,
             "all_gemms_verified": all(r.verified for r in rep.records),
             "band_gemm_launches": bg.launches - n_bg,
-            "flash_launches": fa.launches - n_fa,
+            "flash_launches": fa.launches - n_fa, **res,
             "band_gemm_checked_against_plain": audit["checked"],
             "band_gemm_max_rel_err": audit["max_rel_err"],
             "max_memory_allocated_gb":
@@ -1922,7 +1980,9 @@ def phase_rwkv_reduced():
         fail = dict(fail_ids=[2] if step == 1 else (), fail_at_gemm=3)
         p_m, o_m, met_m = mono(p_m, o_m, batch)
         with band_gemm_audit(verify=True) as audit:
+            mark = residual_mark()
             p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+            res = residual_since(mark, "rwkv_reduced", met_f["fleet"])
         audits.append(audit)
         p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
         rep = met_f["fleet"]
@@ -1934,6 +1994,7 @@ def phase_rwkv_reduced():
                      "n_gemms": rep.n_gemms, "verified": rep.verified,
                      "n_recovered": rep.n_recovered,
                      "failed_ids": list(rep.failed_ids),
+                     **res,
                      "band_gemm_checked": audit["checked"],
                      "band_gemm_max_rel_err": audit["max_rel_err"]})
     train_wkv = wkv.launches
@@ -2030,10 +2091,12 @@ def phase_rwkv_full(cfg):
     with band_gemm_audit(verify=False) as b1_audit:
         for step, batch in enumerate(batches):
             n_w, n_b = wkv.launches, bg.launches
+            mark = residual_mark()
             params, opt, met = sess.step(
                 params, opt, batch, fail_ids=[3] if step == 1 else (),
                 fail_at_gemm=3)
             rep = met["fleet"]
+            res = residual_since(mark, "rwkv_full", rep)
             rows.append({
                 "step": step, "loss": rep.loss, "grad_norm": rep.grad_norm,
                 "wall_s": rep.wall_time, "fleet_exec_s": rep.fleet_exec_time,
@@ -2041,7 +2104,7 @@ def phase_rwkv_full(cfg):
                 "n_recovered": rep.n_recovered,
                 "failed_ids": list(rep.failed_ids), "verified": rep.verified,
                 "wkv_launches": wkv.launches - n_w,
-                "band_gemm_launches": bg.launches - n_b})
+                "band_gemm_launches": bg.launches - n_b, **res})
             emit({"phase": "rwkv_full_step", **rows[-1]})
     torch.cuda.synchronize()
     train_launches = {"wkv6": wkv.launches, "band_gemm": bg.launches,
@@ -2795,7 +2858,9 @@ def phase_moe_reduced(cell: str = "moe_reduced"):
         with band_gemm_audit(verify=True) as audit, \
                 band_gemm_audit(verify=True,
                                 entry="block_gemm_batched") as audit2:
+            mark = residual_mark()
             p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+            res = residual_since(mark, cell, met_f["fleet"])
         audits.append(audit)
         b2_audits.append(audit2)
         n_fa = fa.launches - n_fa
@@ -2811,6 +2876,7 @@ def phase_moe_reduced(cell: str = "moe_reduced"):
                      "n_gemms": rep.n_gemms, "verified": rep.verified,
                      "n_recovered": rep.n_recovered,
                      "failed_ids": list(rep.failed_ids),
+                     **res,
                      "band_gemm_checked": audit["checked"],
                      "bgemm_checked": audit2["checked"],
                      "bgemm_max_rel_err": audit2["max_rel_err"],
@@ -2936,9 +3002,11 @@ def phase_moe_full(cfg):
         with routing_log() as routes, band_gemm_audit(
                 verify=True, entry="block_gemm_batched") as audit, \
                 band_gemm_audit(verify=False) as b1_audit:
+            mark = residual_mark()
             params, opt, met = sess.step(
                 params, opt, batch, fail_ids=[3] if step == 1 else (),
                 fail_at_gemm=30)
+            res = residual_since(mark, "moe_full", met["fleet"])
         audits.append(audit)
         b1_audits.append(b1_audit)
         if step == 0:
@@ -2955,7 +3023,7 @@ def phase_moe_full(cfg):
             "bgemm_launches": bg.batched_launches - n_b2,
             "bgemm_checked_against_plain": audit["checked"],
             "bgemm_max_rel_err": audit["max_rel_err"],
-            "band_gemm_launches": bg.launches - n_b1})
+            "band_gemm_launches": bg.launches - n_b1, **res})
         emit({"phase": "moe_full_step", **rows[-1]})
     torch.cuda.synchronize()
     train_b2 = bg.batched_launches
@@ -3205,9 +3273,11 @@ def phase_mla_full(cfg):
         with routing_log() as routes, band_gemm_audit(
                 verify=False, entry="block_gemm_batched") as audit, \
                 band_gemm_audit(verify=False) as b1_audit:
+            mark = residual_mark()
             params, opt, met = sess.step(
                 params, opt, batch, fail_ids=[3] if step == 1 else (),
                 fail_at_gemm=fail_at, donate=True)
+            res = residual_since(mark, "mla_full", met["fleet"])
         audits.append(audit)
         b1_audits.append(b1_audit)
         if step == 0:
@@ -3223,7 +3293,7 @@ def phase_mla_full(cfg):
             "failed_ids": list(rep.failed_ids), "verified": rep.verified,
             "bgemm_launches": bg.batched_launches - n_b2,
             "band_gemm_launches": bg.launches - n_b1,
-            "flash_launches": fa.launches - n_fa})
+            "flash_launches": fa.launches - n_fa, **res})
         emit({"phase": "mla_full_step", **rows[-1]})
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3561,7 +3631,9 @@ def phase_family_reduced(cell: str):
         p_m, o_m, met_m = mono(p_m, o_m, batch)
         n_fa = fa.launches
         with band_gemm_audit(verify=True) as audit:
+            mark = residual_mark()
             p_f, o_f, met_f = sess.step(p_f, o_f, batch, **fail)
+            res = residual_since(mark, cell, met_f["fleet"])
         audits.append(audit)
         n_fa = fa.launches - n_fa
         p_c, o_c, _ = ctl.step(p_c, o_c, batch, **fail)
@@ -3577,6 +3649,7 @@ def phase_family_reduced(cell: str):
                      "verified": rep.verified,
                      "n_recovered": rep.n_recovered,
                      "failed_ids": list(rep.failed_ids),
+                     **res,
                      "band_gemm_checked": audit["checked"],
                      "band_gemm_max_rel_err": audit["max_rel_err"],
                      "flash_launches": n_fa})
@@ -3776,9 +3849,11 @@ def phase_family_full(cfg):
     for step, batch in enumerate(batches):
         n_b1, n_fa = bg.launches, fa.launches
         with band_gemm_audit(verify=False) as audit:
+            mark = residual_mark()
             params, opt, met = sess.step(
                 params, opt, batch, fail_ids=[3] if step == 1 else (),
                 fail_at_gemm=fail_at, donate=donate)
+            res = residual_since(mark, cell, met["fleet"])
         audits.append(audit)
         rep = met["fleet"]
         rows.append({
@@ -3789,7 +3864,7 @@ def phase_family_full(cfg):
             "n_tasks": rep.n_tasks, "n_recovered": rep.n_recovered,
             "failed_ids": list(rep.failed_ids), "verified": rep.verified,
             "band_gemm_launches": bg.launches - n_b1,
-            "flash_launches": fa.launches - n_fa})
+            "flash_launches": fa.launches - n_fa, **res})
         emit({"phase": f"{cell}_step", **rows[-1]})
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4093,13 +4168,17 @@ def phase_multips_reduced():
     with outer_round_probe(check_monolithic=True) as probe:
         st_c = copying.init(_own(params), _own(opt))
         bg.launches = fa.launches = 0
+        mark = residual_mark()
         with band_gemm_audit(verify=True) as audit:
             st_c, m1 = copying.step(st_c, shards(0))
+        first_res = residual_since(mark, "multips_reduced",
+                                   m1["multi_ps"].island_reports)
         drift = not tree_bit_equal(st_c.island_params[0],
                                    st_c.island_params[1])
         st_c, m2 = copying.step(st_c, shards(1))
         launches = {"band_gemm": bg.launches,
-                    "flash_attention": fa.launches}
+                    "flash_attention": fa.launches,
+                    "first_step": first_res}
         donated = session(2)
         st_d = donated.init(_own(params), _own(opt))
         for step in range(2):
@@ -4290,6 +4369,7 @@ def phase_multips_full(cfg):
     with outer_round_probe(check_monolithic=False) as probe:
         for step, kw in enumerate(plan):
             n_b1, n_fa = bg.launches, fa.launches
+            mark = residual_mark()
             # one batch an island alive at the step's start
             batch = batches[step][:sess.n_islands]
             with band_gemm_audit(verify=False) as audit:
@@ -4301,6 +4381,7 @@ def phase_multips_full(cfg):
                     isl0.__dict__.pop("step", None)
             audits.append(audit)
             rep = met["multi_ps"]
+            res = residual_since(mark, "multips_full", rep.island_reports)
             torch.cuda.synchronize()
             rows.append({
                 "step": step + 1, "round": rep.round, "synced": rep.synced,
@@ -4328,7 +4409,7 @@ def phase_multips_full(cfg):
                     st.island_params[0], st.island_params[1])
                     if st.n_islands > 1 else None),
                 "band_gemm_launches": bg.launches - n_b1,
-                "flash_launches": fa.launches - n_fa,
+                "flash_launches": fa.launches - n_fa, **res,
                 "max_memory_allocated_gb":
                     torch.cuda.max_memory_allocated() / 1e9})
             emit({"phase": "multips_full_step", **rows[-1]})
@@ -4479,14 +4560,16 @@ def phase_batch(cfg):
         cache = rt._pad_cache
         h0, m0 = (cache.hits, cache.misses) if cache else (0, 0)
         bg.launches = 0
+        mark = residual_mark()
         rep = rt.execute_batch(8, 128, backend="torch", dtype_policy="f32",
                                seed=0, **kw)
         torch.cuda.synchronize()
+        res = residual_since(mark, "batch", rep.steps)
         hits, misses = rt._pad_cache.hits - h0, rt._pad_cache.misses - m0
         row = {"walk": name, "dispatch": rep.dispatch,
                "wall_s": rep.wall_time, "n_gemms": len(rep.steps),
                "n_levels": rep.n_levels, "n_tasks": rep.n_tasks,
-               "band_gemm_launches": bg.launches,
+               "band_gemm_launches": bg.launches, **res,
                "verified": rep.verified, "n_recovered": rep.n_recovered,
                "n_redispatched": rep.n_redispatched,
                "predicted_gemm_time_s": rep.predicted_gemm_time,
@@ -4628,10 +4711,84 @@ def residual_audit():
         fv.residuals_cuda = real
 
 
+def sign_probe(As, b_op, meta, geom, seed: int, task_ids,
+               at: float) -> dict:
+    """Holds the signs the residual path draws to ``ops.rademacher``'s, bit
+    for bit, through the residuals themselves (:func:`freivalds.residuals`:
+    the kernel on CUDA operands, the plain version on CPU ones).  The
+    bucket of ``meta`` (packed for ``seed`` and ``task_ids``, its
+    poisoning cleared) runs on zero operands shaped as ``As`` and
+    ``b_op``, and band products that are zero but for up to 23 powers of
+    two a rectangle, on an L of one column and one row through the point
+    at the share ``at`` of its rows and columns.  So each rhs is a sum of
+    ±2^k, exact in f32 in any order, that names each sign product r[m]·s[q]
+    it holds; lhs is 0 and the scale the sum of the powers."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import freivalds as fv
+    from repro_torch.kernels import ops
+    host = meta.cpu().numpy().copy()
+    f = fv.unpack(host, geom)
+    f["corrupt"][:] = 0.0                 # a view into host
+    Gb, pm, _ = As.shape
+    qk, it = b_op.shape[1], geom.iters
+    r = ops.rademacher(seed, task_ids, it, pm, 0, "cpu").double()
+    s = ops.rademacher(seed, task_ids, it, qk, 1, "cpu").double()
+    want = torch.zeros((geom.rects, 2 * it + 1), dtype=torch.float64)
+    at_b, at_m, at_q, vals = [], [], [], []
+    for g in range(geom.rects):
+        b = int(f["bidx"][g])
+        h, c0, c1 = int(f["h"][b]), int(f["c0"][g]), int(f["c1"][g])
+        m0 = min(int(at * h), h - 1)
+        q0 = min(c0 + int(at * (c1 - c0)), c1 - 1)
+        # 12 rows and 12 columns through (m0, q0), inside the rectangle
+        r_lo = min(max(m0 - 6, 0), max(h - 12, 0))
+        c_lo = min(max(q0 - 6, c0), max(c1 - 12, c0))
+        rows = range(r_lo, min(r_lo + 12, h))
+        cols = range(c_lo, min(c_lo + 12, c1))
+        pts = [(m, q0) for m in rows] + [(m0, q) for q in cols if q != q0]
+        for k, (m, q) in enumerate(pts):
+            want[g, it:2 * it] += r[g, :, m] * s[g, :, q] * 2.0 ** k
+            want[g, -1] += 2.0 ** k
+            at_b.append(b)
+            at_m.append(int(m))
+            at_q.append(int(q))
+            vals.append(2.0 ** k)
+    dev = As.device
+    C = torch.zeros((Gb, pm, qk), dtype=torch.float32, device=dev)
+    where = tuple(torch.as_tensor(x, device=dev) for x in (at_b, at_m, at_q))
+    C[where] = torch.as_tensor(vals, dtype=torch.float32, device=dev)
+    got = fv.residuals(torch.zeros_like(As), torch.zeros_like(b_op), C,
+                       fv.to_device(host, dev), geom).double().cpu()
+    return {"sign_products": len(vals) * it,
+            "signs_equal": torch.equal(got, want)}
+
+
+def freivalds_flagged(runs, results, n: int, policy) -> set:
+    """The rectangles (global task ids) that fail the executor's acceptance
+    test (``torch_executor.finalize``: ``|lhs - rhs|`` within
+    ``policy.freivalds_rtol(n, area)`` of ``|rhs|`` plus the scale) for
+    each bucket run and its ``(rects, 2 iters + 1)`` residuals."""
+    import numpy as np
+    flagged = set()
+    for run, res in zip(runs, results):
+        it = (res.shape[1] - 1) // 2
+        lhs, rhs, scale = res[:, :it], res[:, it:2 * it], res[:, -1]
+        areas = run.band_hs[run.bidx].astype(np.int64) \
+            * (run.c1s - run.c0s).astype(np.int64)
+        rtols = np.array([policy.freivalds_rtol(n, int(a)) for a in areas])
+        ok = np.all(np.abs(lhs - rhs) <= rtols[:, None] * np.abs(rhs)
+                    + (rtols * (scale + 1e-30))[:, None], axis=1)
+        flagged |= {int(run.idx[g]) for g in np.flatnonzero(~ok)}
+    return flagged
+
+
 def phase_freivalds():
     """The fused residual kernel at the benchmark cell's own buckets, held
-    to its plain version, its signs to ``ops.rademacher`` and its verdicts
-    to the executor's acceptance test; each GEMM's buckets timed."""
+    to its plain version, its signs to ``ops.rademacher`` (through its
+    residuals, :func:`sign_probe`) and its verdicts to the executor's
+    acceptance test (:func:`freivalds_flagged`); each GEMM's buckets
+    timed."""
     import numpy as np
     import torch
     from repro_torch.api import Fleet, TorchCleaveRuntime
@@ -4647,16 +4804,9 @@ def phase_freivalds():
     rt = TorchCleaveRuntime(arch="deepseek-v2-236b", device=dev,
                             fleet=Fleet.sample(16, seed=0,
                                                phone_fraction=0.6))
-    # the signs at the cell's widest product, bit for bit
-    keys = fv.probe_keys(2 ** 31 + 17, np.arange(16) * 131 + 5, 2, 1)
-    sign_equal = torch.equal(
-        fv.signs_cuda(keys, 102400, dev),
-        ops.rademacher(2 ** 31 + 17, np.arange(16) * 131 + 5, 2, 102400, 1,
-                       dev))
-    check(sign_equal, "freivalds: the kernel's signs differ from "
-          "ops.rademacher's")
+    seed = 2 ** 31 - 99
     gen = torch.Generator(device=dev).manual_seed(29)
-    rows = []
+    rows, probes = [], []
     for name, m, n, q in FREIVALDS_GEMMS:
         gemm = cm.GEMM(m=m, n=n, q=q, b=2)
         plan, _ = rt._solve_gemm(gemm)
@@ -4671,33 +4821,28 @@ def phase_freivalds():
             with residual_audit() as audit:
                 runs = ops.plan_gemm_buckets(
                     A.to(getattr(torch, dt)), B.to(getattr(torch, dt)),
-                    rects, compute_dtype=dt, verify_seed=2 ** 31 - 99,
+                    rects, compute_dtype=dt, verify_seed=seed,
                     corrupt=corrupt, device=dev)
                 torch.cuda.synchronize()
             calls = fv.launches - n0
-            flagged, poisoned = set(), set(np.flatnonzero(corrupt).tolist())
-            for run in runs:
-                hs = run.band_hs[run.bidx].astype(np.int64)
-                ws = (run.c1s - run.c0s).astype(np.int64)
-                rtols = policy.freivalds_c * policy.eps * np.sqrt(
-                    n / np.maximum(hs * ws, 1))
-                ok = np.all(np.abs(run.lhs - run.rhs)
-                            <= rtols[:, None] * np.abs(run.rhs)
-                            + (rtols * (run.scale + 1e-30))[:, None], axis=1)
-                flagged |= {int(run.idx[g]) for g in np.flatnonzero(~ok)}
-            # the plain version's verdicts on the same launches
-            plain_flagged = set()
-            for (*_, geom, res), run in zip(audit["calls"], runs):
-                it = geom.iters
-                hs = run.band_hs[run.bidx].astype(np.int64)
-                ws = (run.c1s - run.c0s).astype(np.int64)
-                rtols = policy.freivalds_c * policy.eps * np.sqrt(
-                    n / np.maximum(hs * ws, 1))
-                lhs, rhs, sc = res[:, :it], res[:, it:2 * it], res[:, -1]
-                ok = np.all(np.abs(lhs - rhs) <= rtols[:, None] * np.abs(rhs)
-                            + (rtols * (sc + 1e-30))[:, None], axis=1)
-                plain_flagged |= {int(run.idx[g])
-                                  for g in np.flatnonzero(~ok)}
+            poisoned = set(np.flatnonzero(corrupt).tolist())
+            # the kernel's verdicts and the plain version's, on the same
+            # launches
+            flagged = freivalds_flagged(runs, [np.concatenate(
+                [r.lhs, r.rhs, r.scale[:, None]], 1) for r in runs], n,
+                policy)
+            plain_flagged = freivalds_flagged(
+                runs, [c[-1] for c in audit["calls"]], n, policy)
+            # the signs of each bucket, bit for bit, at the first, the
+            # middle and the last row and column of every rectangle
+            for (As, b_op, _, meta, geom, _), run in zip(audit["calls"],
+                                                         runs):
+                for at in (0.0, 0.5, 1.0):
+                    probes.append(sign_probe(As, b_op, meta, geom, seed,
+                                             run.idx, at))
+                    check(probes[-1]["signs_equal"], f"freivalds: {name} "
+                          f"{dt}: the kernel's signs at {at} of each "
+                          "rectangle differ from ops.rademacher's")
             # each bucket timed: the kernel with the host's gaps hidden,
             # the plain version by events (its copies block the host)
             ms = plain_ms = bound = 0.0
@@ -4739,7 +4884,9 @@ def phase_freivalds():
             check(pol != "f32" or row["poisoned_flagged"] == len(poisoned),
                   f"freivalds: {name} f32 lets a poisoned rectangle pass")
         del A, B
-    out = {"phase": "freivalds", "signs_bit_equal": sign_equal,
+    out = {"phase": "freivalds",
+           "signs_bit_equal": all(p["signs_equal"] for p in probes),
+           "sign_products_held": sum(p["sign_products"] for p in probes),
            "launches": sum(r["launches"] for r in rows),
            "phase_s": time.perf_counter() - t_phase}
     emit(out)
@@ -5076,6 +5223,7 @@ def phase_examples():
         dec.launches = dec.flash_decode_launches = 0
         fa.launches = wkv6.launches = 0
         reset_body_counts()
+        mark = residual_mark()
         t0 = time.perf_counter()
         with band_gemm_audit(verify=True) as audit, \
                 attention_audit() as attn:
@@ -5083,6 +5231,8 @@ def phase_examples():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {"band_gemm": bg.launches, "paged_decode": dec.launches,
+                  "freivalds": residual_since(mark, "examples")[
+                      "freivalds_launches"],
                   "flash_attention": fa.launches,
                   "flash_decode": dec.flash_decode_launches,
                   "block_gemm_batched": bg.batched_launches,
@@ -5924,7 +6074,11 @@ def main(argv=None) -> int:
                            "(src/repro/kernels/ops.py:169); one product and "
                            "one operand launch a bucket, signs hashed in "
                            "registers, fixed-order partial sums",
-             "launches": fv["launches"],
+             # one a verified bucket of every path on the card, each
+             # phase's count held to its buckets (residual_since)
+             "launches": sum(RESIDUALS_BY_PHASE.values()),
+             "launches_by_phase": dict(RESIDUALS_BY_PHASE),
+             "checked_launches": fv["launches"],
              "signs_bit_equal": fv["signs_bit_equal"],
              "ms_of": "each GEMM's buckets, with the host's gaps hidden "
                       "(plain: by events)",

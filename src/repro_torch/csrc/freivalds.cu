@@ -423,13 +423,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-__global__ void signs_kernel(const uint32_t* __restrict__ keys, int n_keys,
-                             int n, float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < (long long)n_keys * n)
-    out[e] = probe_sign(keys[e / n], uint32_t(e % n));
-}
-
 template <typename T>
 int launch_product(const void* b, long long s_bk, void* c, long long s_cb,
                    long long s_cm, void* meta, void* t, void* cpart, int Gb,
@@ -531,19 +524,4 @@ extern "C" int freivalds_operands_bf16(const void* a, long long s_ag,
   return launch_operands<uint16_t>(a, s_ag, s_am, t, meta, cpart, apart, res,
                                    Gb, Gr, iters, nk, np, tx_n, k_tiles,
                                    row_tiles, groups, c_parts, stream);
-}
-
-// the kernels' signs alone: out[j, ix] for key j and ix < n (float32), for
-// holding them to ops.rademacher bit for bit
-extern "C" int freivalds_signs(const void* keys, int n_keys, int n,
-                               void* out, void* stream) {
-  const long long total = (long long)n_keys * n;
-  if (n_keys < 0 || n < 0) return (int)cudaErrorInvalidValue;
-  if (total == 0) return (int)cudaGetLastError();
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  signs_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(keys), n_keys, n,
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
 }

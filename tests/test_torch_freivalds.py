@@ -245,6 +245,71 @@ def test_cuda_entry_refuses_what_it_does_not_take(rng):
                      geom)
 
 
+def _smoke():
+    """``chip_smoke.py`` as a module (its phases import torch lazily)."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("at", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("case", sorted(BUCKETS))
+def test_sign_probe_reads_rademachers_signs(case, at, rng):
+    """The probe that holds the kernel's signs on the card reads, through
+    the plain version's residuals, exactly ``ops.rademacher``'s sign
+    products, and a draw under another seed differs."""
+    As, b_op, _, h = _bucket(rng, **BUCKETS[case])
+    meta, geom = _pack(h)
+    smoke = _smoke()
+    got = smoke.sign_probe(As, b_op, torch.from_numpy(meta), geom,
+                           h["seed"], h["task_ids"], at)
+    assert got["signs_equal"] and got["sign_products"] > 0
+    other = smoke.sign_probe(As, b_op, torch.from_numpy(meta), geom,
+                             h["seed"] + 1, h["task_ids"], at)
+    assert not other["signs_equal"]
+
+
+def test_kernel_launches_through_one_op(monkeypatch, rng):
+    """The two launches run inside one op of the dispatcher (which a
+    profiler records where the bucket runs), on the scratch the result is
+    read from, C and the packed buffer as given."""
+    op = fv._op()
+    assert op is fv._op()
+    schema = str(op.default._schema)
+    assert "Tensor(a!) C" in schema and "int[] dims" in schema
+    As, b_op, C, h = _bucket(rng, **BUCKETS["bands"])
+    meta, geom = _pack(h)
+    meta_t = torch.from_numpy(meta)
+    p = fv.plan(As.shape[2], As.shape[1], geom)
+    sizes = fv._scratch_sizes(geom.bands, As.shape[2], geom.rects,
+                              geom.iters, p)
+    scratch = torch.zeros(sum(sizes))
+    calls = {}
+
+    def kernel(name):
+        def launch(*args):
+            calls[name] = args
+            return 0
+        return launch
+    monkeypatch.setattr(fv, "_kernel", kernel)
+    monkeypatch.setattr(fv, "_on_card", lambda device, launch: launch(7))
+    fv._launch(As, b_op, C, meta_t, scratch,
+               [geom.rects, geom.iters] + [p[k] for k in fv._PLAN_KEYS])
+    t, cpart, apart, res = torch.split(scratch, sizes)
+    prod, opnd = calls["product_f32"], calls["operands_f32"]
+    assert prod[0] == b_op.data_ptr() and prod[2] == C.data_ptr()
+    assert prod[5] == meta_t.data_ptr() and prod[-1] == 7
+    assert (prod[6], prod[7]) == (t.data_ptr(), cpart.data_ptr())
+    assert opnd[0] == As.data_ptr() and opnd[-1] == 7
+    assert opnd[3:8] == (t.data_ptr(), meta_t.data_ptr(), cpart.data_ptr(),
+                         apart.data_ptr(), res.data_ptr())
+    assert res.data_ptr() == scratch[-sizes[-1]:].data_ptr()
+    assert opnd[-2] == p["row_tiles"] * p["splits"]
+
+
 @pytest.mark.parametrize("nk,pm,most,width,want", [
     # the LM head's dW at the benchmark's cell: one band of 5,120 rows, 16
     # rectangles of 6,400 columns over a contraction of 256
@@ -319,9 +384,19 @@ def test_kernel_matches_plain_on_card(cuda, case, dtype, aligned, rng):
 
 
 @pytest.mark.gpu
-def test_kernel_signs_are_rademachers_on_card(cuda):
-    keys = fv.probe_keys(2 ** 31 - 5, np.arange(37) * 7919, 2, 1)
-    got = fv.signs_cuda(keys, 3000, cuda)
-    want = ops.rademacher(2 ** 31 - 5, np.arange(37) * 7919, 2, 3000, 1,
-                          cuda)
-    assert torch.equal(got, want)
+@pytest.mark.parametrize("at", [0.0, 0.5, 1.0])
+def test_kernel_signs_are_rademachers_on_card(cuda, at, rng):
+    """The kernel's signs, read through its residuals
+    (``chip_smoke.sign_probe``), are ``ops.rademacher``'s bit for bit, at a
+    large seed and task ids, over a product 37,000 columns wide."""
+    h = dict(hs=[256], pm=256, nk=128, qk=37000,
+             windows=[_even(37000, 16)])
+    As, b_op, _, host = _bucket(rng, seed=2 ** 31 - 5, **h)
+    host["task_ids"] = np.arange(16) * 7919 + 2 ** 20
+    meta, geom = _pack(host)
+    n0 = fv.launches
+    got = _smoke().sign_probe(As.to(cuda), b_op.to(cuda),
+                              torch.from_numpy(meta), geom, 2 ** 31 - 5,
+                              host["task_ids"], at)
+    assert fv.launches == n0 + 1
+    assert got["signs_equal"] and got["sign_products"] == 16 * 23 * 2
